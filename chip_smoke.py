@@ -1,0 +1,488 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each of which stops the run with a non-zero exit on any error:
+
+1. device  — the card's name and power limit; TF32 off for matmuls and
+   cuDNN, so float32 comparisons are float32.
+2. build   — compile both hand-written kernels from ``csrc/`` with nvcc
+   (one process per source, in parallel) and print ``-Xptxas -v``.
+3. kernels — each kernel against its plain PyTorch version at the main
+   path's shapes (paged decode q [8,4,3,64]; paged extend Sx = 32 and 5;
+   page size 16; scattered page tables with unmapped tails, positions
+   mid-page, an empty batch slot; window None and 48) in float32,
+   bfloat16 and int8 KV; then kernel and plain-version times from CUDA
+   events beside the least time the card could take (bytes over HBM rate
+   against operations over peak rate).
+4. serve   — reflect_demo_100m at full width (12 layers, d_model 768,
+   bf16 activations, fp32 parameters, seeded random weights) through the
+   port's ``Engine``: 8 conversations of a few hundred tokens, 3
+   reflection rounds of 64 new tokens with the suffix [99, 98], paged KV,
+   chunked prefill, prefix cache and self-speculative decoding; then a
+   shorter int8-KV run.  Launch counters are reset just before each run
+   and read just after; both kernels must have launched.  Then a
+   profiler summary of device time by kernel, and a check that the
+   model's logits on the card agree with the plain path on the CPU.
+5. result  — a JSON line of kernel records, the card line, and last the
+   JSON status line.
+
+Exits non-zero without a result when no CUDA device is present, or when
+the port's sources are not next to this script.
+"""
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
+PEAK_OPS = {torch.bfloat16: 989e12,       # dense tensor-core bf16
+            torch.float32: 67e12}         # float32 outside tensor cores
+REPLACES = {"paged_decode": "src/repro/kernels/paged_attention.py:102",
+            "paged_extend": "src/repro/kernels/paged_extend.py:121"}
+SOURCES = {"paged_decode": "src/repro_torch/kernels/csrc/paged_decode.cu",
+           "paged_extend": "src/repro_torch/kernels/csrc/paged_extend.cu"}
+STEP_KINDS = ("mixed_steps", "decode_batch_steps", "verify_steps")
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+# --------------------------------------------------------------- 1. device
+
+def phase_device() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"[device] {smi}; torch {torch.__version__} cuda "
+        f"{torch.version.cuda}; {torch.cuda.get_device_name(0)} x "
+        f"{torch.cuda.device_count()}")
+    log(f"[device] allow_tf32: matmul="
+        f"{torch.backends.cuda.matmul.allow_tf32} cudnn="
+        f"{torch.backends.cudnn.allow_tf32}")
+    return smi
+
+
+# ---------------------------------------------------------------- 2. build
+
+def phase_build():
+    from repro_torch.kernels import cuda_lib
+    t0 = time.perf_counter()
+    logs = cuda_lib.build()
+    log(f"[build] {len(logs)} kernel libraries in "
+        f"{time.perf_counter() - t0:.1f}s")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if line.strip():
+                log(f"[build] {name}: {line.strip()}")
+
+
+# -------------------------------------------------------------- 3. kernels
+
+def make_inputs(seed, B, Sx, K, G, hd, ps, NP, dtype, quant, dev):
+    """Scattered pages of a full pool, unmapped tails past each row's
+    frontier, positions mid-page, and batch slot B-1 empty."""
+    from repro_torch.kernels import kv_quant
+    g = torch.Generator().manual_seed(seed)
+    P = B * NP
+    q = torch.randn(B, Sx, K, G, hd, generator=g)
+    kp = torch.randn(P, ps, K, hd, generator=g)
+    vp = torch.randn(P, ps, K, hd, generator=g)
+    pt = torch.randperm(P, generator=g)[:B * NP].view(B, NP).to(torch.int32)
+    last = torch.randint(ps * 4, NP * ps - ps, (B,), generator=g)
+    last = last - last % ps + ps // 2 - 1          # mid-page frontier
+    pos0 = (last - (Sx - 1)).to(torch.int32)
+    for b in range(B):
+        pt[b, int(last[b]) // ps + 1:] = -1
+    pt[B - 1] = -1
+    sc = {}
+    if quant:
+        kp, ks, kz = kv_quant.quantize_k(kp)
+        vp, vs = kv_quant.quantize_v(vp)
+        sc = {"k_scale": ks.to(dev), "k_zero": kz.to(dev),
+              "v_scale": vs.to(dev)}
+    else:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    return (q.to(dev, dtype), kp.to(dev), vp.to(dev), pt.to(dev),
+            pos0.to(dev), sc)
+
+
+def work(q, kp, pt, pos0, sc, window):
+    """Bytes the function must move and operations it must do on this
+    data: every valid K/V slot read once (with its int8 sidecars), q read,
+    out written, table and positions read; 4 * hd operations per (query
+    row, valid slot) for QK^T and PV."""
+    B, Sx, K, G, hd = q.shape
+    ps = kp.shape[1]
+    pt_h, pos_h = pt.cpu().numpy(), pos0.cpu().numpy()
+    t = np.arange(pt_h.shape[1] * ps)
+    union = pairs = 0
+    for b in range(B):
+        mapped = np.repeat(pt_h[b] >= 0, ps)
+        seen = np.zeros_like(mapped)
+        for lane in range(Sx):
+            p = pos_h[b] + lane
+            v = mapped & (t <= p)
+            if window is not None:
+                v &= t > p - window
+            pairs += int(v.sum())
+            seen |= v
+        union += int(seen.sum())
+    slot_bytes = 2 * K * hd * kp.element_size() + (3 * K * 4 if sc else 0)
+    nbytes = (union * slot_bytes + 2 * q.numel() * q.element_size()
+              + pt.numel() * 4 + pos0.numel() * 4)
+    ops = 4 * hd * G * K * pairs
+    return nbytes, ops
+
+
+def bound_ms(nbytes, ops, dtype):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def cuda_ms(fn, n=30, flush=None):
+    """Mean milliseconds per call from CUDA events after a warm-up.  With
+    ``flush`` (a 256 MB write) before every call, L2 holds none of the
+    inputs: the cold-L2 time; without it, the warm-L2 time."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    if flush is None:
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        for _ in range(n):
+            fn()
+        e.record()
+        torch.cuda.synchronize()
+        return s.elapsed_time(e) / n
+    total = 0.0
+    for _ in range(n):
+        flush()
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        total += s.elapsed_time(e)
+    return total / n
+
+
+def phase_kernels(dev):
+    from repro_torch.kernels import ops, ref
+    B, K, G, hd, ps, NP = 8, 4, 3, 64, 16, 128      # max_seq 2048 / 16
+    cases = [("paged_decode", 1), ("paged_extend", 32), ("paged_extend", 5)]
+    kernels = {"paged_decode": ops.paged_decode_attention,
+               "paged_extend": ops.paged_extend_attention}
+    plains = {"paged_decode": ref.paged_decode_attention_ref,
+              "paged_extend": ref.paged_extend_attention_ref}
+    # (label, activation dtype, int8 pool, tolerance)
+    modes = (("float32", torch.float32, False, 1e-4),
+             ("bfloat16", torch.bfloat16, False, 2e-2),
+             ("int8", torch.float32, True, 1e-4),
+             ("int8+bf16", torch.bfloat16, True, 2e-2))
+    flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+    flush = flush_buf.zero_
+    records = {}
+    seed = 0
+    for name, Sx in cases:
+        for mode, dtype, quant, tol in modes:
+            for window in (None, 48):
+                seed += 1
+                q, kp, vp, pt, pos0, sc = make_inputs(
+                    seed, B, Sx, K, G, hd, ps, NP, dtype, quant, dev)
+                if name == "paged_decode":
+                    q = q[:, 0].contiguous()
+                kern = lambda: kernels[name](q, kp, vp, pt, pos0,
+                                             window=window, **sc)
+                got = kern()
+                torch.cuda.synchronize()
+                # the plain version in float32 on the same (rounded) inputs
+                fp = (lambda t: t.float() if t.is_floating_point() else t)
+                want = plains[name](fp(q), fp(kp), fp(vp), pt, pos0,
+                                    window=window, **sc)
+                err = float((got.float() - want).abs().max())
+                ok = bool(torch.isfinite(got).all()) and torch.allclose(
+                    got.float(), want, atol=tol,
+                    rtol=0.0 if dtype == torch.bfloat16 else tol)
+                log(f"[kernels] {name} Sx={Sx} {mode} window={window}: "
+                    f"max_abs_err={err:.3e} (tol {tol}) "
+                    f"{'ok' if ok else 'MISMATCH'}")
+                if not ok:
+                    raise AssertionError(f"{name} {mode} window={window} "
+                                         f"disagrees with its plain version")
+                if window is not None:
+                    continue
+                plain = lambda: plains[name](q, kp, vp, pt, pos0,
+                                             window=window, **sc)
+                q5 = q if q.dim() == 5 else q[:, None]
+                nbytes, nops = work(q5, kp, pt, pos0, sc, window)
+                bms, by = bound_ms(nbytes, nops, dtype)
+                rec = {"ms": cuda_ms(kern, flush=flush),
+                       "warm_ms": cuda_ms(kern),
+                       "plain_ms": cuda_ms(plain, n=10, flush=flush),
+                       "bound_ms": bms, "bound_by": by,
+                       "max_abs_err": err, "bytes": nbytes, "ops": nops}
+                log(f"[kernels] {name} Sx={Sx} {mode}: kernel "
+                    f"{rec['ms']:.4f} ms cold-L2 / {rec['warm_ms']:.4f} ms "
+                    f"warm-L2, plain {rec['plain_ms']:.4f} ms cold-L2, "
+                    f"bound {bms:.4f} ms by {by} ({nbytes} B, {nops} ops, "
+                    f"HBM {nbytes / rec['ms'] / 1e6:.1f} GB/s)")
+                records[(name, Sx, mode)] = rec
+    return records
+
+
+# ---------------------------------------------------------------- 4. serve
+
+def serve(model, kv_dtype, rounds, max_new, seed):
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import Request, Status
+    scfg = ServeConfig(max_batch=8, max_seq=2048, page_size=16,
+                       spec_decode=True, spec_tokens=4, kv_dtype=kv_dtype)
+    eng = Engine(model, scfg, device="cuda")
+    rng = np.random.default_rng(seed)
+    convos = [[1] + rng.integers(3, model.cfg.vocab_size, n).tolist()
+              for n in rng.integers(200, 400, 8)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    hits = []
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        h0 = eng.prefix_cache.stats["hits"]
+        reqs = [Request(prompt=list(c), max_new_tokens=max_new, eos_id=None)
+                for c in convos]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        if not all(r.status is Status.DONE and len(r.output) == max_new
+                   for r in reqs):
+            raise AssertionError("a request did not finish")
+        hits.append(eng.prefix_cache.stats["hits"] - h0)
+        for c, r in zip(convos, reqs):
+            c += r.output + [99, 98]              # reflection suffix
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    eng.pool.check()
+    st = eng.stats()
+    peak = torch.cuda.max_memory_allocated()
+    steps = {k: st[k] for k in ("mixed_steps", "decode_batch_steps",
+                                "verify_steps", "prefill_tokens",
+                                "extend_tokens", "decode_tokens",
+                                "spec_drafted", "spec_accepted",
+                                "preemptions")}
+    processed = st["prefill_tokens"] + st["extend_tokens"] + \
+        st["decode_tokens"]
+    n_steps = sum(st[k] for k in STEP_KINDS)
+    log(f"[serve] kv={kv_dtype}: {rounds} rounds x 8 requests in "
+        f"{dt:.3f}s, {n_steps} engine steps ({dt / n_steps * 1e3:.2f} ms "
+        f"each); {st['decode_tokens'] / dt:.1f} output tok/s, "
+        f"{processed / dt:.1f} processed tok/s; steps {steps}")
+    log(f"[serve] kv={kv_dtype}: prefix hits per round {hits}; launches "
+        f"{launches}; peak memory {peak} B; "
+        f"pool {st['kv_pool_pages_used']}/{st['kv_pool_pages']} pages")
+    if any(h <= 0 for h in hits[1:]):
+        raise AssertionError("reflection rounds missed the prefix cache")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    if st["verify_steps"] <= 0:
+        raise AssertionError("no speculative verify step ran")
+    return eng, convos, launches
+
+
+def profile_round(eng, convos):
+    """Device time by kernel over one more short round, then the idle
+    share.  The profiler's own tracing slows every launch on this card's
+    host many times over, so the wall time it is set against is that of
+    the same round served again without the profiler (the second pass
+    finds one more token of each prompt cached)."""
+    from repro_torch.serving.request import Request
+    from torch.profiler import ProfilerActivity, profile
+
+    def one_round():
+        """Serve the round; returns (engine steps, wall seconds)."""
+        steps0 = sum(eng.stats()[k] for k in STEP_KINDS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for c in convos:
+            eng.submit(Request(prompt=list(c), max_new_tokens=16,
+                               eos_id=None))
+        eng.run()
+        torch.cuda.synchronize()
+        return (sum(eng.stats()[k] for k in STEP_KINDS) - steps0,
+                time.perf_counter() - t0)
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        steps, traced_s = one_round()
+    steps2, wall_s = one_round()
+
+    def dev_us(e):
+        return getattr(e, "device_time_total",
+                       getattr(e, "cuda_time_total", 0.0))
+
+    # kernel rows only: CPU-side operator rows repeat their kernels' time
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=dev_us, reverse=True)
+    busy = sum(dev_us(e) for e in rows)
+    busy_ms, wall_ms = busy / steps / 1e3, wall_s / steps2 * 1e3
+    log(f"[profile] {len(convos)} requests x 16 new tokens: {steps} engine "
+        f"steps, device busy {busy:.0f} us ({busy_ms:.3f} ms per step; "
+        f"{traced_s:.3f} s wall under the profiler); again without the "
+        f"profiler: {steps2} steps in {wall_s:.3f} s ({wall_ms:.3f} ms per "
+        f"step); idle share {1 - busy_ms / wall_ms:.3f}")
+    for e in rows[:15]:
+        if dev_us(e) > 0:
+            log(f"[profile] {dev_us(e):10.0f} us {e.count:6d} calls  "
+                f"{e.key[:90]}")
+    if busy <= 0:
+        log("[profile] the profiler saw no device time; kernel times come "
+            "from the CUDA events of the kernels phase")
+
+
+def _walk(m, prompt, feed):
+    """Logits [5, V] of a 45-token prompt prefilled in two chunks (32 +
+    13 valid lanes of 32) and four decode steps fed ``feed``, or the
+    model's own greedy tokens (appended to ``feed``) when it is empty."""
+    d = m.embed.device
+    own = not feed
+    pt = torch.arange(8, dtype=torch.int32, device=d)[None]
+    cache = m.init_cache_paged(8, 16, device=d)
+    i32 = dict(dtype=torch.int32, device=d)
+    for p0 in (0, 32):
+        chunk = prompt[:, p0:p0 + 32]
+        blk = torch.zeros(1, 32, dtype=torch.int32)
+        blk[:, :chunk.shape[1]] = chunk
+        lg, cache = m.prefill_extend(
+            cache, blk.to(d), torch.tensor([p0], **i32),
+            torch.tensor([chunk.shape[1]], **i32), page_table=pt)
+    logits = [lg.float().cpu()]
+    for i in range(4):
+        if own:
+            feed.append(int(logits[-1].argmax()))
+        lg, cache = m.decode_step(cache, torch.tensor([[feed[i]]], **i32),
+                                  torch.tensor([45 + i], **i32),
+                                  page_table=pt)
+        logits.append(lg.float().cpu())
+    return torch.cat(logits)
+
+
+def check_logits(model, dev):
+    """The model's entry points on the card against the plain path on the
+    CPU, on a small input (chunked prefill, then greedy decode steps fed
+    the CPU's tokens), at full width.
+
+    The seeded weights follow the reference's init recipe, whose q/k
+    projections (normal over fan_in = H for wq [d, H, hd]) make attention
+    nearly one-hot: a 1e-6 relative change of the weights then moves the
+    logits by O(1), so no two implementations could agree.  The check
+    prints that sensitivity on the card, for the served weights and for
+    the weights with wq and wk scaled by 1/8 (scores O(1)), and compares
+    implementations on the scaled ones."""
+    from repro_torch.models.registry import build_model
+    cfg32 = model.cfg.replace(dtype="float32")
+    served = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    soft = {k: v * (0.125 if k.endswith((".wq", ".wk")) else 1.0)
+            for k, v in served.items()}
+    g = torch.Generator().manual_seed(7)
+    prompt = torch.randint(3, model.cfg.vocab_size, (1, 45), generator=g)
+
+    def run(cfg, state, d, feed):
+        m = build_model(cfg)
+        m.load_state_dict(state)
+        return _walk(m.to(d), prompt, feed)
+
+    for label, state in (("served", served), ("q/k x 1/8", soft)):
+        noisy = {k: v * (1 + 1e-6 * torch.randn(v.shape, generator=g))
+                 for k, v in state.items()}
+        feed = []
+        a = run(cfg32, state, dev, feed)
+        b = run(cfg32, noisy, dev, feed)
+        log(f"[check] sensitivity, {label} weights, cuda fp32: a 1e-6 "
+            f"relative weight change moves logits by "
+            f"{float((a - b).abs().max()):.3e} (logit scale "
+            f"{float(a.abs().max()):.3f})")
+    feed = []
+    ref = run(cfg32, soft, torch.device("cpu"), feed)
+    out32 = run(cfg32, soft, dev, feed)
+    out16 = run(model.cfg, soft, dev, feed)
+    if not all(torch.isfinite(v).all() for v in (ref, out32, out16)):
+        raise AssertionError("non-finite logits")
+    err32 = float((out32 - ref).abs().max())
+    err16 = float((out16 - ref).abs().max())
+    cos = float(torch.nn.functional.cosine_similarity(out16, ref,
+                                                      dim=-1).min())
+    log(f"[check] logits [5, {ref.shape[-1]}], q/k x 1/8: cuda fp32 vs cpu "
+        f"fp32 max abs err {err32:.3e} (tol 1e-3); cuda bf16 vs cpu fp32 "
+        f"max abs err {err16:.3e} (tol 0.1), min cosine {cos:.6f} "
+        f"(tol 0.999)")
+    if err32 > 1e-3 or err16 > 0.1 or cos < 0.999:
+        raise AssertionError("logits on the card disagree with the CPU")
+
+
+def phase_serve(dev):
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import build_model, get_config
+    cfg = get_config("reflect_demo_100m")
+    model = build_model(cfg).init(torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {n_params} parameters ({cfg.param_dtype}), "
+        f"activations {cfg.dtype}")
+    eng, convos, launches = serve(model, "model", rounds=3, max_new=64,
+                                  seed=1)
+    serve(model, "int8", rounds=2, max_new=32, seed=2)
+    profile_round(eng, convos)
+    check_logits(model, dev)
+    ops.reset_launches()
+    return launches
+
+
+# ---------------------------------------------------------------- main
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch  # noqa: F401  (fails outside a checkout)
+
+    dev = torch.device("cuda")
+    smi = phase_device()
+    phase_build()
+    records = phase_kernels(dev)
+    launches = phase_serve(dev)
+    kernels = []
+    # paged_extend at Sx = 5: the verify steps make most of its launches
+    for name, Sx in (("paged_decode", 1), ("paged_extend", 5)):
+        rec = records[(name, Sx, "bfloat16")]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": None})
+    log(json.dumps({"kernels": kernels}))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

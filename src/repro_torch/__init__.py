@@ -1,0 +1,9 @@
+"""PyTorch/CUDA port of the ``repro`` serving stack for NVIDIA Hopper.
+
+The package mirrors ``repro``'s layout (``configs/``, ``models/``,
+``kernels/``, ``serving/``, ``launch/``) so each module's counterpart is
+easy to find, and imports nothing from ``repro`` or ``jax``.  Entry points
+run on the CUDA device unless the caller passes ``device="cpu"``; on the
+CPU the two paged-attention kernels are replaced by their plain PyTorch
+versions (``kernels/ref.py``).
+"""

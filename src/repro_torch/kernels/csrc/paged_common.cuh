@@ -1,0 +1,381 @@
+// Shared page walk of the two paged-attention kernels (paged_decode.cu,
+// paged_extend.cu): one thread block owns a tile of query rows of one
+// (request b, kv head h) pair and walks that request's page table.
+//
+// The walk goes in stages of S = 4096 / HD logical slots (64 at HD = 64),
+// whatever the page size.  Each thread loads its share of a stage's K and V
+// rows as 16-byte vectors into registers one stage ahead, so the device
+// memory reads of stage n + 1 are in flight while stage n is computed, then
+// dequantizes them (int8 pools) and stores them as float into shared memory.
+// So every slot is read from device memory once per block, whatever the
+// number of rows in the tile.  Per stage each warp scores its rows against
+// the stage's slots (a lane per slot, fp32 FMA), folds them into the online
+// softmax of those rows with warp shuffles (m and l in registers), and then
+// every thread adds p.V to its share of the fp32 [rows, HD] accumulator.
+// Three barriers per stage.
+//
+// Masking is position arithmetic, as in the TPU kernels: row r is query
+// lane r / G at absolute position pos0[b] + r / G; slot t lies on logical
+// page t / ps and is valid iff that page is mapped and t <= pos (and
+// t > pos - window when a window is set).  Slots no row of the tile can
+// attend (on unmapped pages, past the tile's last position or before its
+// window) are never read.  A row with no valid slot ends with l == 0 and is
+// written as zeros.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace paged {
+
+constexpr float kNegInf = -1e30f;  // NEG_INF of the JAX kernels
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kStageElems = 4096;       // K (and V) elements of one stage
+constexpr int kMaxSmem = 232448;        // opt-in shared memory of a block
+
+struct Args {
+  const void* q;         // [B, Sx, K, G, HD] (decode: Sx = 1)
+  const void* kp;        // [P, ps, K, HD], 16-byte aligned
+  const void* vp;        // [P, ps, K, HD], 16-byte aligned
+  const float* ks;       // [P, ps, K] int8 K scale (null for fp pools)
+  const float* kz;       // [P, ps, K] int8 K zero point
+  const float* vs;       // [P, ps, K] int8 V scale
+  const int32_t* page_table;  // [B, NP], -1 = unmapped
+  const int32_t* pos0;        // [B], absolute position of lane 0
+  void* out;             // like q
+  int B, Sx, K, G, ps, NP, window;  // window <= 0: no window
+};
+
+__host__ __device__ constexpr int stage_slots(int HD) {
+  return kStageElems / HD;
+}
+
+// Dynamic shared memory of a block of TR rows over a table of NP pages.
+__host__ __device__ constexpr size_t smem_bytes(int HD, int TR, int NP) {
+  return sizeof(float) * (TR * HD                          // q
+                          + stage_slots(HD) * (HD + 4)     // K, padded
+                          + stage_slots(HD) * HD           // V
+                          + TR * stage_slots(HD)           // p
+                          + 2 * TR)                        // rescale, l
+         + sizeof(int32_t) * NP;                           // page table
+}
+
+// Allow a kernel the dynamic shared memory it is launched with.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel* kernel, size_t smem) {
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+// The 16 / sizeof(T) pool elements of a 16-byte vector, as floats.
+template <typename T>
+__device__ __forceinline__ void unpack(const uint4& u, float* f);
+template <>
+__device__ __forceinline__ void unpack<float>(const uint4& u, float* f) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+template <>
+__device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4& u,
+                                                      float* f) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __bfloat162float(
+        __ushort_as_bfloat16(static_cast<unsigned short>(w[i] & 0xffffu)));
+    f[2 * i + 1] = __bfloat162float(
+        __ushort_as_bfloat16(static_cast<unsigned short>(w[i] >> 16)));
+  }
+}
+template <>
+__device__ __forceinline__ void unpack<int8_t>(const uint4& u, float* f) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    f[i] = static_cast<float>(static_cast<int8_t>(w[i / 4] >> (8 * (i % 4))));
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ bool slot_valid(int t, int pos, int window) {
+  return t <= pos && (window <= 0 || t > pos - window);
+}
+
+// Offset of row r = (lane, g) of (b, h) in a [B, Sx, K, G, HD] tensor.
+template <int HD>
+__device__ __forceinline__ size_t row_offset(const Args& a, int b, int h,
+                                             int r) {
+  const int lane = r / a.G, g = r % a.G;
+  return ((static_cast<size_t>(b) * a.Sx + lane) * a.K + h) *
+             static_cast<size_t>(a.G) * HD +
+         static_cast<size_t>(g) * HD;
+}
+
+// Attend rows [row0, row0 + TR) of (b, h); rows past Sx * G are padding.
+template <typename TQ, typename TKV, int HD, int TR>
+__device__ void attend_rows(const Args& a, int b, int h, int row0,
+                            float* smem) {
+  constexpr int S = stage_slots(HD);      // slots per stage
+  constexpr int SPL = S / 32;             // slots per lane when scoring
+  constexpr int RPW = TR / kWarps;        // rows per warp when scoring
+  constexpr int KST = HD + 4;             // padded K row: conflict-free
+  constexpr int VEC = 16 / sizeof(TKV);   // pool elements per 16-byte load
+  constexpr int CPR = HD / VEC;           // 16-byte loads per K or V row
+  constexpr int NV = S * CPR / kThreads;  // loads per thread per stage
+  constexpr int CH = HD / 4;              // float4 columns of a row
+  constexpr int NC = (TR * CH + kThreads - 1) / kThreads;
+  constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
+  static_assert(S % 32 == 0 && TR % kWarps == 0, "tile must split");
+  static_assert((S * CPR) % kThreads == 0, "stage must split");
+
+  const TQ* q = static_cast<const TQ*>(a.q);
+  const uint4* kp = static_cast<const uint4*>(a.kp);
+  const uint4* vp = static_cast<const uint4*>(a.vp);
+  TQ* out = static_cast<TQ*>(a.out);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int R = a.Sx * a.G;
+  const int ps = a.ps;
+
+  float* q_s = smem;              // [TR][HD], pre-scaled by HD^-0.5
+  float* k_s = q_s + TR * HD;     // [S][KST] the stage's K rows
+  float* v_s = k_s + S * KST;     // [S][HD]  the stage's V rows
+  float* p_s = v_s + S * HD;      // [TR][S]  the stage's probabilities
+  float* c_s = p_s + TR * S;      // [TR] the stage's rescale factor
+  float* l_s = c_s + TR;          // [TR] final denominators
+  int32_t* tbl_s = reinterpret_cast<int32_t*>(l_s + TR);  // pages j0..
+
+  const float scale = 1.0f / sqrtf(static_cast<float>(HD));
+  const int base = a.pos0[b];
+
+  // Slots any row of the tile can attend: [t_first, t_last].
+  const int last = min(R, row0 + TR) - 1;
+  const int t_last = min(base + last / a.G, a.NP * ps - 1);
+  const int t_first =
+      a.window > 0 ? max(0, base + row0 / a.G - a.window + 1) : 0;
+  const int j0 = t_first / ps;
+
+  if (t_first <= t_last)
+    for (int j = j0 + tid; j <= t_last / ps; j += kThreads)
+      tbl_s[j - j0] = a.page_table[static_cast<size_t>(b) * a.NP + j];
+  for (int i = tid; i < TR * HD; i += kThreads) {
+    const int r = row0 + i / HD;
+    q_s[i] = r < R ? to_float(q[row_offset<HD>(a, b, h, r) + i % HD]) * scale
+                   : 0.f;
+  }
+  __syncthreads();
+
+  uint4 kr[NV], vr[NV];
+  float ksr[NV], kzr[NV], vsr[NV];  // int8 sidecars of each load's slot
+
+  // Issue the loads of the stage starting at slot t0.
+  auto fetch = [&](int t0) {
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int idx = tid + v * kThreads;
+      const int t = t0 + idx / CPR;
+      const int phys = t <= t_last ? tbl_s[t / ps - j0] : -1;
+      kr[v] = vr[v] = make_uint4(0u, 0u, 0u, 0u);
+      ksr[v] = kzr[v] = vsr[v] = 0.f;
+      if (phys >= 0) {
+        const size_t slot = (static_cast<size_t>(phys) * ps + t % ps) * a.K + h;
+        kr[v] = __ldg(kp + slot * CPR + idx % CPR);
+        vr[v] = __ldg(vp + slot * CPR + idx % CPR);
+        if constexpr (kQuant) {
+          ksr[v] = __ldg(a.ks + slot);
+          kzr[v] = __ldg(a.kz + slot);
+          vsr[v] = __ldg(a.vs + slot);
+        }
+      }
+    }
+  };
+
+  // Dequantize the loaded stage into k_s and v_s (zeros where not loaded).
+  auto stash = [&]() {
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int idx = tid + v * kThreads;
+      const int sl = idx / CPR, c0 = (idx % CPR) * VEC;
+      float kf[VEC], vf[VEC];
+      unpack<TKV>(kr[v], kf);
+      unpack<TKV>(vr[v], vf);
+#pragma unroll
+      for (int e = 0; e < VEC; e += 4) {
+        if constexpr (kQuant) {
+#pragma unroll
+          for (int u = e; u < e + 4; ++u) {
+            kf[u] = (kf[u] + 128.f) * ksr[v] + kzr[v];
+            vf[u] = vf[u] * vsr[v];
+          }
+        }
+        *reinterpret_cast<float4*>(k_s + sl * KST + c0 + e) =
+            make_float4(kf[e], kf[e + 1], kf[e + 2], kf[e + 3]);
+        *reinterpret_cast<float4*>(v_s + sl * HD + c0 + e) =
+            make_float4(vf[e], vf[e + 1], vf[e + 2], vf[e + 3]);
+      }
+    }
+  };
+
+  float m[RPW], l[RPW];
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+  }
+  float4 acc[NC];
+#pragma unroll
+  for (int k = 0; k < NC; ++k) acc[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  if (t_first <= t_last) fetch(t_first);
+  for (int t0 = t_first; t0 <= t_last; t0 += S) {
+    stash();
+    __syncthreads();
+    if (t0 + S <= t_last) fetch(t0 + S);  // in flight during this stage
+
+    // Scores: rows warp + kWarps * i against slots lane + 32 * k.
+    float sc[RPW][SPL];
+#pragma unroll
+    for (int i = 0; i < RPW; ++i)
+#pragma unroll
+      for (int k = 0; k < SPL; ++k) sc[i][k] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < HD; d += 4) {
+      float4 kv[SPL];
+#pragma unroll
+      for (int k = 0; k < SPL; ++k)
+        kv[k] = *reinterpret_cast<const float4*>(
+            k_s + (lane + 32 * k) * KST + d);
+#pragma unroll
+      for (int i = 0; i < RPW; ++i) {
+        const float4 qv = *reinterpret_cast<const float4*>(
+            q_s + (warp + kWarps * i) * HD + d);
+#pragma unroll
+        for (int k = 0; k < SPL; ++k) {
+          float s = sc[i][k];
+          s = fmaf(qv.x, kv[k].x, s);
+          s = fmaf(qv.y, kv[k].y, s);
+          s = fmaf(qv.z, kv[k].z, s);
+          s = fmaf(qv.w, kv[k].w, s);
+          sc[i][k] = s;
+        }
+      }
+    }
+
+    bool mapped[SPL];
+#pragma unroll
+    for (int k = 0; k < SPL; ++k) {
+      const int t = t0 + lane + 32 * k;
+      mapped[k] = t <= t_last && tbl_s[t / ps - j0] >= 0;
+    }
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+      const int rl = warp + kWarps * i, r = row0 + rl;
+      const int pos = r < R ? base + r / a.G : -1;  // padding: no valid slot
+      bool ok[SPL];
+      float mx = kNegInf;
+#pragma unroll
+      for (int k = 0; k < SPL; ++k) {
+        ok[k] = mapped[k] && slot_valid(t0 + lane + 32 * k, pos, a.window);
+        if (ok[k]) mx = fmaxf(mx, sc[i][k]);
+      }
+      const float m_new = fmaxf(m[i], warp_max(mx));
+      const float corr = expf(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int k = 0; k < SPL; ++k) {
+        const float p = ok[k] ? expf(sc[i][k] - m_new) : 0.f;
+        p_s[rl * S + lane + 32 * k] = p;
+        sum += p;
+      }
+      m[i] = m_new;
+      l[i] = l[i] * corr + warp_sum(sum);
+      if (lane == 0) c_s[rl] = corr;
+    }
+    __syncthreads();
+
+    // acc = acc * corr + p . V over the stage's slots that exist.
+    const int n = (min(S, t_last - t0 + 1) + 3) & ~3;
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      const int c = tid + k * kThreads;
+      if (c < TR * CH) {
+        const int rl = c / CH, d = (c % CH) * 4;
+        const float corr = c_s[rl];
+        const float* pr = p_s + rl * S;
+        float4 x = acc[k];
+        x.x *= corr;
+        x.y *= corr;
+        x.z *= corr;
+        x.w *= corr;
+        for (int t = 0; t < n; t += 4) {
+          const float4 p4 = *reinterpret_cast<const float4*>(pr + t);
+          const float pe[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float4 v4 =
+                *reinterpret_cast<const float4*>(v_s + (t + e) * HD + d);
+            x.x = fmaf(pe[e], v4.x, x.x);
+            x.y = fmaf(pe[e], v4.y, x.y);
+            x.z = fmaf(pe[e], v4.z, x.z);
+            x.w = fmaf(pe[e], v4.w, x.w);
+          }
+        }
+        acc[k] = x;
+      }
+    }
+    __syncthreads();  // the next stage overwrites k_s, v_s, p_s and c_s
+  }
+
+#pragma unroll
+  for (int i = 0; i < RPW; ++i)
+    if (lane == 0) l_s[warp + kWarps * i] = l[i];
+  __syncthreads();
+
+#pragma unroll
+  for (int k = 0; k < NC; ++k) {
+    const int c = tid + k * kThreads;
+    const int rl = c / CH, d = (c % CH) * 4, r = row0 + rl;
+    if (c < TR * CH && r < R) {
+      const float li = l_s[rl];
+      const float o[4] = {acc[k].x, acc[k].y, acc[k].z, acc[k].w};
+      TQ* dst = out + row_offset<HD>(a, b, h, r) + d;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) store(dst + e, li > 0.f ? o[e] / li : 0.f);
+    }
+  }
+}
+
+}  // namespace paged
+
+// Readable name of a CUDA error code returned by a launch function.
+extern "C" const char* cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,0 +1,101 @@
+// Paged decode attention for Hopper (sm_90a): one query position per
+// request over a paged KV pool.
+//
+// Replaces the TPU kernel src/repro/kernels/paged_attention.py
+// (paged_decode_attention, body _paged_kernel), which walks the page table
+// through scalar prefetch on a sequential (B, K, NP) grid.
+//
+//   q          [B, K, G, HD]   float or bf16 (HD in {32, 64, 128}, G <= 8)
+//   k/v pool   [P, ps, K, HD]  same type as q, or int8 with f32 sidecars
+//   k/z/v scale[P, ps, K]      int8 only: K = (q + 128) * s + z, V = q * s
+//   page_table [B, NP] int32   -1 = unmapped
+//   pos        [B] int32       absolute position of the query
+//   out        [B, K, G, HD]   type of q
+//
+// What bounds it on the H100: device-memory bytes.  Every (b, h) reads its
+// L cached K and V rows once and does 2 * 2 * G * HD FLOP per cached token
+// against 2 * 2 * HD bytes (bf16) of K and V: at the main path's G = 3 that
+// is about 3 FLOP per byte, two orders of magnitude below the card's
+// ~295 FLOP/byte ridge, so the tensor cores would idle; fp32 FMA is enough.
+//
+// What the design does about it: one block per (b, h) streams the row's
+// slots through shared memory exactly once for all G query heads of the
+// group (the grouped-query reuse), as 16-byte loads issued one stage of
+// 4096 / HD slots ahead of the stage being computed, so a block keeps
+// 8-32 KB of K and V reads in flight (int8 to fp32 pools); it never reads
+// slots on unmapped pages, past pos or before the window, and dequantizes
+// int8 pages in registers so an int8 pool moves half the bytes of a bf16
+// one.  What still holds it back: a grid of B * K blocks (32 at max_batch
+// 8, K = 4) fills a quarter of the 132 SMs with one warp per scheduler, so
+// each stage's shared-memory chain waits exposed; splitting the page walk
+// across blocks with a second reduction pass is the next step.
+#include "paged_common.cuh"
+
+namespace {
+
+constexpr int kRows = 8;  // G <= 8 query rows per block
+
+// TR query rows per block: 4 when G <= 4, else 8.
+template <typename TQ, typename TKV, int HD, int TR>
+__global__ void __launch_bounds__(paged::kThreads)
+    paged_decode_kernel(paged::Args a) {
+  extern __shared__ float4 smem[];
+  paged::attend_rows<TQ, TKV, HD, TR>(a, blockIdx.y, blockIdx.x, 0,
+                                      reinterpret_cast<float*>(smem));
+}
+
+template <typename TQ, typename TKV, int HD, int TR>
+cudaError_t launch(const paged::Args& a, cudaStream_t stream) {
+  const size_t smem = paged::smem_bytes(HD, TR, a.NP);
+  const cudaError_t err =
+      paged::allow_smem(paged_decode_kernel<TQ, TKV, HD, TR>, smem);
+  if (err != cudaSuccess) return err;
+  paged_decode_kernel<TQ, TKV, HD, TR>
+      <<<dim3(a.K, a.B), paged::kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename TQ, typename TKV, int HD>
+cudaError_t by_rows(const paged::Args& a, cudaStream_t stream) {
+  return a.G <= 4 ? launch<TQ, TKV, HD, 4>(a, stream)
+                  : launch<TQ, TKV, HD, kRows>(a, stream);
+}
+
+template <typename TQ, typename TKV>
+cudaError_t by_head_dim(int hd, const paged::Args& a, cudaStream_t stream) {
+  switch (hd) {
+    case 32: return by_rows<TQ, TKV, 32>(a, stream);
+    case 64: return by_rows<TQ, TKV, 64>(a, stream);
+    case 128: return by_rows<TQ, TKV, 128>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// dtype: 0 = f32 q and pool, 1 = bf16 q and pool, 2 = f32 q + int8 pool,
+// 3 = bf16 q + int8 pool.  window <= 0 means no window.  Returns the
+// cudaError_t of the launch (0 = success).
+extern "C" int paged_decode(int dtype, const void* q, const void* kp,
+                            const void* vp, const void* ks, const void* kz,
+                            const void* vs, const void* page_table,
+                            const void* pos, void* out, int B, int K, int G,
+                            int hd, int ps, int NP, int window,
+                            void* stream) {
+  if (G > kRows) return cudaErrorInvalidValue;
+  const paged::Args a{q, kp, vp,
+                      static_cast<const float*>(ks),
+                      static_cast<const float*>(kz),
+                      static_cast<const float*>(vs),
+                      static_cast<const int32_t*>(page_table),
+                      static_cast<const int32_t*>(pos), out,
+                      B, 1, K, G, ps, NP, window};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return by_head_dim<float, float>(hd, a, st);
+    case 1: return by_head_dim<__nv_bfloat16, __nv_bfloat16>(hd, a, st);
+    case 2: return by_head_dim<float, int8_t>(hd, a, st);
+    case 3: return by_head_dim<__nv_bfloat16, int8_t>(hd, a, st);
+    default: return cudaErrorInvalidValue;
+  }
+}

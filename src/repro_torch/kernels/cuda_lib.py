@@ -1,0 +1,187 @@
+"""Build, load and launch the hand-written CUDA kernels in ``csrc/``.
+
+Each ``csrc/<name>.cu`` is compiled on first use by ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface and loaded with
+``ctypes`` (no PyTorch headers, so a build takes seconds).  Libraries go
+to ``build/kernels/`` at the root of the checkout, named by a hash of the
+sources and flags, so an edited source is rebuilt and an unchanged one is
+loaded as it is.  ``build()`` starts one ``nvcc`` per source, all at once.
+
+Nothing here runs at import: the CPU tests import every module on a
+machine without ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+SOURCES = {"paged_decode": "paged_decode.cu",
+           "paged_extend": "paged_extend.cu"}
+HEADERS = ("paged_common.cuh",)
+
+# Kernel launches per kernel since the last reset: each wrapper adds one
+# where it launches its kernel, and nowhere else.
+LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C signatures: (dtype, q, kp, vp, ks, kz, vs, page_table, pos, out,
+#                B, [Sx,] K, G, hd, ps, NP, window, stream)
+_ARGTYPES = {
+    "paged_decode": [_I] + [_P] * 9 + [_I] * 7 + [_P],
+    "paged_extend": [_I] + [_P] * 9 + [_I] * 8 + [_P],
+}
+_FNS: Dict[str, ctypes._CFuncPtr] = {}
+_ERR: Dict[str, ctypes._CFuncPtr] = {}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME or put nvcc on PATH)")
+    return path
+
+
+def _library_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in (SOURCES[name],) + HEADERS:
+        h.update((CSRC / f).read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, str]:
+    """Compile every named kernel library that is not built yet, one
+    ``nvcc`` process per source, all started together.  Returns each
+    kernel's compiler log (``-Xptxas -v``: registers, shared memory,
+    spills), kept beside its library.  Raises if a compile fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    running = {}
+    for name in names:
+        so = _library_path(name)
+        if not so.exists():
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC / SOURCES[name])]
+            running[name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), so, tmp)
+    for name, (proc, so, tmp) in running.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {SOURCES[name]}:\n{log}")
+        so.with_suffix(".log").write_text(log)
+        os.replace(tmp, so)
+    return {name: _library_path(name).with_suffix(".log").read_text()
+            for name in names}
+
+
+def _function(name: str):
+    fn = _FNS.get(name)
+    if fn is None:
+        build([name])
+        lib = ctypes.CDLL(str(_library_path(name)))
+        fn = getattr(lib, name)
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        err = lib.cuda_error_string
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _FNS[name], _ERR[name] = fn, err
+    return fn
+
+
+def launch(name: str, *args) -> None:
+    """Call kernel ``name``'s C launcher with ``args`` (pointers and ints,
+    the stream last) and count the launch; raises if the launch failed."""
+    err = _function(name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
+                           f"({_ERR[name](err).decode()})")
+    LAUNCHES[name] += 1
+
+
+# Kernel dtype codes: (activation dtype of q, pool dtype) -> C dtype.
+DTYPE_CODES = {
+    (torch.float32, torch.float32): 0,
+    (torch.bfloat16, torch.bfloat16): 1,
+    (torch.float32, torch.int8): 2,
+    (torch.bfloat16, torch.int8): 3,
+}
+HEAD_DIMS = (32, 64, 128)
+MAX_SMEM_BYTES = 232448                 # opt-in shared memory of a block
+
+
+def smem_bytes(hd: int, rows: int, n_pages: int) -> int:
+    """Dynamic shared memory of one block (``paged::smem_bytes``): q rows,
+    one stage of 4096 / hd K and V slots, its probabilities, and the
+    request's page-table row."""
+    slots = 4096 // hd
+    return 4 * (rows * hd + slots * (hd + 4) + slots * hd + rows * slots
+                + 2 * rows) + 4 * n_pages
+
+
+def check_paged_inputs(q, k_pool, v_pool, page_table, pos, k_scale, k_zero,
+                       v_scale, rows: int) -> int:
+    """Validate the operands of a paged kernel launch; returns the dtype
+    code.  ``q`` is [B, ..., K, G, hd]; ``rows`` is the block's row tile.
+    Raises ValueError on anything the kernels do not take."""
+    tensors = [q, k_pool, v_pool, page_table, pos]
+    quant = k_scale is not None
+    if quant != (k_zero is not None) or quant != (v_scale is not None):
+        raise ValueError("k_scale, k_zero and v_scale come together")
+    if quant:
+        tensors += [k_scale, k_zero, v_scale]
+    for t in tensors:
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError("paged kernels take CUDA tensors on one device")
+        if not t.is_contiguous():
+            raise ValueError("paged kernels take contiguous tensors")
+    code = DTYPE_CODES.get((q.dtype, k_pool.dtype))
+    if code is None or v_pool.dtype != k_pool.dtype or (code >= 2) != quant:
+        raise ValueError(f"unsupported dtypes q={q.dtype} "
+                         f"pool={k_pool.dtype} quantized={quant}")
+    if page_table.dtype != torch.int32 or pos.dtype != torch.int32:
+        raise ValueError("page_table and positions must be int32")
+    B, K, G, hd = q.shape[0], q.shape[-3], q.shape[-2], q.shape[-1]
+    P, ps = k_pool.shape[0], k_pool.shape[1]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    if k_pool.shape != (P, ps, K, hd) or v_pool.shape != k_pool.shape:
+        raise ValueError(f"pool shape {tuple(k_pool.shape)} does not match "
+                         f"q {tuple(q.shape)}")
+    if quant and any(s.shape != (P, ps, K) or s.dtype != torch.float32
+                     for s in (k_scale, k_zero, v_scale)):
+        raise ValueError("scale sidecars must be float32 [P, ps, K]")
+    if page_table.dim() != 2 or page_table.shape[0] != B or pos.shape != (B,):
+        raise ValueError("page_table must be [B, NP] and positions [B]")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("pools must be 16-byte aligned")
+    if smem_bytes(hd, rows, page_table.shape[1]) > MAX_SMEM_BYTES:
+        raise ValueError(f"page table of {page_table.shape[1]} pages too "
+                         f"long for one block")
+    return code
+
+
+def pointer(t) -> int:
+    """Device address of a tensor, or 0 for an absent operand."""
+    return 0 if t is None else t.data_ptr()

@@ -1,0 +1,27 @@
+"""Device dispatch of the paged-attention reads (port of
+``repro/kernels/ops.py``).
+
+One rule replaces the reference's ``attn_impl`` switch and its
+``interpret`` flag: a CPU tensor goes to the kernel's plain PyTorch
+version, a CUDA tensor goes to the hand-written kernel, or the call
+raises.  There is no fallback from the kernel to the plain version.
+``LAUNCHES`` counts kernel launches, so a run can show that its main path
+went through the kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.cuda_lib import LAUNCHES, reset_launches
+from repro_torch.kernels.paged_attention import paged_decode_attention
+from repro_torch.kernels.paged_extend import paged_extend_attention
+
+__all__ = ["LAUNCHES", "reset_launches", "paged_decode_attention",
+           "paged_extend_attention", "resolve_attn_impl"]
+
+
+def resolve_attn_impl(device: torch.device) -> str:
+    """Which read implementation paged attention uses on ``device``:
+    ``"cuda"`` (the hand-written kernels) on a CUDA device, ``"plain"``
+    (the PyTorch versions in kernels/ref.py) on the CPU."""
+    return "cuda" if torch.device(device).type == "cuda" else "plain"

@@ -1,0 +1,135 @@
+"""Shared neural layers and parameter initialisation (port of
+``repro/models/layers.py``).
+
+Parameters keep the reference's layouts and dtypes (``wq [d, H, hd]``,
+``wi [d, ff]``, ...; stored in ``ModelConfig.param_dtype``) and are cast to
+the activation dtype at each use, as the JAX package does.  Every
+parameter carries its initialisation recipe (``normal`` scaled by
+``fan_in ** -0.5``, ``zeros``, ``ones`` or ``const``), which
+:func:`init_params` applies from an explicit ``torch.Generator``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def param(shape, dtype=torch.float32, init: str = "normal",
+          scale: float = 1.0) -> nn.Parameter:
+    """An uninitialised parameter tagged with its init recipe."""
+    p = nn.Parameter(torch.empty(shape, dtype=dtype), requires_grad=False)
+    p.init = init
+    p.init_scale = scale
+    return p
+
+
+@torch.no_grad()
+def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Fill every parameter of ``module`` from its recipe, in registration
+    order.  The draws come from ``generator`` (float32 normals, then cast
+    to the parameter's dtype), so one seed gives one model on any device."""
+    for p in module.parameters():
+        kind = getattr(p, "init", "normal")
+        scale = getattr(p, "init_scale", 1.0)
+        if kind == "zeros":
+            p.zero_()
+        elif kind == "ones":
+            p.fill_(1.0)
+        elif kind == "const":
+            p.fill_(scale)
+        else:
+            fan_in = p.shape[-2] if p.dim() >= 2 else max(p.shape[-1], 1)
+            x = torch.randn(p.shape, generator=generator,
+                            dtype=torch.float32, device=generator.device)
+            p.copy_(x * (scale / fan_in ** 0.5))
+    return module
+
+
+# ---------------------------------------------------------------------------
+# Normalization
+# ---------------------------------------------------------------------------
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, dtype=torch.float32):
+        super().__init__()
+        self.scale = param((dim,), dtype, init="ones")
+
+
+def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """RMS-normalise the last axis in float32; returns x's dtype."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def rmsnorm_heads(scale: torch.Tensor, x: torch.Tensor,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """qk-norm: RMS normalize over the head dim. scale: (head_dim,)."""
+    return rmsnorm(scale, x, eps)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embedding
+# ---------------------------------------------------------------------------
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """Apply RoPE.  x: [..., S, H, D]; positions: broadcastable to [..., S]."""
+    d = x.shape[-1]
+    half = d // 2
+    freq = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                         device=x.device) / half))
+    ang = positions[..., None].float() * freq                  # [..., S, half]
+    cos = torch.cos(ang)[..., None, :]                         # [..., S, 1, half]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU / squared-ReLU / GeLU)
+# ---------------------------------------------------------------------------
+
+class MLP(nn.Module):
+    def __init__(self, d_model: int, d_ff: int, act: str,
+                 dtype=torch.float32):
+        super().__init__()
+        self.wi = param((d_model, d_ff), dtype)
+        self.wo = param((d_ff, d_model), dtype)
+        self.wg: Optional[nn.Parameter] = (param((d_model, d_ff), dtype)
+                                           if act == "swiglu" else None)
+
+
+def mlp(p: MLP, x: torch.Tensor, act: str) -> torch.Tensor:
+    dt = x.dtype
+    h = x @ p.wi.to(dt)
+    if act == "swiglu":
+        h = F.silu(x @ p.wg.to(dt)) * h
+    elif act == "relu2":
+        h = F.relu(h).square()
+    elif act == "gelu":
+        # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(h, approximate="tanh")
+    else:
+        raise ValueError(f"unknown act {act}")
+    return h @ p.wo.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Embedding
+# ---------------------------------------------------------------------------
+
+def embed(table: torch.Tensor, tokens: torch.Tensor,
+          dtype: torch.dtype) -> torch.Tensor:
+    """Rows of the [vocab, d] table for ``tokens``, in ``dtype``."""
+    return table[tokens.long()].to(dtype)
+
+
+def unembed(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Logits ``x @ w`` for a [d, vocab] unembedding, in x's dtype."""
+    return x @ w.to(x.dtype)

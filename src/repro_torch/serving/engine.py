@@ -1,0 +1,823 @@
+"""Reflection-aware continuous-batching inference engine (port of the
+paged path of ``repro/serving/engine.py``).
+
+The paper's three levers are first-class here:
+  * reflection rounds — requests re-enter the scheduler per round with the
+    same conversation; prefix caching makes each round's prefill cost
+    proportional to its suffix;
+  * prompt caching — serving/prefix_cache.py pins the pages of a finished
+    round AND of page-aligned chunk boundaries mid-prefill;
+  * budget tuning — BudgetTier caps decode steps (thinking budgets).
+
+Scheduling is chunked-prefill continuous batching: prompts and
+reflection-round suffixes are split into chunks and interleaved with
+in-flight decode tokens in one mixed step (``model.prefill_extend(...,
+n_valid)``), under a per-step token budget.  KV memory is a paged pool:
+every attention layer shares one ``[num_pages, page_size, K, hd]`` pool
+and each request owns a page table.  Prefill chunks shrink to allocatable
+pages, prefix snapshots pin pages by refcount, the first write past a
+shared page copies it (copy-on-write), and on exhaustion the youngest
+request is preempted and later replays its prompt and output.
+Self-speculative decoding (``ServeConfig.spec_decode``) drafts by n-gram
+lookup and scores ``1 + spec_tokens`` lanes per row in one verify step;
+rejected lanes roll back by truncating page-table tails.  Only committed
+tokens are billed (``TokenUsage``).
+
+Differences from the reference:
+  * PyTorch runs eagerly: there is no ``jax.jit``, no per-shape
+    executable cache and no AOT warmup; ``stats()["step_compiles"]`` is 0.
+  * The model runs on ``device`` (CUDA unless the caller asks for the
+    CPU); the page pools are updated in place, and COW copies run as one
+    indexed copy per pool leaf with only real (src, dst) pairs.
+  * Not ported yet — the constructor raises ``NotImplementedError`` when
+    asked for them: fault injection, deadlines, NaN quarantine, the stall
+    detector, SLO pricing, meshes, AOT warmup, ring caches
+    (``paged_kv=False``) and recurrent models.
+"""
+from __future__ import annotations
+
+import time
+from collections import deque
+from typing import Any, Dict, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig, ServeConfig
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.serving import sampler
+from repro_torch.serving.page_pool import PagePool, PagedSnapshot
+from repro_torch.serving.prefix_cache import PrefixCache, config_is_recurrent
+from repro_torch.serving.request import (BudgetTier, Request, Status,
+                                         TokenUsage)
+from repro_torch.serving.speculator import (NGramSpeculator, draft_corpus,
+                                            external_draft_proposal)
+
+
+def _unsupported(scfg: ServeConfig, faults, mesh) -> List[str]:
+    """Options of the reference engine this port does not implement."""
+    asked = {
+        "faults": faults is not None,
+        "mesh": mesh is not None or scfg.mesh is not None,
+        "aot_warmup": scfg.aot_warmup,
+        "enforce_deadlines": scfg.enforce_deadlines,
+        "nan_quarantine": scfg.nan_quarantine,
+        "stall_limit": scfg.stall_limit > 0,
+        "slo_price_model": scfg.slo_price_model is not None,
+        "paged_kv=False": not scfg.paged_kv,
+    }
+    return [name for name, on in asked.items() if on]
+
+
+class Engine:
+    def __init__(self, model, scfg: ServeConfig, *,
+                 device: Optional[Union[str, torch.device]] = None,
+                 faults=None, mesh=None):
+        missing = _unsupported(scfg, faults, mesh)
+        if missing:
+            raise NotImplementedError(
+                f"not ported yet: {', '.join(missing)}")
+        if config_is_recurrent(model.cfg):
+            raise NotImplementedError("recurrent models are not ported yet")
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.cfg: ModelConfig = model.cfg
+        self.scfg = scfg
+        B, S = scfg.max_batch, scfg.max_seq
+
+        self.prefix_cache = (PrefixCache(scfg.page_size, model_cfg=self.cfg)
+                             if scfg.prefix_cache else None)
+        self.kv_dtype = scfg.kv_dtype or self.cfg.kv_dtype
+        self.attn_impl = ops.resolve_attn_impl(self.device)
+        ps = scfg.page_size
+        self.pages_per_seq = -(-S // ps)
+        num_pages = scfg.num_pages or B * self.pages_per_seq
+        if num_pages < self.pages_per_seq:
+            raise ValueError(
+                f"num_pages={num_pages} cannot hold one max_seq request "
+                f"({self.pages_per_seq} pages)")
+        self.pool = PagePool(num_pages, ps)
+        # logical page -> physical page, per slot (-1 = unmapped)
+        self.page_tables = np.full((B, self.pages_per_seq), -1, np.int64)
+        self.cache = model.init_cache_paged(num_pages, ps,
+                                            kv_dtype=self.kv_dtype,
+                                            device=self.device)
+        # paged lanes have no ring aliasing: the mixed-step width is
+        # bounded only by max_seq
+        self.chunk = max(1, min(scfg.prefill_chunk, S))
+        # With EVERY attention layer windowed, pages that slid out of the
+        # window can never be attended again and are freed as a request
+        # advances (every layer shares one table: the widest window rules).
+        self._window_free = self.cfg.sliding_window
+        self.prefill_budget = max(1, scfg.prefill_token_budget)
+        # each mixed step runs at the smallest bucket width that fits its
+        # planned chunks; the full chunk width is always the last bucket
+        self._mixed_buckets = sorted(
+            {max(1, min(int(w), self.chunk)) for w in scfg.prefill_buckets}
+            | {self.chunk})
+
+        # self-speculative decoding: paged dense models always qualify
+        self.spec = (bool(scfg.spec_decode)
+                     and getattr(model, "supports_verify", False))
+        self.spec_tokens = max(1, min(scfg.spec_tokens, S - 1))
+        self.speculator = (NGramSpeculator(scfg.spec_ngram,
+                                           scfg.spec_ngram_min)
+                           if self.spec else None)
+
+        # bytes of one physical page across every layer's pools
+        self._page_nbytes = sum(t.numel() * t.element_size()
+                                for layer in self.cache
+                                for t in layer.values()) // num_pages
+
+        self.slots: List[Optional[Request]] = [None] * B
+        self.pos = np.zeros(B, np.int64)
+        self.next_token = np.zeros(B, np.int64)
+        self.queue: deque[Request] = deque()
+        # uid -> request for queued/in-flight only (pruned at completion);
+        # finished is a bounded notification buffer drained by poll()
+        self.requests: Dict[int, Request] = {}
+        self.finished: deque[Request] = deque(maxlen=max(64, 16 * B))
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(scfg.seed)
+        self._ff_version = -1   # prefix-cache version at last fast-forward
+        self._admit_counter = 0
+        self._pending_copies: List[Tuple[int, int]] = []   # COW (src, dst)
+        self.model_steps = {"prefill_tokens": 0, "extend_tokens": 0,
+                            "decode_steps": 0, "decode_batch_steps": 0,
+                            "decode_tokens": 0,
+                            "mixed_steps": 0, "prefill_chunks": 0,
+                            "max_step_prefill_tokens": 0, "preemptions": 0,
+                            "starved_mixed_steps": 0,
+                            "verify_steps": 0, "spec_drafted": 0,
+                            "spec_accepted": 0, "slo_rejections": 0,
+                            "timeouts": 0, "stalls": 0, "errors": 0}
+
+    # ------------------------------------------------------------------ API
+
+    def submit(self, req: Request) -> int:
+        """Enqueue a request (non-blocking).  Returns its uid for poll().
+        Malformed requests — empty prompt, or a prompt + budget cap that
+        cannot fit in max_seq — finalize immediately with stop_reason
+        "error" instead of poisoning the batch."""
+        req.submitted_at = time.monotonic()
+        if not req.prompt:
+            self._finalize_error(req, "empty prompt")
+            return req.uid
+        if len(req.prompt) + self._budget_cap(req) >= self.scfg.max_seq:
+            self._finalize_error(
+                req, f"prompt ({len(req.prompt)}) + budget cap "
+                f"({self._budget_cap(req)}) would overflow "
+                f"max_seq ({self.scfg.max_seq})")
+            return req.uid
+        self.queue.append(req)
+        self.requests[req.uid] = req
+        return req.uid
+
+    def poll(self, uid: Optional[int] = None
+             ) -> Union[Status, List[Request]]:
+        """One cooperative scheduler tick.  With ``uid``: advance one step
+        and return that request's status.  Without: advance one step and
+        return the requests that finished during it."""
+        self.step()
+        if uid is not None:
+            req = self.requests.get(uid)
+            return req.status if req is not None else Status.DONE
+        done = list(self.finished)
+        self.finished.clear()
+        return done
+
+    def run(self, max_steps: int = 100_000) -> None:
+        """Drive the scheduler until fully idle (blocking convenience)."""
+        for _ in range(max_steps):
+            if not self.step():
+                break
+
+    # ------------------------------------------------------------ statistics
+
+    def _kv_stats(self) -> Dict[str, Any]:
+        """Resident KV: pool leaves count only their used pages."""
+        allocated = sum(t.numel() * t.element_size()
+                        for layer in self.cache for t in layer.values())
+        resident = int(allocated * self.pool.utilization())
+        return {"resident_kv_bytes": resident,
+                "allocated_kv_bytes": allocated,
+                "kv_pool_pages_used": self.pool.used_pages,
+                "kv_pool_pages": self.pool.num_pages}
+
+    def stats(self) -> Dict[str, Any]:
+        """Serving counters.  PyTorch runs eagerly, so the reference's
+        recompile tripwire reads 0."""
+        out = dict(self.model_steps)
+        out["step_compiles"] = 0
+        out["device"] = str(self.device)
+        out["attn_impl"] = self.attn_impl
+        out.update(self._kv_stats())
+        if self.prefix_cache is not None:
+            out["prefix_cache"] = self.prefix_cache.stats_snapshot()
+        return out
+
+    def stats_snapshot(self) -> Dict[str, Any]:
+        """Compact per-replica counters for fleet aggregation: the
+        scheduler counters that sum across replicas, live occupancy, and
+        the prefix cache's own snapshot."""
+        out = {k: self.model_steps[k] for k in
+               ("prefill_tokens", "extend_tokens", "decode_tokens",
+                "preemptions", "slo_rejections", "timeouts", "stalls",
+                "errors")}
+        out["in_flight"] = sum(r is not None for r in self.slots)
+        out["queued"] = len(self.queue)
+        out["kv_pool_pages_used"] = self.pool.used_pages
+        out["kv_pool_pages"] = self.pool.num_pages
+        if self.prefix_cache is not None:
+            out["prefix_cache"] = self.prefix_cache.stats_snapshot()
+        return out
+
+    # ----------------------------------------------------------- internals
+
+    def _budget_cap(self, req: Request) -> int:
+        caps = {BudgetTier.NONE: req.max_new_tokens,
+                BudgetTier.LOW: self.scfg.max_think_tokens_low,
+                BudgetTier.HIGH: self.scfg.max_think_tokens_high}
+        return min(req.max_new_tokens, caps[req.budget])
+
+    def _finalize_error(self, req: Request, detail: str) -> None:
+        """Terminal finalize of a request rejected at submit."""
+        req.status = Status.DONE
+        req.stop_reason = "error"
+        req.error = detail
+        req.decision_trace.append({"action": "finalize", "reason": "error",
+                                   "detail": detail})
+        self.model_steps["errors"] += 1
+        self.finished.append(req)
+        self.requests.pop(req.uid, None)
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
+            self.device)
+
+    # -------------------------------------------------- page-pool plumbing
+
+    @torch.no_grad()
+    def _flush_copies(self) -> None:
+        """Apply scheduled COW page copies before this step's writes: one
+        indexed copy per pool leaf (src pages are read before any dst is
+        written; a dst is never another pair's src within a tick)."""
+        if not self._pending_copies:
+            return
+        src = torch.tensor([s for s, _ in self._pending_copies],
+                           device=self.device)
+        dst = torch.tensor([d for _, d in self._pending_copies],
+                           device=self.device)
+        self._pending_copies = []
+        for layer in self.cache:
+            for leaf in layer.values():
+                leaf[dst] = leaf[src]
+
+    def _release_slot_pages(self, slot: int) -> None:
+        pages = [int(p) for p in self.page_tables[slot] if p >= 0]
+        if pages and self._pending_copies:
+            # Drop scheduled COW copies targeting this slot's pages: a
+            # freed dst can be re-allocated as another slot's COW dst
+            # within the same tick.
+            mine = set(pages)
+            self._pending_copies = [(s, d) for (s, d) in self._pending_copies
+                                    if d not in mine]
+        if pages:
+            self.pool.decref(pages)
+        self.page_tables[slot, :] = -1
+
+    def _alloc_page(self, protect: int) -> Optional[int]:
+        """One free page, reclaiming under pressure: first evict prompt-
+        cache entries, then preempt the youngest-admitted request.
+        ``protect`` is the slot asking — it is never its own victim."""
+        while True:
+            pg = self.pool.alloc()
+            if pg is not None:
+                return pg
+            if self.prefix_cache is not None and self.prefix_cache.evict_lru():
+                continue
+            if self._preempt_one(protect):
+                continue
+            return None
+
+    def _preempt_one(self, protect: int) -> bool:
+        """Preempt the youngest request that is YOUNGER than the one
+        asking for pages (strict FIFO)."""
+        asking = self.slots[protect]
+        pseq = asking.admit_seq if asking is not None else -1
+        cands = [i for i, r in enumerate(self.slots)
+                 if r is not None and i != protect and r.admit_seq > pseq]
+        if not cands:
+            return False
+        victim = max(cands, key=lambda i: self.slots[i].admit_seq)
+        self._preempt_slot(victim)
+        return True
+
+    def _preempt_slot(self, slot: int) -> None:
+        """Evict a request from the pool and requeue it at the FRONT of
+        the admission queue.  Its generated tokens survive: re-admission
+        replays prompt+output, restoring the decode state exactly."""
+        req = self.slots[slot]
+        self._release_slot_pages(slot)
+        if req.status is Status.DECODING:
+            # decode positions were billed as output; the replay must not
+            # re-bill them as input
+            req.billed_prefill = max(req.billed_prefill,
+                                     len(req.prompt) + len(req.output))
+        req.status = Status.QUEUED
+        req.prefill_pos = 0
+        req.cached_len = 0
+        req.prefill_target = None
+        req.preemptions += 1
+        self.model_steps["preemptions"] += 1
+        self.queue.appendleft(req)
+        self.slots[slot] = None
+
+    def _ensure_range(self, slot: int, p0: int, n: int) -> int:
+        """Map (alloc / copy-on-write) every logical page the token range
+        [p0, p0+n) touches.  Returns how many of the n tokens are backed
+        by writable pages — the planner shrinks the chunk to this."""
+        ps = self.pool.page_size
+        first, last = p0 // ps, (p0 + n - 1) // ps
+        for lpage in range(first, last + 1):
+            pg = int(self.page_tables[slot, lpage])
+            if pg >= 0 and not self.pool.needs_cow(pg):
+                continue
+            new = self._alloc_page(protect=slot)
+            if new is None:
+                return max(0, lpage * ps - p0)
+            if pg >= 0:
+                # copy-on-write of a shared boundary page
+                self._pending_copies.append((pg, new))
+                self.pool.stats["cow_copies"] += 1
+                self.pool.decref([pg])
+            self.page_tables[slot, lpage] = new
+        return n
+
+    def _free_out_of_window(self, slot: int, extent: int) -> None:
+        """Release pages that can never be attended again: future queries
+        sit at positions >= ``extent`` and attend only tokens
+        > extent - window."""
+        if self._window_free is None:
+            return
+        ps = self.pool.page_size
+        nfree = max(0, extent - self._window_free + 1) // ps
+        for lpage in range(min(nfree, self.pages_per_seq)):
+            pg = int(self.page_tables[slot, lpage])
+            if pg >= 0:
+                self.pool.decref([pg])
+                self.page_tables[slot, lpage] = -1
+
+    def _ensure_decode_pages(self, drafts: Optional[Dict[int, List[int]]]
+                             = None) -> None:
+        """Every DECODING row writes one token this step — plus its draft
+        when speculating; make those pages writable first, oldest rows
+        first.  Under pressure a row's draft shrinks to the tokens its
+        pages can back before anyone is preempted for draft pages."""
+        rows = sorted(
+            (i for i, r in enumerate(self.slots)
+             if r is not None and r.status is Status.DECODING),
+            key=lambda i: self.slots[i].admit_seq)
+        for slot in rows:
+            if self.slots[slot] is None:               # preempted meanwhile
+                continue
+            d = drafts.get(slot) if drafts else None
+            want = 1 + (len(d) if d else 0)
+            got = self._ensure_range(slot, int(self.pos[slot]), want)
+            if got == 0:
+                # nothing reclaimable: this row itself must wait its turn
+                self._preempt_slot(slot)
+                if drafts:
+                    drafts.pop(slot, None)
+            elif d and got < want:
+                if got <= 1:
+                    drafts.pop(slot)
+                else:
+                    drafts[slot] = d[:got - 1]
+
+    # ------------------------------------------------------------ snapshots
+
+    def _make_snapshot(self, slot: int, n_tokens: int) -> PagedSnapshot:
+        ps = self.pool.page_size
+        npages = -(-n_tokens // ps)
+        pages = [int(p) for p in self.page_tables[slot, :npages]]
+        # windowed models free slid-out pages (-1 entries): the snapshot
+        # stays usable — an adopter's queries can never attend them either
+        live = [p for p in pages if p >= 0]
+        if self._window_free is None and len(live) != npages:
+            raise RuntimeError("snapshot of unmapped pages")
+        self.pool.incref(live)
+        return PagedSnapshot(pages=pages, n_tokens=n_tokens, recurrent=None,
+                             nbytes=len(live) * self._page_nbytes,
+                             meta={"page_nbytes": self._page_nbytes,
+                                   "rec_nbytes": 0})
+
+    def _insert_snapshot(self, tokens: List[int], slot: int,
+                         boundary: bool = False) -> None:
+        """Publish a prefix snapshot: O(1) page pins."""
+        if not tokens:
+            return
+        snap = self._make_snapshot(slot, len(tokens))
+        on_evict = (lambda pages=tuple(p for p in snap.pages if p >= 0):
+                    self.pool.decref(pages))
+        if boundary:
+            self.prefix_cache.insert_boundary(list(tokens), snap, on_evict)
+        else:
+            self.prefix_cache.insert(list(tokens), snap, on_evict)
+
+    def _adopt_snapshot(self, slot: int, snap: PagedSnapshot,
+                        cached: int) -> None:
+        """Map a snapshot's physical pages into this slot's table
+        (shared, refcounted)."""
+        ps = self.pool.page_size
+        npages = -(-cached // ps)
+        pages = snap.pages[:npages]
+        self.pool.incref([p for p in pages if p >= 0])
+        self.page_tables[slot, :npages] = pages
+
+    # ------------------------------------------------------------ admission
+
+    def _admit(self, req: Request, slot: int) -> None:
+        """Assign a queued request to a free slot.  No model work happens
+        here — prefill is chunked into subsequent mixed steps.  After a
+        preemption the request replays prompt+output (prefill_target)."""
+        req.prefill_target = list(req.prompt) + list(req.output)
+        target = req.prefill_target
+        res = None
+        cached_len = 0
+        if self.prefix_cache is not None:
+            res = self.prefix_cache.lookup(target)
+            # a full-prompt hit still needs >=1 suffix token for logits
+            cached_len = min(res.cached_len, len(target) - 1)
+        if cached_len > 0 and res.cache is not None:
+            self._adopt_snapshot(slot, res.cache, cached_len)
+            req.usage += TokenUsage(cache_read_tokens=max(
+                0, cached_len - req.billed_prefill))
+            req.billed_prefill = max(req.billed_prefill, cached_len)
+        else:
+            cached_len = 0
+        req.prefill_pos = cached_len
+        req.cached_len = cached_len
+        req.status = Status.PREFILLING
+        self._admit_counter += 1
+        req.admit_seq = self._admit_counter
+        self.slots[slot] = req
+
+    def _maybe_finish(self, slot: int) -> None:
+        req = self.slots[slot]
+        if req is None:
+            return
+        cap = self._budget_cap(req)
+        if req.eos_id is not None and req.output and req.output[-1] == req.eos_id:
+            req.stop_reason = "eos"
+        elif len(req.output) >= cap:
+            req.stop_reason = ("budget" if cap < req.max_new_tokens
+                               else "max_tokens")
+        else:
+            return
+        req.status = Status.DONE
+        self.finished.append(req)
+        self.requests.pop(req.uid, None)
+        if self.prefix_cache is not None:
+            # the last sampled token is NOT yet in the cache: snapshot
+            # prompt + output[:-1]
+            convo = list(req.prompt) + req.output[:-1]
+            if len(convo) > 0:
+                self._insert_snapshot(convo, slot)
+        self._release_slot_pages(slot)
+        self.slots[slot] = None
+
+    def _temperatures(self) -> torch.Tensor:
+        temps = np.zeros(len(self.slots), np.float32)
+        for i, r in enumerate(self.slots):
+            if r is not None:
+                temps[i] = r.temperature
+        return torch.from_numpy(temps).to(self.device)
+
+    def _sample_rows(self, logits: torch.Tensor) -> np.ndarray:
+        """One batched sampling call for every row (greedy rows ignore
+        the generator; rows without a request are discarded)."""
+        return sampler.sample_batch(logits, self._temperatures(),
+                                    self.generator).cpu().numpy()
+
+    def _fast_forward(self) -> None:
+        """In-flight prefix sharing: a PREFILLING slot jumps ahead when a
+        longer usable prefix snapshot has appeared since its admission
+        (pure page-table metadata).  Skipped when nothing was inserted
+        since the last scan."""
+        if self.prefix_cache is None:
+            return
+        if self.prefix_cache.version == self._ff_version:
+            return
+        self._ff_version = self.prefix_cache.version
+        for slot, req in enumerate(self.slots):
+            if req is None or req.status is not Status.PREFILLING:
+                continue
+            target = req.prefill_target
+            if req.prefill_pos >= len(target) - 1:
+                continue                  # last token must be processed live
+            res = self.prefix_cache.lookup(target,
+                                           min_len=req.prefill_pos,
+                                           record_miss=False)
+            cached = min(res.cached_len, len(target) - 1)
+            if res.cache is None or cached <= req.prefill_pos:
+                continue
+            self._release_slot_pages(slot)
+            self._adopt_snapshot(slot, res.cache, cached)
+            req.usage += TokenUsage(cache_read_tokens=max(
+                0, cached - max(req.billed_prefill, req.prefill_pos)))
+            req.billed_prefill = max(req.billed_prefill, cached)
+            req.prefill_pos = cached
+            req.cached_len = cached
+
+    def _make_drafts(self) -> Dict[int, List[int]]:
+        """Prompt-lookup drafting for every DECODING row (host-side).
+        Draft length is clamped to the row's output budget and max_seq."""
+        drafts: Dict[int, List[int]] = {}
+        for slot, req in enumerate(self.slots):
+            if req is None or req.status is not Status.DECODING:
+                continue
+            rem = self._budget_cap(req) - len(req.output)
+            kmax = min(self.spec_tokens, rem,
+                       self.scfg.max_seq - 1 - int(self.pos[slot]))
+            if kmax <= 0:
+                continue
+            d = None
+            if req.external_draft is not None:
+                d = external_draft_proposal(req.external_draft, req.output,
+                                            kmax)
+            if d is None:
+                d = self.speculator.propose(
+                    draft_corpus(req.prompt, req.output, req.spec_context),
+                    kmax)
+            if d:
+                drafts[slot] = d
+        return drafts
+
+    def _clamp_drafts_to_budget(self, drafts: Dict[int, List[int]]) -> None:
+        """Shrink drafted lanes so speculation never consumes the whole
+        step token budget while a request is PREFILLING (youngest drafted
+        rows lose lanes first)."""
+        cap = self.prefill_budget
+        if any(r is not None and r.status is Status.PREFILLING
+               for r in self.slots):
+            cap -= 1
+        total = sum(len(d) for d in drafts.values())
+        if total <= cap:
+            return
+        for slot in sorted(drafts,
+                           key=lambda s: -self.slots[s].admit_seq):
+            cut = min(len(drafts[slot]), total - cap)
+            total -= cut
+            if cut == len(drafts[slot]):
+                del drafts[slot]
+            else:
+                drafts[slot] = drafts[slot][:len(drafts[slot]) - cut]
+            if total <= cap:
+                return
+
+    def _plan_chunks(self, width: Optional[int] = None,
+                     budget: Optional[int] = None) -> Dict[int, int]:
+        """Token-budget admission of prefill work into this step: each
+        PREFILLING slot gets min(chunk, remaining, budget-left) lanes,
+        oldest admission first, shrunk to the tokens whose pages are
+        allocatable right now.  ``width``/``budget`` override the defaults
+        when prefill rides a verify step."""
+        plan: Dict[int, int] = {}
+        width = self.chunk if width is None else width
+        budget = self.prefill_budget if budget is None else budget
+        waiting = sorted(
+            (i for i, r in enumerate(self.slots)
+             if r is not None and r.status is Status.PREFILLING),
+            key=lambda i: self.slots[i].admit_seq)
+        for slot in waiting:
+            if budget <= 0:
+                break
+            req = self.slots[slot]
+            if req is None or req.status is not Status.PREFILLING:
+                continue                  # preempted during an earlier alloc
+            n = min(width, req.prefill_remaining, budget)
+            if n > 0:
+                n = self._ensure_range(slot, req.prefill_pos, n)
+            if n > 0:
+                plan[slot] = n
+                budget -= n
+        return {s: n for s, n in plan.items() if self.slots[s] is not None}
+
+    def _postprocess_prefill(self, slot: int, n: int,
+                             sampled: np.ndarray) -> None:
+        req = self.slots[slot]
+        target = req.prefill_target
+        req.prefill_pos += n
+        req.prefill_chunks += 1
+        req.prefill_steps += 1
+        self.model_steps["prefill_chunks"] += 1
+        if req.cached_len > 0:
+            self.model_steps["extend_tokens"] += n
+        else:
+            self.model_steps["prefill_tokens"] += n
+        # bill only positions never billed before: a preemption replay
+        # recomputes tokens the user already paid for
+        billable = max(0, req.prefill_pos - max(req.billed_prefill,
+                                                req.prefill_pos - n))
+        req.usage += TokenUsage(input_tokens=billable,
+                                cache_write_tokens=billable)
+        req.billed_prefill = max(req.billed_prefill, req.prefill_pos)
+        if req.prefill_remaining == 0:
+            # prompt fully in cache: sample the first token
+            tok = int(sampled[slot])
+            req.output.append(tok)
+            req.usage.output_tokens += 1
+            req.status = Status.DECODING
+            self.pos[slot] = len(target)
+            self.next_token[slot] = tok
+            self._free_out_of_window(slot, len(target))
+            if self.prefix_cache is not None:
+                self._insert_snapshot(list(target), slot)
+            self._maybe_finish(slot)
+        else:
+            self._free_out_of_window(slot, req.prefill_pos)
+            if (self.prefix_cache is not None
+                    and self.scfg.cache_prefill_chunks
+                    and self.prefix_cache.wants_boundary(
+                        target[:req.prefill_pos])):
+                self._insert_snapshot(list(target[:req.prefill_pos]), slot,
+                                      boundary=True)
+
+    def _postprocess_decode(self, slot: int, sampled: np.ndarray) -> None:
+        req = self.slots[slot]
+        tok = int(sampled[slot])
+        req.output.append(tok)
+        req.usage.output_tokens += 1
+        req.decode_steps += 1
+        self.model_steps["decode_tokens"] += 1
+        self.pos[slot] += 1
+        self.next_token[slot] = tok
+        self._free_out_of_window(slot, int(self.pos[slot]))
+        self._maybe_finish(slot)
+
+    def _postprocess_verify(self, slot: int, n_emit: int,
+                            emit_row: np.ndarray, drafted: int) -> None:
+        """Commit one decode row's verify outcome — the accepted draft
+        prefix plus the model-sampled token — then roll back page-table
+        tail pages that hold only rejected positions.  Only committed
+        tokens are billed."""
+        req = self.slots[slot]
+        P = int(self.pos[slot])
+        req.spec_drafted += drafted
+        req.spec_accepted += n_emit - 1
+        req.decode_steps += 1
+        self.model_steps["spec_drafted"] += drafted
+        self.model_steps["spec_accepted"] += n_emit - 1
+        for i in range(n_emit):
+            tok = int(emit_row[i])
+            req.output.append(tok)
+            req.usage.output_tokens += 1
+            self.model_steps["decode_tokens"] += 1
+            self.pos[slot] = P + i + 1
+            self.next_token[slot] = tok
+            self._maybe_finish(slot)
+            if self.slots[slot] is None:      # finished (eos / cap): pages
+                return                        # are already released
+        # free tail pages holding ONLY rejected draft positions; the page
+        # holding the committed frontier stays
+        ps = self.pool.page_size
+        keep = int(self.pos[slot]) // ps + 1
+        if (P + drafted) // ps >= keep:
+            self.pool.truncate_tail(self.page_tables[slot], keep)
+        self._free_out_of_window(slot, int(self.pos[slot]))
+
+    # ----------------------------------------------------------------- step
+
+    def step(self) -> bool:
+        """One scheduler tick: admission, planning, one model call.
+        Returns False when fully idle."""
+        for slot in range(len(self.slots)):
+            while self.slots[slot] is None and self.queue:
+                self._admit(self.queue.popleft(), slot)
+        if not any(r is not None for r in self.slots):
+            return bool(self.queue)
+
+        self._fast_forward()
+        # speculative drafts first: decode rows outrank prefill for pages
+        # and the step token budget, but never eat the whole budget while
+        # someone is prefilling
+        drafts = self._make_drafts() if self.spec else {}
+        if drafts:
+            self._clamp_drafts_to_budget(drafts)
+        self._ensure_decode_pages(drafts)
+        plan = self._plan_chunks(
+            width=min(self.chunk, 1 + self.spec_tokens) if drafts else None,
+            budget=(self.prefill_budget
+                    - sum(len(d) for d in drafts.values()))
+            if drafts else None)
+        self._flush_copies()
+        pt = self._tensor(self.page_tables)
+        decode_rows = [i for i, r in enumerate(self.slots)
+                       if r is not None and r.status is Status.DECODING]
+        drafts = {s: d for s, d in drafts.items()
+                  if self.slots[s] is not None
+                  and self.slots[s].status is Status.DECODING}
+        if not plan and not decode_rows:
+            # pool pressure can leave a step with nothing runnable
+            return bool(self.queue) or any(r is not None for r in self.slots)
+        starved = any(r is not None and r.status is Status.PREFILLING
+                      for r in self.slots) and not plan
+        if starved:
+            self.model_steps["starved_mixed_steps"] += 1
+
+        if drafts:
+            return self._verify_step(plan, decode_rows, drafts, pt)
+
+        if not plan and not starved:
+            # decode fast path: taken only when NO row is PREFILLING (the
+            # decode step has no validity mask, so a page-starved
+            # prefilling row must ride the mixed step as an nv=0 no-op)
+            logits, self.cache = self.model.decode_step(
+                self.cache, self._tensor(self.next_token[:, None]),
+                self._tensor(self.pos), page_table=pt)
+            self.model_steps["decode_batch_steps"] += 1
+            self.model_steps["decode_steps"] += len(decode_rows)
+            sampled = self._sample_rows(logits)
+            for slot in decode_rows:
+                self._postprocess_decode(slot, sampled)
+            return True
+
+        # mixed step: decode rows ride in lane 0; prefill rows get chunks,
+        # at the smallest bucket width that fits this step's chunks
+        B = len(self.slots)
+        need = max(plan.values()) if plan else 1
+        W = next(w for w in self._mixed_buckets if w >= need)
+        toks, pos0, nv = self._lanes(B, W, plan, decode_rows, {})
+        logits, self.cache = self.model.prefill_extend(
+            self.cache, self._tensor(toks), self._tensor(pos0),
+            self._tensor(nv), page_table=pt)
+        self.model_steps["mixed_steps"] += 1
+        self.model_steps["decode_steps"] += len(decode_rows)
+        self.model_steps["max_step_prefill_tokens"] = max(
+            self.model_steps["max_step_prefill_tokens"],
+            int(sum(plan.values())))
+        sampled = self._sample_rows(logits)
+        for slot, n in plan.items():
+            self._postprocess_prefill(slot, n, sampled)
+        for slot in decode_rows:
+            if self.slots[slot] is not None:
+                self._postprocess_decode(slot, sampled)
+        return True
+
+    def _lanes(self, B: int, W: int, plan: Dict[int, int],
+               decode_rows: List[int], drafts: Dict[int, List[int]]):
+        """Host-side lane arrays of a mixed or verify step: decode rows
+        carry [next token, draft...] at their position, prefill rows their
+        planned chunk.  Returns (tokens [B,W], pos0 [B], n_valid [B])."""
+        toks = np.zeros((B, W), np.int32)
+        pos0 = np.zeros(B, np.int32)
+        nv = np.zeros(B, np.int32)
+        for slot in decode_rows:
+            d = drafts.get(slot, [])
+            toks[slot, 0] = self.next_token[slot]
+            toks[slot, 1:1 + len(d)] = d
+            pos0[slot] = self.pos[slot]
+            nv[slot] = 1 + len(d)
+        for slot, n in plan.items():
+            req = self.slots[slot]
+            toks[slot, :n] = req.prefill_target[req.prefill_pos:
+                                                req.prefill_pos + n]
+            pos0[slot] = req.prefill_pos
+            nv[slot] = n
+        return toks, pos0, nv
+
+    def _verify_step(self, plan: Dict[int, int], decode_rows: List[int],
+                     drafts: Dict[int, List[int]], pt) -> bool:
+        """One speculative verify step: score every row's committed token
+        + drafted continuation in a single [B, 1 + spec_tokens] model call
+        with per-lane logits, then commit the longest accepted prefix per
+        row.  Prefill rows consume their planned (narrow) chunks."""
+        B, W = len(self.slots), 1 + self.spec_tokens
+        toks, pos0, nv = self._lanes(B, W, plan, decode_rows, drafts)
+        ndraft = np.zeros(B, np.int32)
+        for slot in decode_rows:
+            ndraft[slot] = len(drafts.get(slot, []))
+        toks_t = self._tensor(toks)
+        nv_t = self._tensor(nv)
+        logits_all, self.cache = self.model.prefill_extend(
+            self.cache, toks_t, self._tensor(pos0), nv_t, page_table=pt,
+            all_logits=True)
+        self.model_steps["verify_steps"] += 1
+        self.model_steps["decode_steps"] += len(decode_rows)
+        self.model_steps["max_step_prefill_tokens"] = max(
+            self.model_steps["max_step_prefill_tokens"],
+            int(sum(plan.values())))
+        n_emit, emit = sampler.verify_batch(
+            logits_all, toks_t, nv_t, self._tensor(ndraft),
+            self._temperatures(), self.generator)
+        n_emit, emit = n_emit.cpu().numpy(), emit.cpu().numpy()
+        # prefill rows: emit[:, 0] is the sample at their last valid lane
+        for slot, n in plan.items():
+            self._postprocess_prefill(slot, n, emit[:, 0])
+        for slot in decode_rows:
+            if self.slots[slot] is not None:
+                self._postprocess_verify(slot, int(n_emit[slot]), emit[slot],
+                                         int(ndraft[slot]))
+        return True
