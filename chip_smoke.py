@@ -7,30 +7,47 @@ Phases, each of which stops the run with a non-zero exit on any error:
 
 1. device  — the card's name and power limit; TF32 off for matmuls and
    cuDNN, so float32 comparisons are float32.
-2. build   — compile both hand-written kernels from ``csrc/`` with nvcc
-   (one process per source, in parallel) and print ``-Xptxas -v``.
+2. build   — compile the four hand-written kernels from ``csrc/`` with
+   nvcc (one process per source, in parallel) and print ``-Xptxas -v``.
 3. kernels — each kernel against its plain PyTorch version at the main
-   path's shapes (paged decode q [8,4,3,64]; paged extend Sx = 32 and 5;
-   page size 16; scattered page tables with unmapped tails, positions
-   mid-page, an empty batch slot; window None and 48) in float32,
-   bfloat16 and int8 KV; then kernel and plain-version times from CUDA
-   events beside the least time the card could take (bytes over HBM rate
-   against operations over peak rate).
-4. serve   — reflect_demo_100m at full width (12 layers, d_model 768,
-   bf16 activations, fp32 parameters, seeded random weights) through the
-   port's ``Engine``: 8 conversations of a few hundred tokens, 3
-   reflection rounds of 64 new tokens with the suffix [99, 98], paged KV,
-   chunked prefill, prefix cache and self-speculative decoding; then a
-   shorter int8-KV run.  Launch counters are reset just before each run
-   and read just after; both kernels must have launched.  Then a
-   profiler summary of device time by kernel, and a check that the
-   model's logits on the card agree with the plain path on the CPU.
+   paths' shapes, then kernel and plain-version times from CUDA events
+   (cold and warm L2) beside the least time the card could take (bytes
+   over HBM rate against operations over peak rate):
+   * paged decode and extend at reflect_demo_100m's shapes (q [8,4,3,64];
+     extend Sx = 32 and 5; page size 16; scattered page tables with
+     unmapped tails, positions mid-page, an empty batch slot; window None
+     and 48) in float32, bfloat16 and int8 KV;
+   * the same at recurrentgemma-9b's local attention (K 1, G 16, hd 256;
+     decode and extend Sx = 32; window None, 48 and 2048);
+   * the mamba scan at falcon-mamba-7b's shapes ([8, 32 or 1, 8192],
+     state 16) with float32 and bfloat16 x, and the RG-LRU scan at
+     recurrentgemma-9b's ([8, 32 or 1, 4096]), each with a nonzero h0 and
+     pad lanes masked to the identity.
+4. serve   — three models through the port's ``Engine``, one after the
+   other, each freed before the next: 8 conversations of a few hundred
+   tokens, 3 reflection rounds with the suffix [99, 98], paged KV,
+   chunked prefill and the prefix cache.  Launch counters are reset just
+   before each run and read just after; every kernel of the run's path
+   must have launched, and rounds 2 and 3 must hit the prefix cache.
+   * reflect_demo_100m at full width and depth (12 layers, d_model 768,
+     bf16 activations, fp32 parameters), with self-speculative decoding,
+     then a shorter int8-KV run: paged decode and extend;
+   * falcon-mamba-7b at full width and depth (64 mamba layers, d_model
+     4096, fp32 parameters): the mamba scan;
+   * recurrentgemma-9b at full width and depth (38 layers, 26 RG-LRU and
+     12 local-attention, bf16 parameters): the RG-LRU scan and both paged
+     kernels at hd 256.
+   Weights are random from a seeded CUDA generator.  After each run a
+   profiler summary of device time by kernel gives the idle share, and a
+   check holds the model's logits on the card against the plain path on
+   the CPU (the new models at a cut depth).
 5. result  — a JSON line of kernel records, the card line, and last the
    JSON status line.
 
 Exits non-zero without a result when no CUDA device is present, or when
 the port's sources are not next to this script.
 """
+import gc
 import json
 import subprocess
 import sys
@@ -44,10 +61,15 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12,       # dense tensor-core bf16
             torch.float32: 67e12}         # float32 outside tensor cores
+# exponentials: 16 special-function results a clock per SM (sm_90) on 132
+# SMs at the 1.98 GHz boost clock
+SFU_PER_S = 16 * 132 * 1.98e9
 REPLACES = {"paged_decode": "src/repro/kernels/paged_attention.py:102",
-            "paged_extend": "src/repro/kernels/paged_extend.py:121"}
-SOURCES = {"paged_decode": "src/repro_torch/kernels/csrc/paged_decode.cu",
-           "paged_extend": "src/repro_torch/kernels/csrc/paged_extend.cu"}
+            "paged_extend": "src/repro/kernels/paged_extend.py:121",
+            "mamba_scan": "src/repro/kernels/mamba_scan.py:46",
+            "rglru_scan": "src/repro/kernels/rglru_scan.py:31"}
+SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu"
+           for name in REPLACES}
 STEP_KINDS = ("mixed_steps", "decode_batch_steps", "verify_steps")
 
 
@@ -179,14 +201,152 @@ def cuda_ms(fn, n=30, flush=None):
     return total / n
 
 
-def phase_kernels(dev):
+def time_record(kern, plain, flush, nbytes, nops, dtype, err, exps=0):
+    """Kernel cold-L2 / warm-L2 and plain-version cold-L2 times beside
+    the bound: bytes over the HBM rate against operations over the peak
+    rate for ``dtype`` (and exponentials over the SFU rate)."""
+    bms, by = bound_ms(nbytes, nops, dtype)
+    if exps / SFU_PER_S * 1e3 > bms:
+        bms, by = exps / SFU_PER_S * 1e3, "operations"
+    return {"ms": cuda_ms(kern, flush=flush), "warm_ms": cuda_ms(kern),
+            "plain_ms": cuda_ms(plain, n=10, flush=flush),
+            "bound_ms": bms, "bound_by": by, "max_abs_err": err,
+            "bytes": nbytes, "ops": nops, "exps": exps}
+
+
+def log_record(label, rec):
+    log(f"[kernels] {label}: kernel {rec['ms']:.4f} ms cold-L2 / "
+        f"{rec['warm_ms']:.4f} ms warm-L2, plain {rec['plain_ms']:.4f} ms "
+        f"cold-L2, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} "
+        f"({rec['bytes']} B, {rec['ops']} ops, {rec['exps']} exp; HBM "
+        f"{rec['bytes'] / rec['ms'] / 1e6:.1f} GB/s)")
+
+
+def paged_cases(records, tag, shape, cases, modes, windows, timed_window,
+                check_np, dev, flush, seed):
+    """Paged kernels at one model's attention shape: every (case, mode,
+    window) against the plain version on a table of ``check_np`` pages,
+    then times at ``shape`` (the serve's table) with ``timed_window``."""
     from repro_torch.kernels import ops, ref
-    B, K, G, hd, ps, NP = 8, 4, 3, 64, 16, 128      # max_seq 2048 / 16
-    cases = [("paged_decode", 1), ("paged_extend", 32), ("paged_extend", 5)]
     kernels = {"paged_decode": ops.paged_decode_attention,
                "paged_extend": ops.paged_extend_attention}
     plains = {"paged_decode": ref.paged_decode_attention_ref,
               "paged_extend": ref.paged_extend_attention_ref}
+    B, K, G, hd, ps, NP = (shape[k] for k in ("B", "K", "G", "hd", "ps",
+                                               "NP"))
+    fp = (lambda t: t.float() if t.is_floating_point() else t)
+    for name, Sx in cases:
+        for mode, dtype, quant, tol in modes:
+            for window in windows + ("timed",):
+                seed += 1
+                timed = window == "timed"
+                win = timed_window if timed else window
+                q, kp, vp, pt, pos0, sc = make_inputs(
+                    seed, B, Sx, K, G, hd, ps, NP if timed else check_np,
+                    dtype, quant, dev)
+                if name == "paged_decode":
+                    q = q[:, 0].contiguous()
+                kern = lambda: kernels[name](q, kp, vp, pt, pos0,
+                                             window=win, **sc)
+                got = kern()
+                torch.cuda.synchronize()
+                # the plain version in float32 on the same (rounded) inputs
+                want = plains[name](fp(q), fp(kp), fp(vp), pt, pos0,
+                                    window=win, **sc)
+                err = float((got.float() - want).abs().max())
+                ok = bool(torch.isfinite(got).all()) and torch.allclose(
+                    got.float(), want, atol=tol,
+                    rtol=0.0 if dtype == torch.bfloat16 else tol)
+                log(f"[kernels] {tag} {name} Sx={Sx} K={K} G={G} hd={hd} "
+                    f"NP={pt.shape[1]} {mode} window={win}: "
+                    f"max_abs_err={err:.3e} (tol {tol}) "
+                    f"{'ok' if ok else 'MISMATCH'}")
+                if not ok:
+                    raise AssertionError(f"{name} {mode} window={win} "
+                                         f"disagrees with its plain version")
+                if not timed:
+                    continue
+                plain = lambda: plains[name](q, kp, vp, pt, pos0,
+                                             window=win, **sc)
+                q5 = q if q.dim() == 5 else q[:, None]
+                nbytes, nops = work(q5, kp, pt, pos0, sc, win)
+                rec = time_record(kern, plain, flush, nbytes, nops, dtype,
+                                  err)
+                log_record(f"{tag} {name} Sx={Sx} {mode} window={win}", rec)
+                records[(name, tag, Sx, mode)] = rec
+    return seed
+
+
+def scan_cases(records, dev, flush):
+    """The two scans at the serves' shapes (mixed step S = 32, decode
+    S = 1): nonzero h0, pad lanes masked to the identity (mamba: dt = 0 on
+    the last lanes of all rows but the first; RG-LRU: a = 1, b = 0),
+    against the plain versions on the same inputs."""
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device=dev).manual_seed(11)
+    B, D, N, W = 8, 8192, 16, 4096
+    for S in (32, 1):
+        nv = torch.tensor([S] + [max(1, S - 4 * b) for b in range(1, B)],
+                          device=dev)
+        pad = (torch.arange(S, device=dev)[None, :] < nv[:, None])
+        dt = torch.nn.functional.softplus(
+            torch.randn(B, S, D, generator=g, device=dev) - 4.0)
+        dt = dt * pad[..., None]
+        Bm, Cm = (torch.randn(B, S, N, generator=g, device=dev)
+                  for _ in range(2))
+        x32 = torch.randn(B, S, D, generator=g, device=dev)
+        A = -torch.ones(D, N, device=dev)
+        Dsk = torch.ones(D, device=dev)
+        h0 = torch.randn(B, D, N, generator=g, device=dev)
+        for mode, x in (("float32", x32), ("bfloat16", x32.bfloat16())):
+            kern = lambda: ops.mamba_scan(dt, Bm, Cm, x, A, Dsk, h0)
+            plain = lambda: ref.mamba_scan_ref(dt, Bm, Cm, x, A, Dsk, h0)
+            (y, h), (wy, wh) = kern(), plain()
+            torch.cuda.synchronize()
+            err = max(float((y - wy).abs().max()),
+                      float((h - wh).abs().max()))
+            ok = (bool(torch.isfinite(y).all())
+                  and torch.allclose(y, wy, atol=1e-4, rtol=1e-4)
+                  and torch.allclose(h, wh, atol=1e-4, rtol=1e-4))
+            log(f"[kernels] mamba_scan [{B},{S},{D}] N={N} x {mode}: "
+                f"max_abs_err={err:.3e} (tol 1e-4 abs + 1e-4 rel) "
+                f"{'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                raise AssertionError(f"mamba_scan S={S} {mode} disagrees "
+                                     "with its plain version")
+            nbytes = (dt.numel() * 4 + x.numel() * x.element_size()
+                      + (Bm.numel() + Cm.numel() + A.numel() + Dsk.numel())
+                      * 4 + 2 * h0.numel() * 4 + y.numel() * 4)
+            exps = B * S * D * N
+            # dt * A, two multiply-adds (state, output), and the skip
+            rec = time_record(kern, plain, flush, nbytes, 5 * exps,
+                              torch.float32, err, exps)
+            log_record(f"mamba_scan S={S} x {mode}", rec)
+            records[("mamba_scan", S, mode)] = rec
+        a = torch.sigmoid(torch.randn(B, S, W, generator=g, device=dev))
+        b = torch.randn(B, S, W, generator=g, device=dev)
+        a.masked_fill_(~pad[..., None], 1.0)
+        b.masked_fill_(~pad[..., None], 0.0)
+        h0 = torch.randn(B, W, generator=g, device=dev)
+        kern = lambda: ops.rglru_scan(a, b, h0)
+        plain = lambda: ref.rglru_scan_ref(a, b, h0)
+        (hs, h), (whs, wh) = kern(), plain()
+        torch.cuda.synchronize()
+        err = max(float((hs - whs).abs().max()), float((h - wh).abs().max()))
+        log(f"[kernels] rglru_scan [{B},{S},{W}]: max_abs_err={err:.3e} "
+            f"(tol 0: the kernel rounds as the plain version does) "
+            f"{'ok' if err == 0 else 'MISMATCH'}")
+        if err != 0 or not bool(torch.isfinite(hs).all()):
+            raise AssertionError(f"rglru_scan S={S} disagrees with its "
+                                 "plain version")
+        rec = time_record(kern, plain, flush,
+                          (3 * a.numel() + 2 * h0.numel()) * 4,
+                          2 * a.numel(), torch.float32, err)
+        log_record(f"rglru_scan S={S}", rec)
+        records[("rglru_scan", S, "float32")] = rec
+
+
+def phase_kernels(dev):
     # (label, activation dtype, int8 pool, tolerance)
     modes = (("float32", torch.float32, False, 1e-4),
              ("bfloat16", torch.bfloat16, False, 2e-2),
@@ -195,57 +355,28 @@ def phase_kernels(dev):
     flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
     flush = flush_buf.zero_
     records = {}
-    seed = 0
-    for name, Sx in cases:
-        for mode, dtype, quant, tol in modes:
-            for window in (None, 48):
-                seed += 1
-                q, kp, vp, pt, pos0, sc = make_inputs(
-                    seed, B, Sx, K, G, hd, ps, NP, dtype, quant, dev)
-                if name == "paged_decode":
-                    q = q[:, 0].contiguous()
-                kern = lambda: kernels[name](q, kp, vp, pt, pos0,
-                                             window=window, **sc)
-                got = kern()
-                torch.cuda.synchronize()
-                # the plain version in float32 on the same (rounded) inputs
-                fp = (lambda t: t.float() if t.is_floating_point() else t)
-                want = plains[name](fp(q), fp(kp), fp(vp), pt, pos0,
-                                    window=window, **sc)
-                err = float((got.float() - want).abs().max())
-                ok = bool(torch.isfinite(got).all()) and torch.allclose(
-                    got.float(), want, atol=tol,
-                    rtol=0.0 if dtype == torch.bfloat16 else tol)
-                log(f"[kernels] {name} Sx={Sx} {mode} window={window}: "
-                    f"max_abs_err={err:.3e} (tol {tol}) "
-                    f"{'ok' if ok else 'MISMATCH'}")
-                if not ok:
-                    raise AssertionError(f"{name} {mode} window={window} "
-                                         f"disagrees with its plain version")
-                if window is not None:
-                    continue
-                plain = lambda: plains[name](q, kp, vp, pt, pos0,
-                                             window=window, **sc)
-                q5 = q if q.dim() == 5 else q[:, None]
-                nbytes, nops = work(q5, kp, pt, pos0, sc, window)
-                bms, by = bound_ms(nbytes, nops, dtype)
-                rec = {"ms": cuda_ms(kern, flush=flush),
-                       "warm_ms": cuda_ms(kern),
-                       "plain_ms": cuda_ms(plain, n=10, flush=flush),
-                       "bound_ms": bms, "bound_by": by,
-                       "max_abs_err": err, "bytes": nbytes, "ops": nops}
-                log(f"[kernels] {name} Sx={Sx} {mode}: kernel "
-                    f"{rec['ms']:.4f} ms cold-L2 / {rec['warm_ms']:.4f} ms "
-                    f"warm-L2, plain {rec['plain_ms']:.4f} ms cold-L2, "
-                    f"bound {bms:.4f} ms by {by} ({nbytes} B, {nops} ops, "
-                    f"HBM {nbytes / rec['ms'] / 1e6:.1f} GB/s)")
-                records[(name, Sx, mode)] = rec
+    # reflect_demo_100m: max_seq 2048 / page 16; timed at window None
+    demo = dict(B=8, K=4, G=3, hd=64, ps=16, NP=128)
+    seed = paged_cases(records, "demo", demo,
+                       [("paged_decode", 1), ("paged_extend", 32),
+                        ("paged_extend", 5)], modes, (None, 48), None, 128,
+                       dev, flush, 0)
+    # recurrentgemma-9b's local attention: checked on 160 pages so that
+    # the 2048-slot window binds; timed on the serve's 128 pages with the
+    # window its rg_attn layers pass
+    rg = dict(B=8, K=1, G=16, hd=256, ps=16, NP=128)
+    paged_cases(records, "rg", rg, [("paged_decode", 1), ("paged_extend",
+                                                          32)],
+                modes[:3], (None, 48, 2048), 2048, 160, dev, flush, seed)
+    scan_cases(records, dev, flush)
     return records
 
 
 # ---------------------------------------------------------------- 4. serve
 
-def serve(model, kv_dtype, rounds, max_new, seed):
+def serve(model, kv_dtype, rounds, max_new, seed, path):
+    """Serve ``rounds`` reflection rounds of 8 conversations; ``path``
+    names the kernels this model's steps must launch."""
     from repro_torch.configs.base import ServeConfig
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import Engine
@@ -288,23 +419,27 @@ def serve(model, kv_dtype, rounds, max_new, seed):
     processed = st["prefill_tokens"] + st["extend_tokens"] + \
         st["decode_tokens"]
     n_steps = sum(st[k] for k in STEP_KINDS)
-    log(f"[serve] kv={kv_dtype}: {rounds} rounds x 8 requests in "
-        f"{dt:.3f}s, {n_steps} engine steps ({dt / n_steps * 1e3:.2f} ms "
-        f"each); {st['decode_tokens'] / dt:.1f} output tok/s, "
+    name = f"{model.cfg.name} kv={kv_dtype}"
+    log(f"[serve] {name}: {rounds} rounds x 8 requests in {dt:.3f}s, "
+        f"{n_steps} engine steps ({dt / n_steps * 1e3:.2f} ms each); "
+        f"{st['decode_tokens'] / dt:.1f} output tok/s, "
         f"{processed / dt:.1f} processed tok/s; steps {steps}")
-    log(f"[serve] kv={kv_dtype}: prefix hits per round {hits}; launches "
+    log(f"[serve] {name}: prefix hits per round {hits}; launches "
         f"{launches}; peak memory {peak} B; "
         f"pool {st['kv_pool_pages_used']}/{st['kv_pool_pages']} pages")
     if any(h <= 0 for h in hits[1:]):
         raise AssertionError("reflection rounds missed the prefix cache")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel was not launched: {launches}")
-    if st["verify_steps"] <= 0:
-        raise AssertionError("no speculative verify step ran")
+    if min(launches[k] for k in path) <= 0:
+        raise AssertionError(f"a kernel of {path} was not launched: "
+                             f"{launches}")
+    if (st["verify_steps"] > 0) != eng.spec:
+        raise AssertionError("speculative verify steps ran iff the engine "
+                             f"speculates (spec={eng.spec}, verify steps "
+                             f"{st['verify_steps']})")
     return eng, convos, launches
 
 
-def profile_round(eng, convos):
+def profile_round(eng, convos, max_new=16):
     """Device time by kernel over one more short round, then the idle
     share.  The profiler's own tracing slows every launch on this card's
     host many times over, so the wall time it is set against is that of
@@ -319,7 +454,7 @@ def profile_round(eng, convos):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for c in convos:
-            eng.submit(Request(prompt=list(c), max_new_tokens=16,
+            eng.submit(Request(prompt=list(c), max_new_tokens=max_new,
                                eos_id=None))
         eng.run()
         torch.cuda.synchronize()
@@ -340,7 +475,8 @@ def profile_round(eng, convos):
                   key=dev_us, reverse=True)
     busy = sum(dev_us(e) for e in rows)
     busy_ms, wall_ms = busy / steps / 1e3, wall_s / steps2 * 1e3
-    log(f"[profile] {len(convos)} requests x 16 new tokens: {steps} engine "
+    log(f"[profile] {eng.cfg.name}: {len(convos)} requests x {max_new} new "
+        f"tokens: {steps} engine "
         f"steps, device busy {busy:.0f} us ({busy_ms:.3f} ms per step; "
         f"{traced_s:.3f} s wall under the profiler); again without the "
         f"profiler: {steps2} steps in {wall_s:.3f} s ({wall_ms:.3f} ms per "
@@ -381,75 +517,132 @@ def _walk(m, prompt, feed):
     return torch.cat(logits)
 
 
-def check_logits(model, dev):
+def check_logits(cfg, state, dev, soften=None):
     """The model's entry points on the card against the plain path on the
     CPU, on a small input (chunked prefill, then greedy decode steps fed
-    the CPU's tokens), at full width.
+    the CPU's tokens), at full width; ``state`` is a CPU state dict.
 
     The seeded weights follow the reference's init recipe, whose q/k
     projections (normal over fan_in = H for wq [d, H, hd]) make attention
     nearly one-hot: a 1e-6 relative change of the weights then moves the
     logits by O(1), so no two implementations could agree.  The check
-    prints that sensitivity on the card, for the served weights and for
-    the weights with wq and wk scaled by 1/8 (scores O(1)), and compares
-    implementations on the scaled ones."""
+    prints that sensitivity on the card, for the served weights and, for
+    a model with attention, for the weights with wq and wk scaled by
+    ``soften`` (scores O(1)), and compares implementations on the scaled
+    ones."""
     from repro_torch.models.registry import build_model
-    cfg32 = model.cfg.replace(dtype="float32")
-    served = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-    soft = {k: v * (0.125 if k.endswith((".wq", ".wk")) else 1.0)
-            for k, v in served.items()}
+    # float32 activations and parameters (bf16-stored weights upcast
+    # exactly), so that a 1e-6 change of the weights is not rounded away
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
     g = torch.Generator().manual_seed(7)
-    prompt = torch.randint(3, model.cfg.vocab_size, (1, 45), generator=g)
+    prompt = torch.randint(3, cfg.vocab_size, (1, 45), generator=g)
+    variants = [("served", state)]
+    if soften is not None:
+        state = {k: v * (soften if k.endswith((".wq", ".wk")) else 1.0)
+                 for k, v in state.items()}
+        variants.append((f"q/k x {soften}", state))
+    label = variants[-1][0]
 
-    def run(cfg, state, d, feed):
-        m = build_model(cfg)
-        m.load_state_dict(state)
+    def run(c, st, d, feed):
+        m = build_model(c)
+        m.load_state_dict(st)
         return _walk(m.to(d), prompt, feed)
 
-    for label, state in (("served", served), ("q/k x 1/8", soft)):
-        noisy = {k: v * (1 + 1e-6 * torch.randn(v.shape, generator=g))
-                 for k, v in state.items()}
+    for name, st in variants:
+        noisy = {k: v.float() * (1 + 1e-6 * torch.randn(v.shape,
+                                                        generator=g))
+                 for k, v in st.items()}
         feed = []
-        a = run(cfg32, state, dev, feed)
+        a = run(cfg32, st, dev, feed)
         b = run(cfg32, noisy, dev, feed)
-        log(f"[check] sensitivity, {label} weights, cuda fp32: a 1e-6 "
-            f"relative weight change moves logits by "
+        del noisy
+        log(f"[check] {cfg.name}: sensitivity, {name} weights, cuda fp32: "
+            f"a 1e-6 relative weight change moves logits by "
             f"{float((a - b).abs().max()):.3e} (logit scale "
             f"{float(a.abs().max()):.3f})")
     feed = []
-    ref = run(cfg32, soft, torch.device("cpu"), feed)
-    out32 = run(cfg32, soft, dev, feed)
-    out16 = run(model.cfg, soft, dev, feed)
+    ref = run(cfg32, state, torch.device("cpu"), feed)
+    out32 = run(cfg32, state, dev, feed)
+    out16 = run(cfg, state, dev, feed)
     if not all(torch.isfinite(v).all() for v in (ref, out32, out16)):
         raise AssertionError("non-finite logits")
     err32 = float((out32 - ref).abs().max())
     err16 = float((out16 - ref).abs().max())
     cos = float(torch.nn.functional.cosine_similarity(out16, ref,
                                                       dim=-1).min())
-    log(f"[check] logits [5, {ref.shape[-1]}], q/k x 1/8: cuda fp32 vs cpu "
-        f"fp32 max abs err {err32:.3e} (tol 1e-3); cuda bf16 vs cpu fp32 "
-        f"max abs err {err16:.3e} (tol 0.1), min cosine {cos:.6f} "
-        f"(tol 0.999)")
+    log(f"[check] {cfg.name}, {cfg.num_layers} layers, logits "
+        f"[5, {ref.shape[-1]}], {label} weights: cuda fp32 vs cpu fp32 max "
+        f"abs err {err32:.3e} (tol 1e-3); cuda {cfg.dtype} vs cpu fp32 max "
+        f"abs err {err16:.3e} (tol 0.1), min cosine {cos:.6f} (tol 0.999)")
     if err32 > 1e-3 or err16 > 0.1 or cos < 0.999:
         raise AssertionError("logits on the card disagree with the CPU")
 
 
-def phase_serve(dev):
-    from repro_torch.kernels import ops
-    from repro_torch.models.registry import build_model, get_config
-    cfg = get_config("reflect_demo_100m")
-    model = build_model(cfg).init(torch.Generator().manual_seed(0))
+def build_on_card(cfg, seed):
+    """The model with seeded random weights, made on the card."""
+    from repro_torch.models.registry import build_model
+    with torch.device("cuda"):
+        model = build_model(cfg)
+    model.init(torch.Generator(device="cuda").manual_seed(seed))
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model "
+    log(f"[serve] {cfg.name}: {cfg.num_layers} layers "
+        f"({' '.join(sorted(set(cfg.block_pattern)))}), d_model "
         f"{cfg.d_model}, {n_params} parameters ({cfg.param_dtype}), "
         f"activations {cfg.dtype}")
-    eng, convos, launches = serve(model, "model", rounds=3, max_new=64,
-                                  seed=1)
-    serve(model, "int8", rounds=2, max_new=32, seed=2)
+    return model
+
+
+def cut(cfg, n_layers):
+    """``cfg`` at full width and the first ``n_layers`` of its pattern."""
+    return cfg.replace(num_layers=n_layers,
+                       block_pattern=cfg.block_pattern[:n_layers])
+
+
+def release():
+    """Return the freed models' memory to the card before the next one."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_serve(dev):
+    """Each model's serve; returns the launch counts read just after each
+    model's main run."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import build_model, get_config
+    runs = {}
+    cfg = get_config("reflect_demo_100m")
+    model = build_on_card(cfg, 0)
+    eng, convos, runs["reflect_demo_100m"] = serve(
+        model, "model", rounds=3, max_new=64, seed=1,
+        path=("paged_decode", "paged_extend"))
+    serve(model, "int8", rounds=2, max_new=32, seed=2,
+          path=("paged_decode", "paged_extend"))
     profile_round(eng, convos)
-    check_logits(model, dev)
+    check_logits(cfg, {k: v.cpu() for k, v in model.state_dict().items()},
+                 dev, soften=0.125)
+    del eng, model
+    release()
+
+    # the recurrent families at full width and depth, one at a time; the
+    # logits check at a cut depth (one unit of the pattern), whose weights
+    # are made on the CPU
+    for arch, path, n_cut, soften in (
+            ("falcon_mamba_7b", ("mamba_scan",), 2, None),
+            ("recurrentgemma_9b", ("rglru_scan", "paged_extend",
+                                   "paged_decode"), 3, 1 / 32)):
+        cfg = get_config(arch)
+        model = build_on_card(cfg, 0)
+        eng, convos, runs[arch] = serve(model, "model", rounds=3,
+                                        max_new=32, seed=3, path=path)
+        profile_round(eng, convos, max_new=8)
+        del eng, model
+        release()
+        small = build_model(cut(cfg, n_cut)).init(
+            torch.Generator().manual_seed(0))
+        check_logits(small.cfg, small.state_dict(), dev, soften)
+        del small
     ops.reset_launches()
-    return launches
+    return runs
 
 
 # ---------------------------------------------------------------- main
@@ -465,17 +658,29 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     records = phase_kernels(dev)
-    launches = phase_serve(dev)
+    runs = phase_serve(dev)
     kernels = []
-    # paged_extend at Sx = 5: the verify steps make most of its launches
-    for name, Sx in (("paged_decode", 1), ("paged_extend", 5)):
-        rec = records[(name, Sx, "bfloat16")]
+    # each kernel's record at one shape its model's serve gives it: paged
+    # extend at Sx = 5 (the demo's verify steps make most of its
+    # launches), the scans at the 32-lane mixed step with the serve's bf16
+    # activations
+    for name, key, run in (
+            ("paged_decode", ("paged_decode", "demo", 1, "bfloat16"),
+             "reflect_demo_100m"),
+            ("paged_extend", ("paged_extend", "demo", 5, "bfloat16"),
+             "reflect_demo_100m"),
+            ("mamba_scan", ("mamba_scan", 32, "bfloat16"),
+             "falcon_mamba_7b"),
+            ("rglru_scan", ("rglru_scan", 32, "float32"),
+             "recurrentgemma_9b")):
+        rec = records[key]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name], "launches": runs[run][name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": None})
+            "bound_by": rec["bound_by"], "library_ms": None,
+            "launches_by_run": {r: runs[r][name] for r in runs}})
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

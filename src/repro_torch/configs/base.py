@@ -1,7 +1,8 @@
 """Configuration dataclasses for models and serving.
 
 A copy of the reference package's ``configs/base.py`` restricted to what
-the port serves: ``ModelConfig``, ``ServeConfig`` and ``dense_pattern``.
+the port serves: ``ModelConfig``, ``ServeConfig`` and the block patterns
+``dense_pattern``, ``mamba_pattern`` and ``recurrentgemma_pattern``.
 Field names, defaults and meanings are unchanged, so a config built for
 one package reads the same in the other.  ``ServeConfig`` options that the
 port's engine does not implement yet (``mesh``, ``aot_warmup``,
@@ -101,6 +102,18 @@ class ModelConfig:
 
 def dense_pattern(n: int) -> Tuple[str, ...]:
     return ("attn",) * n
+
+
+def mamba_pattern(n: int) -> Tuple[str, ...]:
+    return ("mamba",) * n
+
+
+def recurrentgemma_pattern(n: int) -> Tuple[str, ...]:
+    """RecurrentGemma interleaves recurrent and local-attention blocks 2:1."""
+    pat = []
+    while len(pat) < n:
+        pat.extend(["rglru", "rglru", "rg_attn"])
+    return tuple(pat[:n])
 
 
 @dataclass(frozen=True)

@@ -3,7 +3,7 @@
 // (request b, kv head h) pair and walks that request's page table.
 //
 // The walk goes in stages of S = 4096 / HD logical slots (64 at HD = 64),
-// whatever the page size.  Each thread loads its share of a stage's K and V
+// but at least 32 (32 at HD = 128 and 256), whatever the page size.  Each thread loads its share of a stage's K and V
 // rows as 16-byte vectors into registers one stage ahead, so the device
 // memory reads of stage n + 1 are in flight while stage n is computed, then
 // dequantizes them (int8 pools) and stores them as float into shared memory.
@@ -50,8 +50,10 @@ struct Args {
   int B, Sx, K, G, ps, NP, window;  // window <= 0: no window
 };
 
+// Slots of one stage: 4096 / HD, but at least one slot a lane when
+// scoring (HD = 256: 32 slots, 8192 elements).
 __host__ __device__ constexpr int stage_slots(int HD) {
-  return kStageElems / HD;
+  return kStageElems / HD > 32 ? kStageElems / HD : 32;
 }
 
 // Dynamic shared memory of a block of TR rows over a table of NP pages.

@@ -5,7 +5,8 @@
 // (paged_decode_attention, body _paged_kernel), which walks the page table
 // through scalar prefetch on a sequential (B, K, NP) grid.
 //
-//   q          [B, K, G, HD]   float or bf16 (HD in {32, 64, 128}, G <= 8)
+//   q          [B, K, G, HD]   float or bf16 (HD in {32, 64, 128, 256},
+//                              G <= 16)
 //   k/v pool   [P, ps, K, HD]  same type as q, or int8 with f32 sidecars
 //   k/z/v scale[P, ps, K]      int8 only: K = (q + 128) * s + z, V = q * s
 //   page_table [B, NP] int32   -1 = unmapped
@@ -29,13 +30,17 @@
 // 8, K = 4) fills a quarter of the 132 SMs with one warp per scheduler, so
 // each stage's shared-memory chain waits exposed; splitting the page walk
 // across blocks with a second reduction pass is the next step.
+//
+// recurrentgemma-9b's local-attention blocks are MQA at HD = 256 with
+// G = 16 query heads per KV head: one block of 16 rows per request (8
+// blocks at max_batch 8), stages of 32 slots, a 2048-slot window.
 #include "paged_common.cuh"
 
 namespace {
 
-constexpr int kRows = 8;  // G <= 8 query rows per block
+constexpr int kRows = 16;  // G <= 16 query rows per block
 
-// TR query rows per block: 4 when G <= 4, else 8.
+// TR query rows per block: 4 when G <= 4, 8 when G <= 8, else 16.
 template <typename TQ, typename TKV, int HD, int TR>
 __global__ void __launch_bounds__(paged::kThreads)
     paged_decode_kernel(paged::Args a) {
@@ -57,8 +62,9 @@ cudaError_t launch(const paged::Args& a, cudaStream_t stream) {
 
 template <typename TQ, typename TKV, int HD>
 cudaError_t by_rows(const paged::Args& a, cudaStream_t stream) {
-  return a.G <= 4 ? launch<TQ, TKV, HD, 4>(a, stream)
-                  : launch<TQ, TKV, HD, kRows>(a, stream);
+  if (a.G <= 4) return launch<TQ, TKV, HD, 4>(a, stream);
+  if (a.G <= 8) return launch<TQ, TKV, HD, 8>(a, stream);
+  return launch<TQ, TKV, HD, kRows>(a, stream);
 }
 
 template <typename TQ, typename TKV>
@@ -67,6 +73,7 @@ cudaError_t by_head_dim(int hd, const paged::Args& a, cudaStream_t stream) {
     case 32: return by_rows<TQ, TKV, 32>(a, stream);
     case 64: return by_rows<TQ, TKV, 64>(a, stream);
     case 128: return by_rows<TQ, TKV, 128>(a, stream);
+    case 256: return by_rows<TQ, TKV, 256>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -6,7 +6,7 @@
 // rows of a (b, kv head) resident in VMEM while pages stream through a
 // sequential grid axis.
 //
-//   q          [B, Sx, K, G, HD] float or bf16 (HD in {32, 64, 128})
+//   q          [B, Sx, K, G, HD] float or bf16 (HD in {32, 64, 128, 256})
 //   k/v pool   [P, ps, K, HD]    same type as q, or int8 with f32 sidecars
 //   k/z/v scale[P, ps, K]        int8 only: K = (q + 128) * s + z, V = q * s
 //   page_table [B, NP] int32     -1 = unmapped
@@ -33,17 +33,24 @@
 // computed; slots on unmapped pages, past the tile's last lane or before
 // its window are never read, and int8 pages are dequantized in registers.
 // A 96-row chunk at HD = 64 spans 6 tiles, which read the same pages
-// through L2.  wgmma on the row tile, TMA page loads and split-KV are later
+// through L2.  At HD = 256 (recurrentgemma-9b's MQA local attention, G =
+// 16) a tile is 16 rows, one lane's query heads, so a 32-lane prefill
+// chunk spans 32 tiles of a 2048-slot window.  wgmma on the row tile, TMA page loads and split-KV are later
 // steps.
 #include "paged_common.cuh"
 
 namespace {
 
+// Rows of a tile: 1024 / HD (8 accumulators per thread), and 16 at HD = 256
+// (32 accumulators per thread).
+template <int HD>
+constexpr int kRows = HD == 256 ? 16 : 1024 / HD;
+
 template <typename TQ, typename TKV, int HD>
 __global__ void __launch_bounds__(paged::kThreads)
     paged_extend_kernel(paged::Args a) {
   extern __shared__ float4 smem[];
-  constexpr int TR = 1024 / HD;  // 8 accumulators per thread
+  constexpr int TR = kRows<HD>;
   paged::attend_rows<TQ, TKV, HD, TR>(a, blockIdx.z, blockIdx.y,
                                       blockIdx.x * TR,
                                       reinterpret_cast<float*>(smem));
@@ -51,7 +58,7 @@ __global__ void __launch_bounds__(paged::kThreads)
 
 template <typename TQ, typename TKV, int HD>
 cudaError_t launch(const paged::Args& a, cudaStream_t stream) {
-  constexpr int TR = 1024 / HD;
+  constexpr int TR = kRows<HD>;
   const int tiles = (a.Sx * a.G + TR - 1) / TR;
   const size_t smem = paged::smem_bytes(HD, TR, a.NP);
   const cudaError_t err =
@@ -68,6 +75,7 @@ cudaError_t by_head_dim(int hd, const paged::Args& a, cudaStream_t stream) {
     case 32: return launch<TQ, TKV, 32>(a, stream);
     case 64: return launch<TQ, TKV, 64>(a, stream);
     case 128: return launch<TQ, TKV, 128>(a, stream);
+    case 256: return launch<TQ, TKV, 256>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -27,7 +27,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = {"paged_decode": "paged_decode.cu",
-           "paged_extend": "paged_extend.cu"}
+           "paged_extend": "paged_extend.cu",
+           "mamba_scan": "mamba_scan.cu",
+           "rglru_scan": "rglru_scan.cu"}
 HEADERS = ("paged_common.cuh",)
 
 # Kernel launches per kernel since the last reset: each wrapper adds one
@@ -35,11 +37,17 @@ HEADERS = ("paged_common.cuh",)
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# C signatures: (dtype, q, kp, vp, ks, kz, vs, page_table, pos, out,
+# C signatures:
+#   paged_*:    (dtype, q, kp, vp, ks, kz, vs, page_table, pos, out,
 #                B, [Sx,] K, G, hd, ps, NP, window, stream)
+#   mamba_scan: (x_dtype, dt, Bm, Cm, x, A, Dsk, h0, y, h, B, S, D, N,
+#                stream)
+#   rglru_scan: (a, b, h0, hs, h, B, S, W, stream)
 _ARGTYPES = {
     "paged_decode": [_I] + [_P] * 9 + [_I] * 7 + [_P],
     "paged_extend": [_I] + [_P] * 9 + [_I] * 8 + [_P],
+    "mamba_scan": [_I] + [_P] * 9 + [_I] * 4 + [_P],
+    "rglru_scan": [_P] * 5 + [_I] * 3 + [_P],
 }
 _FNS: Dict[str, ctypes._CFuncPtr] = {}
 _ERR: Dict[str, ctypes._CFuncPtr] = {}
@@ -127,15 +135,31 @@ DTYPE_CODES = {
     (torch.float32, torch.int8): 2,
     (torch.bfloat16, torch.int8): 3,
 }
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 MAX_SMEM_BYTES = 232448                 # opt-in shared memory of a block
+
+
+def stage_slots(hd: int) -> int:
+    """Slots of one stage of the page walk (``paged::stage_slots``):
+    4096 / hd, but at least 32 so a stage splits into one slot a lane."""
+    return max(32, 4096 // hd)
+
+
+def decode_rows(G: int) -> int:
+    """Query rows of a paged-decode block (``paged_decode.cu::by_rows``)."""
+    return 4 if G <= 4 else 8 if G <= 8 else 16
+
+
+def extend_rows(hd: int) -> int:
+    """Query rows of a paged-extend block (``paged_extend.cu::kRows``)."""
+    return 16 if hd == 256 else 1024 // hd
 
 
 def smem_bytes(hd: int, rows: int, n_pages: int) -> int:
     """Dynamic shared memory of one block (``paged::smem_bytes``): q rows,
-    one stage of 4096 / hd K and V slots, its probabilities, and the
-    request's page-table row."""
-    slots = 4096 // hd
+    one stage of K and V slots, its probabilities, and the request's
+    page-table row."""
+    slots = stage_slots(hd)
     return 4 * (rows * hd + slots * (hd + 4) + slots * hd + rows * slots
                 + 2 * rows) + 4 * n_pages
 

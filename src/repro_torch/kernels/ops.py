@@ -1,5 +1,4 @@
-"""Device dispatch of the paged-attention reads (port of
-``repro/kernels/ops.py``).
+"""Device dispatch of the port's kernels (port of ``repro/kernels/ops.py``).
 
 One rule replaces the reference's ``attn_impl`` switch and its
 ``interpret`` flag: a CPU tensor goes to the kernel's plain PyTorch
@@ -13,11 +12,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.cuda_lib import LAUNCHES, reset_launches
+from repro_torch.kernels.mamba_scan import mamba_scan
 from repro_torch.kernels.paged_attention import paged_decode_attention
 from repro_torch.kernels.paged_extend import paged_extend_attention
+from repro_torch.kernels.rglru_scan import rglru_scan
 
 __all__ = ["LAUNCHES", "reset_launches", "paged_decode_attention",
-           "paged_extend_attention", "resolve_attn_impl"]
+           "paged_extend_attention", "mamba_scan", "rglru_scan",
+           "resolve_attn_impl"]
 
 
 def resolve_attn_impl(device: torch.device) -> str:

@@ -24,7 +24,7 @@ import torch
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.ref import paged_decode_attention_ref as plain
 
-MAX_G = 8       # query rows per block: 4 when G <= 4, else 8
+MAX_G = 16      # query rows per block: 4, 8 or 16 (cuda_lib.decode_rows)
 
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -44,7 +44,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError(f"paged decode takes G <= {MAX_G} heads per group")
     code = cuda_lib.check_paged_inputs(q, k_pool, v_pool, page_table, pos,
                                        k_scale, k_zero, v_scale,
-                                       4 if G <= 4 else MAX_G)
+                                       cuda_lib.decode_rows(G))
     if window is not None and window <= 0:
         raise ValueError("window must be positive")
     out = torch.empty_like(q)

@@ -41,7 +41,7 @@ def paged_extend_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if q.dim() != 5:
         raise ValueError(f"q must be [B, Sx, K, G, hd], got {tuple(q.shape)}")
     B, Sx, K, G, hd = q.shape
-    rows = 1024 // hd if hd in cuda_lib.HEAD_DIMS else 1
+    rows = cuda_lib.extend_rows(hd) if hd in cuda_lib.HEAD_DIMS else 1
     code = cuda_lib.check_paged_inputs(q, k_pool, v_pool, page_table, pos0,
                                        k_scale, k_zero, v_scale, rows)
     if window is not None and window <= 0:

@@ -1,10 +1,12 @@
-"""Plain PyTorch versions of the two paged-attention kernels.
+"""Plain PyTorch versions of the port's kernels.
 
-Ports of ``repro/kernels/ref.py::paged_decode_attention_ref`` and
-``paged_extend_attention_ref``: gather each request's pages into a dense
-logical ``[B, NP*ps, K, hd]`` view, mask by absolute position, softmax in
-float32.  They are the CPU read path of the port (``kernels/ops.py``) and
-the oracle ``chip_smoke.py`` holds the CUDA kernels against.
+Ports of ``repro/kernels/ref.py``: ``paged_decode_attention_ref`` and
+``paged_extend_attention_ref`` gather each request's pages into a dense
+logical ``[B, NP*ps, K, hd]`` view, mask by absolute position and
+softmax in float32; ``mamba_scan_ref`` and ``rglru_scan_ref`` run the two
+recurrences as sequential float32 loops over time.  They are the CPU
+path of the port (``kernels/ops.py``) and the oracles ``chip_smoke.py``
+holds the CUDA kernels against.
 
 One rule differs from the JAX oracle, on purpose: a query row with NO
 valid slot (an empty batch slot, a pad lane) comes out as zeros.  The JAX
@@ -79,3 +81,34 @@ def paged_extend_attention_ref(q, k_pool, v_pool, page_table, pos0, *,
     pos_lane = pos0.long()[:, None] + torch.arange(Sx, device=q.device)
     return _paged_attend(q, k_pool, v_pool, page_table, pos_lane,
                          k_scale, k_zero, v_scale, window)
+
+
+def mamba_scan_ref(dt, Bm, Cm, x, A, Dsk, h0):
+    """Sequential Mamba-1 selective scan, float32.
+
+    dt, x: [B, S, D]; Bm, Cm: [B, S, N]; A: [D, N]; Dsk: [D]; h0:
+    [B, D, N].  ``h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) B_t`` and
+    ``y_t = h_t . C_t + Dsk * x_t``.  Returns (y [B, S, D], h_last
+    [B, D, N]), both float32."""
+    h = h0.float()
+    A, Dsk = A.float(), Dsk.float()
+    ys = []
+    for t in range(dt.shape[1]):
+        dtt, xt = dt[:, t].float(), x[:, t].float()
+        a = torch.exp(dtt[..., None] * A[None])                  # [B,D,N]
+        h = a * h + (dtt * xt)[..., None] * Bm[:, t, None, :].float()
+        y = torch.einsum("bdn,bn->bd", h, Cm[:, t].float())
+        ys.append(y + Dsk[None] * xt)
+    return torch.stack(ys, dim=1), h
+
+
+def rglru_scan_ref(a, b, h0):
+    """Sequential linear recurrence ``h_t = a_t * h_{t-1} + b_t``.
+    a, b: [B, S, W] float32; h0: [B, W].  Returns (hs [B, S, W], h_last
+    [B, W])."""
+    h = h0
+    hs = []
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1), h

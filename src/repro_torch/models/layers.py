@@ -48,6 +48,17 @@ def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
     return module
 
 
+def conv_tail_at(hist: torch.Tensor, n_valid: torch.Tensor,
+                 ck: int) -> torch.Tensor:
+    """Gather the ck-1 causal-conv history entries ending at each row's
+    last valid token (masked recurrent extends).  hist: [B, (ck-1)+S, W];
+    returns [B, ck-1, W].  Shared by the mamba and RG-LRU mixers."""
+    idx = n_valid.long()[:, None] + torch.arange(ck - 1,
+                                                 device=hist.device)[None]
+    return torch.gather(hist, 1, idx[:, :, None].expand(-1, -1,
+                                                        hist.shape[2]))
+
+
 # ---------------------------------------------------------------------------
 # Normalization
 # ---------------------------------------------------------------------------

@@ -9,6 +9,8 @@ from repro_torch.configs.base import ModelConfig
 ARCH_IDS = (
     "reflect_demo_100m",
     "qwen3_0_6b",
+    "falcon_mamba_7b",
+    "recurrentgemma_9b",
 )
 
 ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
@@ -18,8 +20,9 @@ ALIASES["qwen3-0.6b"] = "qwen3_0_6b"
 def _module(arch: str):
     key = ALIASES.get(arch, arch).replace("-", "_").replace(".", "_")
     if key not in ARCH_IDS:
-        raise NotImplementedError(f"architecture {arch!r} is not ported; "
-                                  f"the port has {ARCH_IDS}")
+        raise NotImplementedError(
+            f"architecture {arch!r} is not ported; the port has {ARCH_IDS}; "
+            "still to port: the MoE archs, whisper and vlm")
     return importlib.import_module(f"repro_torch.configs.{key}")
 
 

@@ -29,10 +29,15 @@ Differences from the reference:
   * The model runs on ``device`` (CUDA unless the caller asks for the
     CPU); the page pools are updated in place, and COW copies run as one
     indexed copy per pool leaf with only real (src, dst) pairs.
+  * Recurrent models (mamba, RG-LRU) keep dense per-slot state beside the
+    page pool, as in the reference: zeroed at admission (so a preemption
+    replay restarts from zero), copied into prefix snapshots and restored
+    from them; speculative decoding is off for them.
   * Not ported yet — the constructor raises ``NotImplementedError`` when
     asked for them: fault injection, deadlines, NaN quarantine, the stall
-    detector, SLO pricing, meshes, AOT warmup, ring caches
-    (``paged_kv=False``) and recurrent models.
+    detector, SLO pricing, meshes, AOT warmup and ring caches
+    (``paged_kv=False``); MoE, whisper and vlm models fail when the
+    model is built.
 """
 from __future__ import annotations
 
@@ -46,9 +51,10 @@ import torch
 from repro_torch.configs.base import ModelConfig, ServeConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.models.transformer import ATTN_KINDS, STATE_KINDS
 from repro_torch.serving import sampler
 from repro_torch.serving.page_pool import PagePool, PagedSnapshot
-from repro_torch.serving.prefix_cache import PrefixCache, config_is_recurrent
+from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.request import (BudgetTier, Request, Status,
                                          TokenUsage)
 from repro_torch.serving.speculator import (NGramSpeculator, draft_corpus,
@@ -65,7 +71,7 @@ def _unsupported(scfg: ServeConfig, faults, mesh) -> List[str]:
         "nan_quarantine": scfg.nan_quarantine,
         "stall_limit": scfg.stall_limit > 0,
         "slo_price_model": scfg.slo_price_model is not None,
-        "paged_kv=False": not scfg.paged_kv,
+        "ring caches (paged_kv=False)": not scfg.paged_kv,
     }
     return [name for name, on in asked.items() if on]
 
@@ -78,14 +84,19 @@ class Engine:
         if missing:
             raise NotImplementedError(
                 f"not ported yet: {', '.join(missing)}")
-        if config_is_recurrent(model.cfg):
-            raise NotImplementedError("recurrent models are not ported yet")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.cfg: ModelConfig = model.cfg
         self.scfg = scfg
         B, S = scfg.max_batch, scfg.max_seq
 
+        # recurrent (mamba / rglru) layers keep dense per-slot state; the
+        # prefix cache derives its exact-boundary rule from the same pattern
+        kinds = self.cfg.block_pattern
+        self._state_layers = [i for i, k in enumerate(kinds)
+                              if k in STATE_KINDS]
+        self._pool_layers = [i for i, k in enumerate(kinds)
+                             if k in ATTN_KINDS]
         self.prefix_cache = (PrefixCache(scfg.page_size, model_cfg=self.cfg)
                              if scfg.prefix_cache else None)
         self.kv_dtype = scfg.kv_dtype or self.cfg.kv_dtype
@@ -102,14 +113,20 @@ class Engine:
         self.page_tables = np.full((B, self.pages_per_seq), -1, np.int64)
         self.cache = model.init_cache_paged(num_pages, ps,
                                             kv_dtype=self.kv_dtype,
-                                            device=self.device)
+                                            device=self.device, batch=B)
         # paged lanes have no ring aliasing: the mixed-step width is
         # bounded only by max_seq
         self.chunk = max(1, min(scfg.prefill_chunk, S))
         # With EVERY attention layer windowed, pages that slid out of the
         # window can never be attended again and are freed as a request
         # advances (every layer shares one table: the widest window rules).
-        self._window_free = self.cfg.sliding_window
+        # rg_attn layers attend within local_window; a model without
+        # attention layers frees nothing (its pages hold no KV).
+        wins = [self.cfg.local_window if k == "rg_attn"
+                else self.cfg.sliding_window for k in set(kinds)
+                if k in ATTN_KINDS]
+        self._window_free = (max(wins) if wins and None not in wins
+                             else None)
         self.prefill_budget = max(1, scfg.prefill_token_budget)
         # each mixed step runs at the smallest bucket width that fits its
         # planned chunks; the full chunk width is always the last bucket
@@ -117,9 +134,12 @@ class Engine:
             {max(1, min(int(w), self.chunk)) for w in scfg.prefill_buckets}
             | {self.chunk})
 
-        # self-speculative decoding: paged dense models always qualify
+        # self-speculative decoding: recurrent state mutates irreversibly,
+        # so a rejected draft could not be rolled back — off for mamba /
+        # RG-LRU models; paged attention models always qualify
         self.spec = (bool(scfg.spec_decode)
-                     and getattr(model, "supports_verify", False))
+                     and getattr(model, "supports_verify", False)
+                     and not self._state_layers)
         self.spec_tokens = max(1, min(scfg.spec_tokens, S - 1))
         self.speculator = (NGramSpeculator(scfg.spec_ngram,
                                            scfg.spec_ngram_min)
@@ -127,8 +147,8 @@ class Engine:
 
         # bytes of one physical page across every layer's pools
         self._page_nbytes = sum(t.numel() * t.element_size()
-                                for layer in self.cache
-                                for t in layer.values()) // num_pages
+                                for i in self._pool_layers
+                                for t in self.cache[i].values()) // num_pages
 
         self.slots: List[Optional[Request]] = [None] * B
         self.pos = np.zeros(B, np.int64)
@@ -196,10 +216,16 @@ class Engine:
     # ------------------------------------------------------------ statistics
 
     def _kv_stats(self) -> Dict[str, Any]:
-        """Resident KV: pool leaves count only their used pages."""
-        allocated = sum(t.numel() * t.element_size()
-                        for layer in self.cache for t in layer.values())
-        resident = int(allocated * self.pool.utilization())
+        """Resident KV: pool leaves count only their used pages, dense
+        per-slot recurrent state is always resident."""
+        def nbytes(layers):
+            return [t.numel() * t.element_size()
+                    for i in layers for t in self.cache[i].values()]
+
+        used = self.pool.utilization()
+        allocated = sum(nbytes(range(len(self.cache))))
+        resident = (sum(int(nb * used) for nb in nbytes(self._pool_layers))
+                    + sum(nbytes(self._state_layers)))
         return {"resident_kv_bytes": resident,
                 "allocated_kv_bytes": allocated,
                 "kv_pool_pages_used": self.pool.used_pages,
@@ -270,8 +296,8 @@ class Engine:
         dst = torch.tensor([d for _, d in self._pending_copies],
                            device=self.device)
         self._pending_copies = []
-        for layer in self.cache:
-            for leaf in layer.values():
+        for i in self._pool_layers:
+            for leaf in self.cache[i].values():
                 leaf[dst] = leaf[src]
 
     def _release_slot_pages(self, slot: int) -> None:
@@ -396,6 +422,27 @@ class Engine:
                 else:
                     drafts[slot] = d[:got - 1]
 
+    # ------------------------------------------------ dense recurrent state
+
+    def _slot_cache(self, slot: int) -> Dict[int, Dict[str, torch.Tensor]]:
+        """A copy of one request's dense recurrent state, by layer index
+        (``[1, ...]`` leaves); the shared page pools are not part of it."""
+        return {i: {k: v[slot:slot + 1].clone()
+                    for k, v in self.cache[i].items()}
+                for i in self._state_layers}
+
+    def _set_slot_cache(self, slot: int,
+                        state: Dict[int, Dict[str, torch.Tensor]]) -> None:
+        for i, leaves in state.items():
+            for k, v in leaves.items():
+                self.cache[i][k][slot].copy_(v[0])
+
+    def _zero_slot_state(self, slot: int) -> None:
+        """The blank row: no state of the previous occupant survives."""
+        for i in self._state_layers:
+            for leaf in self.cache[i].values():
+                leaf[slot].zero_()
+
     # ------------------------------------------------------------ snapshots
 
     def _make_snapshot(self, slot: int, n_tokens: int) -> PagedSnapshot:
@@ -408,10 +455,14 @@ class Engine:
         if self._window_free is None and len(live) != npages:
             raise RuntimeError("snapshot of unmapped pages")
         self.pool.incref(live)
-        return PagedSnapshot(pages=pages, n_tokens=n_tokens, recurrent=None,
-                             nbytes=len(live) * self._page_nbytes,
+        rec = self._slot_cache(slot) if self._state_layers else None
+        rec_nbytes = sum(t.numel() * t.element_size()
+                         for leaves in (rec or {}).values()
+                         for t in leaves.values())
+        return PagedSnapshot(pages=pages, n_tokens=n_tokens, recurrent=rec,
+                             nbytes=len(live) * self._page_nbytes + rec_nbytes,
                              meta={"page_nbytes": self._page_nbytes,
-                                   "rec_nbytes": 0})
+                                   "rec_nbytes": rec_nbytes})
 
     def _insert_snapshot(self, tokens: List[int], slot: int,
                          boundary: bool = False) -> None:
@@ -429,12 +480,19 @@ class Engine:
     def _adopt_snapshot(self, slot: int, snap: PagedSnapshot,
                         cached: int) -> None:
         """Map a snapshot's physical pages into this slot's table
-        (shared, refcounted)."""
+        (shared, refcounted) and restore dense recurrent state."""
         ps = self.pool.page_size
         npages = -(-cached // ps)
         pages = snap.pages[:npages]
         self.pool.incref([p for p in pages if p >= 0])
         self.page_tables[slot, :npages] = pages
+        if snap.recurrent is not None:
+            # recurrent state summarizes exactly n_tokens; the lookup
+            # rules guarantee untrimmed full hits for stateful models
+            if cached != snap.n_tokens:
+                raise RuntimeError(f"recurrent snapshot of {snap.n_tokens} "
+                                   f"tokens adopted at {cached}")
+            self._set_slot_cache(slot, snap.recurrent)
 
     # ------------------------------------------------------------ admission
 
@@ -450,6 +508,7 @@ class Engine:
             res = self.prefix_cache.lookup(target)
             # a full-prompt hit still needs >=1 suffix token for logits
             cached_len = min(res.cached_len, len(target) - 1)
+        self._zero_slot_state(slot)
         if cached_len > 0 and res.cache is not None:
             self._adopt_snapshot(slot, res.cache, cached_len)
             req.usage += TokenUsage(cache_read_tokens=max(

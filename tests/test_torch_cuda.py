@@ -6,9 +6,10 @@ the card:
 
 Each kernel is held against its plain PyTorch version on the same inputs
 (float32 to 1e-4, bfloat16 against the plain version in float32 on the
-same rounded inputs to 2e-2, int8 pools to 1e-4), the wrappers refuse
-what the kernels do not take, and a small engine run on the card
-launches both kernels.
+same rounded inputs to 2e-2, int8 pools to 1e-4; the scans to 1e-4, and
+the RG-LRU scan bit for bit), the wrappers refuse what the kernels do not
+take, and small engine runs on the card launch the kernels of their
+models' paths.
 """
 import pytest
 import torch
@@ -78,13 +79,112 @@ def test_kernels_match_plain(dev, mode, window, hd, ps, NP):
     torch.testing.assert_close(got.float().cpu(), want, atol=tol, rtol=0)
 
 
+@pytest.mark.parametrize("mode", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("window", [None, 48, 2048])
+def test_kernels_match_plain_mqa_hd256(dev, mode, window):
+    """recurrentgemma-9b's local attention: K 1, G 16, hd 256."""
+    act = torch.bfloat16 if mode == "bfloat16" else torch.float32
+    tol = 2e-2 if act == torch.bfloat16 else 1e-4
+    cuda, sc, f32, sc_cpu = _inputs(dev, act, mode == "int8", B=3, Sx=32,
+                                    K=1, G=16, hd=256, ps=16, NP=160)
+    q, kp, vp, pt, pos0 = cuda
+    fq, fkp, fvp, fpt, fpos = f32
+    got = ops.paged_extend_attention(q, kp, vp, pt, pos0, window=window,
+                                     **sc)
+    want = ref.paged_extend_attention_ref(fq, fkp, fvp, fpt, fpos,
+                                          window=window, **sc_cpu)
+    torch.testing.assert_close(got.float().cpu(), want, atol=tol, rtol=0)
+    got = ops.paged_decode_attention(q[:, 0].contiguous(), kp, vp, pt, pos0,
+                                     window=window, **sc)
+    want = ref.paged_decode_attention_ref(fq[:, 0], fkp, fvp, fpt, fpos,
+                                          window=window, **sc_cpu)
+    torch.testing.assert_close(got.float().cpu(), want, atol=tol, rtol=0)
+
+
+def _scan_inputs(B, S, D, N, seed):
+    """Mamba scan operands as the model makes them: softplus step sizes,
+    a negative A, a nonzero h0, and pad lanes (dt = 0) at the end of every
+    row but the first."""
+    g = torch.Generator().manual_seed(seed)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, D, generator=g)
+                                      - 2.0)
+    n_valid = torch.tensor([S] + [max(1, S - 3 * b) for b in range(1, B)])
+    dt = dt * (torch.arange(S)[None, :] < n_valid[:, None])[..., None]
+    return (dt, torch.randn(B, S, N, generator=g),
+            torch.randn(B, S, N, generator=g),
+            torch.randn(B, S, D, generator=g),
+            -torch.exp(0.5 * torch.randn(D, N, generator=g)),
+            torch.randn(D, generator=g),
+            torch.randn(B, D, N, generator=g), n_valid)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,D,N", [(8, 32, 8192, 16), (3, 5, 300, 8),
+                                     (2, 70, 256, 4), (8, 1, 8192, 16)])
+def test_mamba_scan_matches_plain(dev, x_dtype, B, S, D, N):
+    """falcon-mamba-7b's mixed-step and decode shapes, and ragged ones;
+    the state after pad lanes is the state after the last valid token."""
+    dt, Bm, Cm, x, A, Dsk, h0, n_valid = _scan_inputs(B, S, D, N, 0)
+    x = x.to(x_dtype)
+    args = [t.to(dev) for t in (dt, Bm, Cm, x, A, Dsk, h0)]
+    y, h = ops.mamba_scan(*args)
+    want_y, want_h = ref.mamba_scan_ref(dt, Bm, Cm, x.float(), A, Dsk, h0)
+    torch.testing.assert_close(y.cpu(), want_y, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(h.cpu(), want_h, atol=1e-4, rtol=1e-4)
+    for b in range(B):                        # pads leave h untouched
+        nv = int(n_valid[b])
+        _, hb = ref.mamba_scan_ref(dt[b:b + 1, :nv], Bm[b:b + 1, :nv],
+                                   Cm[b:b + 1, :nv], x[b:b + 1, :nv].float(),
+                                   A, Dsk, h0[b:b + 1])
+        torch.testing.assert_close(h[b:b + 1].cpu(), hb, atol=1e-4,
+                                   rtol=1e-4)
+
+
+@pytest.mark.parametrize("B,S,W", [(8, 32, 4096), (3, 7, 300), (8, 1, 4096)])
+def test_rglru_scan_matches_plain(dev, B, S, W):
+    """recurrentgemma-9b's mixed-step and decode shapes and a ragged one,
+    with identity pad lanes: the kernel rounds as the plain version does,
+    so the two agree bit for bit."""
+    g = torch.Generator().manual_seed(1)
+    a = torch.sigmoid(torch.randn(B, S, W, generator=g))
+    b = torch.randn(B, S, W, generator=g)
+    a[1:, S // 2:], b[1:, S // 2:] = 1.0, 0.0
+    h0 = torch.randn(B, W, generator=g)
+    hs, h = ops.rglru_scan(a.to(dev), b.to(dev), h0.to(dev))
+    want_hs, want_h = ref.rglru_scan_ref(a, b, h0)
+    torch.testing.assert_close(hs.cpu(), want_hs, atol=0, rtol=0)
+    torch.testing.assert_close(h.cpu(), want_h, atol=0, rtol=0)
+
+
+def test_scan_wrappers_count_launches_and_refuse_bad_operands(dev):
+    dt, Bm, Cm, x, A, Dsk, h0, _ = _scan_inputs(2, 4, 256, 8, 2)
+    args = [t.to(dev) for t in (dt, Bm, Cm, x, A, Dsk, h0)]
+    a = torch.rand(2, 4, 256, device=dev)
+    ops.reset_launches()
+    ops.mamba_scan(*args)
+    ops.rglru_scan(a, a, a[:, 0].contiguous())
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["mamba_scan"] == 1 and ops.LAUNCHES["rglru_scan"] == 1
+    with pytest.raises(ValueError):          # state size the kernel lacks
+        ops.mamba_scan(*args[:4], args[4][:, :5].contiguous(), args[5],
+                       args[6][..., :5].contiguous())
+    with pytest.raises(ValueError):          # bf16 step sizes
+        ops.mamba_scan(args[0].bfloat16(), *args[1:])
+    with pytest.raises(ValueError):          # operands on two devices
+        ops.mamba_scan(*args[:6], args[6].cpu())
+    with pytest.raises(ValueError):          # non-contiguous decay
+        ops.rglru_scan(a.transpose(0, 1), a, a[:, 0].contiguous())
+    assert ops.LAUNCHES["mamba_scan"] == 1 and ops.LAUNCHES["rglru_scan"] == 1
+
+
 def test_wrappers_count_launches_and_refuse_bad_operands(dev):
     (q, kp, vp, pt, pos0), _, _, _ = _inputs(dev, torch.float32, False)
     ops.reset_launches()
     ops.paged_extend_attention(q, kp, vp, pt, pos0)
     ops.paged_decode_attention(q[:, 0].contiguous(), kp, vp, pt, pos0)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES == {"paged_decode": 1, "paged_extend": 1}
+    assert ops.LAUNCHES["paged_decode"] == 1
+    assert ops.LAUNCHES["paged_extend"] == 1
     with pytest.raises(ValueError):          # int64 page table
         ops.paged_extend_attention(q, kp, vp, pt.long(), pos0)
     with pytest.raises(ValueError):          # non-contiguous q
@@ -98,7 +198,8 @@ def test_wrappers_count_launches_and_refuse_bad_operands(dev):
                                    vp[..., :48].contiguous(), pt, pos0)
     with pytest.raises(ValueError):          # operands on two devices
         ops.paged_extend_attention(q, kp.cpu(), vp, pt, pos0)
-    assert ops.LAUNCHES == {"paged_decode": 1, "paged_extend": 1}
+    assert ops.LAUNCHES["paged_decode"] == 1
+    assert ops.LAUNCHES["paged_extend"] == 1
 
 
 @pytest.mark.parametrize("kv_dtype", ["model", "int8"])
@@ -122,5 +223,34 @@ def test_engine_on_card_launches_both_kernels(dev, kv_dtype):
     eng.run()
     assert all(r.status is Status.DONE and len(r.output) == 12
                for r in reqs)
-    assert min(ops.LAUNCHES.values()) > 0, ops.LAUNCHES
+    assert ops.LAUNCHES["paged_decode"] > 0, ops.LAUNCHES
+    assert ops.LAUNCHES["paged_extend"] > 0, ops.LAUNCHES
+    eng.pool.check()
+
+
+@pytest.mark.parametrize("arch,kernels", [
+    ("falcon_mamba_7b", ("mamba_scan",)),
+    ("recurrentgemma_9b", ("rglru_scan", "paged_extend", "paged_decode"))])
+def test_engine_on_card_serves_recurrent_models(dev, arch, kernels):
+    """Two reflection rounds of the smoke model on the card: every kernel
+    of the model's path launches and round 2 hits the prefix cache."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.models.registry import build_model, get_smoke_config
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import Request, Status
+
+    m = build_model(get_smoke_config(arch)).init(
+        torch.Generator().manual_seed(0))
+    eng = Engine(m, ServeConfig(max_batch=2, max_seq=128, page_size=8,
+                                prefill_chunk=8), device="cuda")
+    ops.reset_launches()
+    convo = [1] + list(range(10, 50))
+    for _ in range(2):
+        r = Request(prompt=list(convo), max_new_tokens=6, eos_id=None)
+        eng.submit(r)
+        eng.run()
+        assert r.status is Status.DONE and len(r.output) == 6
+        convo += r.output + [99, 98]
+    assert all(ops.LAUNCHES[k] > 0 for k in kernels), ops.LAUNCHES
+    assert eng.prefix_cache.stats["hits"] > 0
     eng.pool.check()

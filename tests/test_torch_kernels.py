@@ -143,5 +143,10 @@ def test_cpu_dispatch_launches_no_kernel():
     ops.paged_extend_attention(_t(q), _t(kp), _t(vp), _t(pt), _t(pos0))
     ops.paged_decode_attention(_t(q[:, 0]), _t(kp), _t(vp), _t(pt),
                                _t(pos0))
-    assert ops.LAUNCHES == {"paged_decode": 0, "paged_extend": 0}
+    a, bc = torch.rand(2, 3, 8), torch.rand(2, 3, 4)
+    ops.rglru_scan(a, a, a[:, 0])
+    ops.mamba_scan(a, bc, bc, a, -torch.ones(8, 4), torch.ones(8),
+                   torch.zeros(2, 8, 4))
+    assert ops.LAUNCHES == {"paged_decode": 0, "paged_extend": 0,
+                            "mamba_scan": 0, "rglru_scan": 0}
     assert ops.resolve_attn_impl(torch.device("cpu")) == "plain"
