@@ -7,7 +7,7 @@ Phases, each of which stops the run with a non-zero exit on any error:
 
 1. device  — the card's name and power limit; TF32 off for matmuls and
    cuDNN, so float32 comparisons are float32.
-2. build   — compile the four hand-written kernels from ``csrc/`` with
+2. build   — compile the six hand-written kernels from ``csrc/`` with
    nvcc (one process per source, in parallel) and print ``-Xptxas -v``.
 3. kernels — each kernel against its plain PyTorch version at the main
    paths' shapes, then kernel and plain-version times from CUDA events
@@ -22,25 +22,46 @@ Phases, each of which stops the run with a non-zero exit on any error:
    * the mamba scan at falcon-mamba-7b's shapes ([8, 32 or 1, 8192],
      state 16) with float32 and bfloat16 x, and the RG-LRU scan at
      recurrentgemma-9b's ([8, 32 or 1, 4096]), each with a nonzero h0 and
-     pad lanes masked to the identity.
+     pad lanes masked to the identity;
+   * ring decode at reflect_demo_100m's shape (B 8, K 4, G 3, hd 64, C
+     2048; rings wrapped past C, empty slots, slots ahead of pos, an
+     empty row; window None and 48; float32, bfloat16, int8 and int8 with
+     bfloat16 q) and recurrentgemma-9b's (K 1, G 16, hd 256, window 2048);
+   * flash attention at reflect_demo_100m's prefill (B 8, H 12, K 4, hd
+     64, S 2048; window None and 48; float32 and bfloat16), at
+     recurrentgemma-9b's (B 4, H 16, K 1, hd 256, S 4096, window 2048,
+     bfloat16) and at a ragged S 1000 with per-row lengths.
+   The two attention kernels are also timed against one PyTorch call
+   computing the same function, ``scaled_dot_product_attention`` with
+   ``enable_gqa`` (causal, or a boolean mask for windows, lengths and ring
+   tokens); int8 rings have no such call.
 4. serve   — three models through the port's ``Engine``, one after the
    other, each freed before the next: 8 conversations of a few hundred
-   tokens, 3 reflection rounds with the suffix [99, 98], paged KV,
-   chunked prefill and the prefix cache.  Launch counters are reset just
-   before each run and read just after; every kernel of the run's path
-   must have launched, and rounds 2 and 3 must hit the prefix cache.
+   tokens, 3 reflection rounds with the suffix [99, 98], paged KV or ring
+   caches, chunked prefill and the prefix cache; and the full-sequence
+   entry points.  Launch counters are reset just before each run and
+   read just after; every kernel of the run's path must have launched,
+   and rounds 2 and 3 must hit the prefix cache.
    * reflect_demo_100m at full width and depth (12 layers, d_model 768,
      bf16 activations, fp32 parameters), with self-speculative decoding,
-     then a shorter int8-KV run: paged decode and extend;
+     then a shorter int8-KV run: paged decode and extend; the same two
+     runs on ring caches (``paged_kv=False``): ring decode; then
+     ``prefill`` of 8 prompts of 1500-2048 tokens (ragged lengths), 16
+     greedy ``decode_step``s on the primed rings, and ``forward`` on
+     [8, 2048]: flash attention and ring decode;
    * falcon-mamba-7b at full width and depth (64 mamba layers, d_model
      4096, fp32 parameters): the mamba scan;
    * recurrentgemma-9b at full width and depth (38 layers, 26 RG-LRU and
      12 local-attention, bf16 parameters): the RG-LRU scan and both paged
-     kernels at hd 256.
-   Weights are random from a seeded CUDA generator.  After each run a
+     kernels at hd 256; then on the same weights a ring serve (RG-LRU scan
+     and ring decode), ``prefill`` of [4, 4096] (past the 2048-slot local
+     ring, which wraps) and 16 ``decode_step``s: flash attention with
+     window 2048, ring decode and the RG-LRU scan.
+   Weights are random from a seeded CUDA generator.  After each serve a
    profiler summary of device time by kernel gives the idle share, and a
    check holds the model's logits on the card against the plain path on
-   the CPU (the new models at a cut depth).
+   the CPU, through chunked paged prefill and through ``prefill`` and
+   ring ``decode_step`` (the recurrent models at a cut depth).
 5. result  — a JSON line of kernel records, the card line, and last the
    JSON status line.
 
@@ -66,6 +87,8 @@ PEAK_OPS = {torch.bfloat16: 989e12,       # dense tensor-core bf16
 SFU_PER_S = 16 * 132 * 1.98e9
 REPLACES = {"paged_decode": "src/repro/kernels/paged_attention.py:102",
             "paged_extend": "src/repro/kernels/paged_extend.py:121",
+            "flash_attention": "src/repro/kernels/flash_attention.py:67",
+            "decode_attention": "src/repro/kernels/decode_attention.py:87",
             "mamba_scan": "src/repro/kernels/mamba_scan.py:46",
             "rglru_scan": "src/repro/kernels/rglru_scan.py:31"}
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu"
@@ -215,11 +238,25 @@ def time_record(kern, plain, flush, nbytes, nops, dtype, err, exps=0):
 
 
 def log_record(label, rec):
+    lib = rec.get("library_ms")
     log(f"[kernels] {label}: kernel {rec['ms']:.4f} ms cold-L2 / "
         f"{rec['warm_ms']:.4f} ms warm-L2, plain {rec['plain_ms']:.4f} ms "
+        f"cold-L2, library {'none' if lib is None else f'{lib:.4f} ms'} "
         f"cold-L2, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} "
         f"({rec['bytes']} B, {rec['ops']} ops, {rec['exps']} exp; HBM "
         f"{rec['bytes'] / rec['ms'] / 1e6:.1f} GB/s)")
+
+
+def check_record(label, got, want, tol, bf16):
+    """Hold a kernel's output against its plain version (float32)."""
+    err = float((got.float() - want).abs().max())
+    ok = bool(torch.isfinite(got).all()) and torch.allclose(
+        got.float(), want, atol=tol, rtol=0.0 if bf16 else tol)
+    log(f"[kernels] {label}: max_abs_err={err:.3e} (tol {tol}) "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"{label} disagrees with its plain version")
+    return err
 
 
 def paged_cases(records, tag, shape, cases, modes, windows, timed_window,
@@ -253,17 +290,10 @@ def paged_cases(records, tag, shape, cases, modes, windows, timed_window,
                 # the plain version in float32 on the same (rounded) inputs
                 want = plains[name](fp(q), fp(kp), fp(vp), pt, pos0,
                                     window=win, **sc)
-                err = float((got.float() - want).abs().max())
-                ok = bool(torch.isfinite(got).all()) and torch.allclose(
-                    got.float(), want, atol=tol,
-                    rtol=0.0 if dtype == torch.bfloat16 else tol)
-                log(f"[kernels] {tag} {name} Sx={Sx} K={K} G={G} hd={hd} "
-                    f"NP={pt.shape[1]} {mode} window={win}: "
-                    f"max_abs_err={err:.3e} (tol {tol}) "
-                    f"{'ok' if ok else 'MISMATCH'}")
-                if not ok:
-                    raise AssertionError(f"{name} {mode} window={win} "
-                                         f"disagrees with its plain version")
+                err = check_record(
+                    f"{tag} {name} Sx={Sx} K={K} G={G} hd={hd} "
+                    f"NP={pt.shape[1]} {mode} window={win}", got, want, tol,
+                    dtype == torch.bfloat16)
                 if not timed:
                     continue
                 plain = lambda: plains[name](q, kp, vp, pt, pos0,
@@ -346,6 +376,163 @@ def scan_cases(records, dev, flush):
         records[("rglru_scan", S, "float32")] = rec
 
 
+def ring_inputs(seed, B, K, G, hd, C, dtype, quant, dev):
+    """A wrapped ring per row (positions past C), 10% empty slots, three
+    slots holding tokens past pos (a rejected draft's writes), and batch
+    row B-1 empty."""
+    from repro_torch.kernels import kv_quant
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(B, K, G, hd, generator=g)
+    k = torch.randn(B, C, K, hd, generator=g)
+    v = torch.randn(B, C, K, hd, generator=g)
+    pos = torch.randint(C // 2, 3 * C, (B,), generator=g)
+    c = torch.arange(C)
+    tok = pos[:, None] - (pos[:, None] - c[None, :]) % C
+    tok[(tok < 0) | (torch.rand(B, C, generator=g) < 0.1)] = -1
+    ahead = (c[None, :] - pos[:, None] % C) % C
+    tok = torch.where((ahead >= 1) & (ahead <= 3), pos[:, None] + ahead, tok)
+    tok[B - 1] = -1
+    sc = {}
+    if quant:
+        k, ks, kz = kv_quant.quantize_k(k)
+        v, vs = kv_quant.quantize_v(v)
+        sc = {"k_scale": ks.to(dev), "k_zero": kz.to(dev),
+              "v_scale": vs.to(dev)}
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+    return (q.to(dev, dtype), k.to(dev), v.to(dev),
+            tok.to(dev, torch.int32), pos.to(dev, torch.int32), sc)
+
+
+def ring_valid(tok, pos, window):
+    valid = (tok >= 0) & (tok <= pos[:, None])
+    if window is not None:
+        valid &= tok > pos[:, None] - window
+    return valid
+
+
+def ring_cases(records, dev, flush):
+    """Ring decode at reflect_demo_100m's and recurrentgemma-9b's decode
+    shapes, every mode and window against the plain version; timed at
+    window None (demo) and 2048 (recurrentgemma), with SDPA on a boolean
+    mask built from the tokens as the library yardstick."""
+    from repro_torch.kernels import ops, ref
+    F = torch.nn.functional
+    fp = (lambda t: t.float() if t.is_floating_point() else t)
+    modes = (("float32", torch.float32, False, 1e-4),
+             ("bfloat16", torch.bfloat16, False, 2e-2),
+             ("int8", torch.float32, True, 1e-4),
+             ("int8+bf16", torch.bfloat16, True, 2e-2))
+    seed = 100
+    for tag, (B, K, G, hd, C), windows, timed, mds in (
+            ("demo", (8, 4, 3, 64, 2048), (None, 48), None, modes),
+            ("rg", (8, 1, 16, 256, 2048), (None, 48, 2048), 2048,
+             modes[:3])):
+        for mode, dtype, quant, tol in mds:
+            for window in windows:
+                seed += 1
+                q, k, v, tok, pos, sc = ring_inputs(seed, B, K, G, hd, C,
+                                                    dtype, quant, dev)
+                kern = lambda: ops.decode_attention(q, k, v, tok, pos,
+                                                    window=window, **sc)
+                got = kern()
+                torch.cuda.synchronize()
+                want = ref.decode_attention_ref(fp(q), fp(k), fp(v), tok,
+                                                pos, window=window, **sc)
+                err = check_record(
+                    f"{tag} decode_attention B={B} K={K} G={G} hd={hd} "
+                    f"C={C} {mode} window={window}", got, want, tol,
+                    dtype == torch.bfloat16)
+                if window != timed:
+                    continue
+                plain = lambda: ref.decode_attention_ref(
+                    q, k, v, tok, pos, window=window, **sc)
+                valid = ring_valid(tok, pos, window)
+                n = int(valid.sum())
+                slot_bytes = (2 * K * hd * k.element_size()
+                              + (3 * K * 4 if quant else 0))
+                nbytes = (n * slot_bytes + tok.numel() * 4 + pos.numel() * 4
+                          + 2 * q.numel() * q.element_size())
+                rec = time_record(kern, plain, flush, nbytes,
+                                  4 * hd * G * K * n, dtype, err, G * K * n)
+                if not quant:
+                    qh = q.reshape(B, K * G, 1, hd)
+                    kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+                    mask = valid[:, None, None, :]
+                    rec["library_ms"] = cuda_ms(
+                        lambda: F.scaled_dot_product_attention(
+                            qh, kh, vh, attn_mask=mask, enable_gqa=True),
+                        flush=flush)
+                log_record(f"{tag} decode_attention {mode} window={window}",
+                           rec)
+                records[("decode_attention", tag, mode)] = rec
+
+
+def flash_valid(S, window, lengths, dev):
+    """[B or 1, S, S] mask of the (query, key) pairs flash attends."""
+    i = torch.arange(S, device=dev)
+    valid = (i[None, :] <= i[:, None])[None]
+    if window is not None:
+        valid = valid & (i[None, None, :] > i[None, :, None] - window)
+    if lengths is not None:
+        valid = valid & (i[None, None, :] < lengths.long()[:, None, None])
+    return valid
+
+
+def flash_cases(records, dev, flush):
+    """Flash attention at the full-sequence runs' shapes against the plain
+    version, timed beside its bound and one SDPA call (causal, or a
+    boolean mask for a window or lengths)."""
+    from repro_torch.kernels import ops, ref
+    F = torch.nn.functional
+    g = torch.Generator().manual_seed(7)
+    for tag, (B, H, K, S, hd), window, dtype, ragged in (
+            ("demo", (8, 12, 4, 2048, 64), None, torch.float32, False),
+            ("demo", (8, 12, 4, 2048, 64), None, torch.bfloat16, False),
+            ("demo", (8, 12, 4, 2048, 64), 48, torch.float32, False),
+            ("demo", (8, 12, 4, 2048, 64), 48, torch.bfloat16, False),
+            ("rg", (4, 16, 1, 4096, 256), 2048, torch.bfloat16, False),
+            ("ragged", (8, 12, 4, 1000, 64), None, torch.bfloat16, True)):
+        q = torch.randn(B, H, S, hd, generator=g).to(dev, dtype)
+        k = torch.randn(B, K, S, hd, generator=g).to(dev, dtype)
+        v = torch.randn(B, K, S, hd, generator=g).to(dev, dtype)
+        lengths = (torch.randint(S // 2, S + 1, (B,), generator=g)
+                   .to(dev, torch.int32) if ragged else None)
+        kern = lambda: ops.flash_attention(q, k, v, window=window,
+                                           lengths=lengths)
+        got = kern()
+        torch.cuda.synchronize()
+        want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                       window=window, lengths=lengths)
+        bf16 = dtype == torch.bfloat16
+        mode = "bfloat16" if bf16 else "float32"
+        label = (f"{tag} flash_attention B={B} H={H} K={K} S={S} hd={hd} "
+                 f"{mode} window={window} lengths={ragged}")
+        err = check_record(label, got, want, 2e-2 if bf16 else 1e-4, bf16)
+        del want
+        plain = lambda: ref.flash_attention_ref(q, k, v, window=window,
+                                                lengths=lengths)
+        valid = flash_valid(S, window, lengths, dev)
+        pairs = int(valid.sum()) * (B if valid.shape[0] == 1 else 1) * H
+        kv_rows = (B * S if lengths is None
+                   else int(lengths.clamp_max(S).sum()))
+        nbytes = (2 * q.numel() + 2 * kv_rows * K * hd) * q.element_size()
+        rec = time_record(kern, plain, flush, nbytes, 4 * hd * pairs, dtype,
+                          err, pairs)
+        if window is None and lengths is None:
+            lib = lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)
+        else:
+            mask = valid[:, None]
+            lib = lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True)
+        rec["library_ms"] = cuda_ms(lib, flush=flush)
+        log_record(f"{tag} flash_attention {mode} window={window}", rec)
+        records[("flash_attention", tag, mode, window)] = rec
+        del q, k, v, valid
+        torch.cuda.empty_cache()
+
+
 def phase_kernels(dev):
     # (label, activation dtype, int8 pool, tolerance)
     modes = (("float32", torch.float32, False, 1e-4),
@@ -369,20 +556,24 @@ def phase_kernels(dev):
                                                           32)],
                 modes[:3], (None, 48, 2048), 2048, 160, dev, flush, seed)
     scan_cases(records, dev, flush)
+    ring_cases(records, dev, flush)
+    flash_cases(records, dev, flush)
     return records
 
 
 # ---------------------------------------------------------------- 4. serve
 
-def serve(model, kv_dtype, rounds, max_new, seed, path):
-    """Serve ``rounds`` reflection rounds of 8 conversations; ``path``
-    names the kernels this model's steps must launch."""
+def serve(model, kv_dtype, rounds, max_new, seed, path, paged=True):
+    """Serve ``rounds`` reflection rounds of 8 conversations from a paged
+    pool or (``paged=False``) ring caches; ``path`` names the kernels this
+    model's steps must launch."""
     from repro_torch.configs.base import ServeConfig
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.request import Request, Status
     scfg = ServeConfig(max_batch=8, max_seq=2048, page_size=16,
-                       spec_decode=True, spec_tokens=4, kv_dtype=kv_dtype)
+                       spec_decode=True, spec_tokens=4, kv_dtype=kv_dtype,
+                       paged_kv=paged)
     eng = Engine(model, scfg, device="cuda")
     rng = np.random.default_rng(seed)
     convos = [[1] + rng.integers(3, model.cfg.vocab_size, n).tolist()
@@ -408,7 +599,8 @@ def serve(model, kv_dtype, rounds, max_new, seed, path):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
-    eng.pool.check()
+    if paged:
+        eng.pool.check()
     st = eng.stats()
     peak = torch.cuda.max_memory_allocated()
     steps = {k: st[k] for k in ("mixed_steps", "decode_batch_steps",
@@ -419,14 +611,16 @@ def serve(model, kv_dtype, rounds, max_new, seed, path):
     processed = st["prefill_tokens"] + st["extend_tokens"] + \
         st["decode_tokens"]
     n_steps = sum(st[k] for k in STEP_KINDS)
-    name = f"{model.cfg.name} kv={kv_dtype}"
+    name = f"{model.cfg.name} kv={kv_dtype} {'paged' if paged else 'ring'}"
     log(f"[serve] {name}: {rounds} rounds x 8 requests in {dt:.3f}s, "
         f"{n_steps} engine steps ({dt / n_steps * 1e3:.2f} ms each); "
         f"{st['decode_tokens'] / dt:.1f} output tok/s, "
         f"{processed / dt:.1f} processed tok/s; steps {steps}")
+    kv = (f"pool {st['kv_pool_pages_used']}/{st['kv_pool_pages']} pages"
+          if paged else f"rings of {eng._ring_cap} slots, "
+          f"{st['resident_kv_bytes']} B")
     log(f"[serve] {name}: prefix hits per round {hits}; launches "
-        f"{launches}; peak memory {peak} B; "
-        f"pool {st['kv_pool_pages_used']}/{st['kv_pool_pages']} pages")
+        f"{launches}; peak memory {peak} B; {kv}; speculation {eng.spec}")
     if any(h <= 0 for h in hits[1:]):
         raise AssertionError("reflection rounds missed the prefix cache")
     if min(launches[k] for k in path) <= 0:
@@ -490,6 +684,74 @@ def profile_round(eng, convos, max_new=16):
             "from the CUDA events of the kernels phase")
 
 
+def full_sequence(model, B, S, lengths, steps, forward, path):
+    """The full-sequence entry points: ``prefill`` of B seeded prompts
+    padded to S (valid up to ``lengths``), ``steps`` greedy
+    ``decode_step``s on the primed rings, then (``forward``) teacher
+    forcing on all [B, S] tokens.  Every kernel of ``path`` must launch;
+    flash once per attention layer and call, ring decode once per
+    attention layer and step.  Returns the launch counts."""
+    from repro_torch.kernels import ops
+    cfg = model.cfg
+    dev = model.embed.device
+    n_attn = sum(k in ("attn", "rg_attn") for k in cfg.block_pattern)
+    g = torch.Generator(device=dev).manual_seed(5)
+    tokens = torch.randint(3, cfg.vocab_size, (B, S), generator=g,
+                           device=dev)
+    lens = (torch.full((B,), S) if lengths is None
+            else torch.tensor(lengths)).to(dev, torch.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(tokens, lens, max_seq=S)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    outs = [logits]
+    nxt = logits.argmax(-1, keepdim=True).to(torch.int32)
+    pos = lens.clone()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        logits, cache = model.decode_step(cache, nxt, pos)
+        outs.append(logits)
+        nxt = logits.argmax(-1, keepdim=True).to(torch.int32)
+        pos += 1
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    t_fwd = None
+    if forward:
+        t0 = time.perf_counter()
+        lf, _ = model.forward({"tokens": tokens})
+        torch.cuda.synchronize()
+        t_fwd = time.perf_counter() - t0
+        if lf.shape != (B, S, cfg.vocab_size) or not bool(
+                torch.isfinite(lf).all()):
+            raise AssertionError("forward logits are not finite [B, S, V]")
+        del lf
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    rings = sorted({c["k"].shape[1] for c in cache if "tok" in c})
+    if not all(o.shape == (B, cfg.vocab_size) and bool(torch.isfinite(o)
+                                                       .all()) for o in outs):
+        raise AssertionError("prefill / decode logits are not finite [B, V]")
+    log(f"[full] {cfg.name}: prefill [{B}, {S}] (lengths "
+        f"{lens.min().item()}-{lens.max().item()}) {t_prefill:.3f}s; "
+        f"{steps} decode steps {t_decode / steps * 1e3:.2f} ms each; "
+        f"forward {'not run' if t_fwd is None else f'{t_fwd:.3f}s'}; "
+        f"rings of {rings} slots; launches {launches}; peak memory {peak} B")
+    want_flash = n_attn * (1 + bool(forward))
+    if launches["flash_attention"] != want_flash:
+        raise AssertionError(f"flash launched {launches['flash_attention']} "
+                             f"times, not {want_flash}")
+    if launches["decode_attention"] != n_attn * steps:
+        raise AssertionError("ring decode did not launch once per layer "
+                             "and step")
+    if min(launches[k] for k in path) <= 0:
+        raise AssertionError(f"a kernel of {path} was not launched: "
+                             f"{launches}")
+    return launches
+
+
 def _walk(m, prompt, feed):
     """Logits [5, V] of a 45-token prompt prefilled in two chunks (32 +
     13 valid lanes of 32) and four decode steps fed ``feed``, or the
@@ -517,10 +779,31 @@ def _walk(m, prompt, feed):
     return torch.cat(logits)
 
 
+def _walk_prefill(m, prompt, feed):
+    """Logits [5, V] of the same walk as ``_walk`` through the
+    full-sequence entry points: ``prefill`` of the 45-token prompt (its
+    length passed as ``lengths``), then four ring ``decode_step``s fed
+    ``feed``, or the model's own greedy tokens (appended to ``feed``)."""
+    d = m.embed.device
+    own = not feed
+    i32 = dict(dtype=torch.int32, device=d)
+    lg, cache = m.prefill(prompt.to(d), torch.tensor([45], **i32),
+                          max_seq=64)
+    logits = [lg.float().cpu()]
+    for i in range(4):
+        if own:
+            feed.append(int(logits[-1].argmax()))
+        lg, cache = m.decode_step(cache, torch.tensor([[feed[i]]], **i32),
+                                  torch.tensor([45 + i], **i32))
+        logits.append(lg.float().cpu())
+    return torch.cat(logits)
+
+
 def check_logits(cfg, state, dev, soften=None):
     """The model's entry points on the card against the plain path on the
-    CPU, on a small input (chunked prefill, then greedy decode steps fed
-    the CPU's tokens), at full width; ``state`` is a CPU state dict.
+    CPU, on a small input (chunked paged prefill, and full-sequence
+    ``prefill``, each followed by greedy decode steps fed the CPU's
+    tokens), at full width; ``state`` is a CPU state dict.
 
     The seeded weights follow the reference's init recipe, whose q/k
     projections (normal over fan_in = H for wq [d, H, hd]) make attention
@@ -543,10 +826,10 @@ def check_logits(cfg, state, dev, soften=None):
         variants.append((f"q/k x {soften}", state))
     label = variants[-1][0]
 
-    def run(c, st, d, feed):
+    def run(c, st, d, feed, walk=_walk):
         m = build_model(c)
         m.load_state_dict(st)
-        return _walk(m.to(d), prompt, feed)
+        return walk(m.to(d), prompt, feed)
 
     for name, st in variants:
         noisy = {k: v.float() * (1 + 1e-6 * torch.randn(v.shape,
@@ -560,22 +843,25 @@ def check_logits(cfg, state, dev, soften=None):
             f"a 1e-6 relative weight change moves logits by "
             f"{float((a - b).abs().max()):.3e} (logit scale "
             f"{float(a.abs().max()):.3f})")
-    feed = []
-    ref = run(cfg32, state, torch.device("cpu"), feed)
-    out32 = run(cfg32, state, dev, feed)
-    out16 = run(cfg, state, dev, feed)
-    if not all(torch.isfinite(v).all() for v in (ref, out32, out16)):
-        raise AssertionError("non-finite logits")
-    err32 = float((out32 - ref).abs().max())
-    err16 = float((out16 - ref).abs().max())
-    cos = float(torch.nn.functional.cosine_similarity(out16, ref,
-                                                      dim=-1).min())
-    log(f"[check] {cfg.name}, {cfg.num_layers} layers, logits "
-        f"[5, {ref.shape[-1]}], {label} weights: cuda fp32 vs cpu fp32 max "
-        f"abs err {err32:.3e} (tol 1e-3); cuda {cfg.dtype} vs cpu fp32 max "
-        f"abs err {err16:.3e} (tol 0.1), min cosine {cos:.6f} (tol 0.999)")
-    if err32 > 1e-3 or err16 > 0.1 or cos < 0.999:
-        raise AssertionError("logits on the card disagree with the CPU")
+    for path, walk in (("chunked paged prefill + paged decode", _walk),
+                       ("prefill + ring decode", _walk_prefill)):
+        feed = []
+        ref = run(cfg32, state, torch.device("cpu"), feed, walk)
+        out32 = run(cfg32, state, dev, feed, walk)
+        out16 = run(cfg, state, dev, feed, walk)
+        if not all(torch.isfinite(v).all() for v in (ref, out32, out16)):
+            raise AssertionError("non-finite logits")
+        err32 = float((out32 - ref).abs().max())
+        err16 = float((out16 - ref).abs().max())
+        cos = float(torch.nn.functional.cosine_similarity(out16, ref,
+                                                          dim=-1).min())
+        log(f"[check] {cfg.name}, {cfg.num_layers} layers, {path}, logits "
+            f"[{ref.shape[0]}, {ref.shape[-1]}], {label} weights: cuda fp32 "
+            f"vs cpu fp32 max abs err {err32:.3e} (tol 1e-3); cuda "
+            f"{cfg.dtype} vs cpu fp32 max abs err {err16:.3e} (tol 0.1), "
+            f"min cosine {cos:.6f} (tol 0.999)")
+        if err32 > 1e-3 or err16 > 0.1 or cos < 0.999:
+            raise AssertionError("logits on the card disagree with the CPU")
 
 
 def build_on_card(cfg, seed):
@@ -605,22 +891,33 @@ def release():
 
 
 def phase_serve(dev):
-    """Each model's serve; returns the launch counts read just after each
-    model's main run."""
+    """Each model's runs; returns the launch counts read just after each
+    run of a kernel's path."""
     from repro_torch.kernels import ops
     from repro_torch.models.registry import build_model, get_config
     runs = {}
+    paged = ("paged_decode", "paged_extend")
     cfg = get_config("reflect_demo_100m")
     model = build_on_card(cfg, 0)
     eng, convos, runs["reflect_demo_100m"] = serve(
-        model, "model", rounds=3, max_new=64, seed=1,
-        path=("paged_decode", "paged_extend"))
-    serve(model, "int8", rounds=2, max_new=32, seed=2,
-          path=("paged_decode", "paged_extend"))
+        model, "model", rounds=3, max_new=64, seed=1, path=paged)
+    serve(model, "int8", rounds=2, max_new=32, seed=2, path=paged)
     profile_round(eng, convos)
+    del eng
+    eng, convos, runs["reflect_demo_100m ring"] = serve(
+        model, "model", rounds=3, max_new=64, seed=1,
+        path=("decode_attention",), paged=False)
+    serve(model, "int8", rounds=2, max_new=32, seed=2,
+          path=("decode_attention",), paged=False)
+    profile_round(eng, convos)
+    del eng
+    release()
+    runs["reflect_demo_100m full-sequence"] = full_sequence(
+        model, B=8, S=2048, lengths=np.linspace(1500, 2048, 8).astype(int),
+        steps=16, forward=True, path=("flash_attention", "decode_attention"))
     check_logits(cfg, {k: v.cpu() for k, v in model.state_dict().items()},
                  dev, soften=0.125)
-    del eng, model
+    del model
     release()
 
     # the recurrent families at full width and depth, one at a time; the
@@ -635,7 +932,18 @@ def phase_serve(dev):
         eng, convos, runs[arch] = serve(model, "model", rounds=3,
                                         max_new=32, seed=3, path=path)
         profile_round(eng, convos, max_new=8)
-        del eng, model
+        del eng
+        release()
+        if arch == "recurrentgemma_9b":
+            eng, _, runs[arch + " ring"] = serve(
+                model, "model", rounds=3, max_new=32, seed=3,
+                path=("rglru_scan", "decode_attention"), paged=False)
+            del eng
+            release()
+            runs[arch + " full-sequence"] = full_sequence(
+                model, B=4, S=4096, lengths=None, steps=16, forward=False,
+                path=("flash_attention", "decode_attention", "rglru_scan"))
+        del model
         release()
         small = build_model(cut(cfg, n_cut)).init(
             torch.Generator().manual_seed(0))
@@ -660,15 +968,19 @@ def main() -> int:
     records = phase_kernels(dev)
     runs = phase_serve(dev)
     kernels = []
-    # each kernel's record at one shape its model's serve gives it: paged
+    # each kernel's record at one shape its model's runs give it: paged
     # extend at Sx = 5 (the demo's verify steps make most of its
     # launches), the scans at the 32-lane mixed step with the serve's bf16
-    # activations
+    # activations, ring decode and flash at the demo's bf16 shapes
     for name, key, run in (
             ("paged_decode", ("paged_decode", "demo", 1, "bfloat16"),
              "reflect_demo_100m"),
             ("paged_extend", ("paged_extend", "demo", 5, "bfloat16"),
              "reflect_demo_100m"),
+            ("flash_attention", ("flash_attention", "demo", "bfloat16",
+                                 None), "reflect_demo_100m full-sequence"),
+            ("decode_attention", ("decode_attention", "demo", "bfloat16"),
+             "reflect_demo_100m ring"),
             ("mamba_scan", ("mamba_scan", 32, "bfloat16"),
              "falcon_mamba_7b"),
             ("rglru_scan", ("rglru_scan", 32, "float32"),
@@ -679,7 +991,8 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": runs[run][name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": None,
+            "bound_by": rec["bound_by"],
+            "library_ms": rec.get("library_ms"),
             "launches_by_run": {r: runs[r][name] for r in runs}})
     log(json.dumps({"kernels": kernels}))
     log(smi)

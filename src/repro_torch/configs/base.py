@@ -7,8 +7,8 @@ Field names, defaults and meanings are unchanged, so a config built for
 one package reads the same in the other.  ``ServeConfig`` options that the
 port's engine does not implement yet (``mesh``, ``aot_warmup``,
 ``enforce_deadlines``, ``nan_quarantine``, ``stall_limit``,
-``slo_price_model``, ``paged_kv=False``) make ``Engine`` raise
-``NotImplementedError`` instead of being ignored.
+``slo_price_model``) make ``Engine`` raise ``NotImplementedError``
+instead of being ignored.
 """
 from __future__ import annotations
 

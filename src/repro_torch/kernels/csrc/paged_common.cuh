@@ -1,26 +1,32 @@
-// Shared page walk of the two paged-attention kernels (paged_decode.cu,
-// paged_extend.cu): one thread block owns a tile of query rows of one
-// (request b, kv head h) pair and walks that request's page table.
+// Shared staged walk of the attention kernels (paged_decode.cu,
+// paged_extend.cu, decode_attention.cu, flash_attention.cu): one thread
+// block owns a tile of query rows of one (request b, kv head h) pair and
+// walks the K/V slots those rows can attend.  Where a slot's K/V row lives
+// is the kernel's "walk" (below): a page table over shared pools (Pages),
+// a dense ring whose tok array names each slot's token (Ring), or the
+// contiguous rows of a full sequence (Dense).
 //
-// The walk goes in stages of S = 4096 / HD logical slots (64 at HD = 64),
-// but at least 32 (32 at HD = 128 and 256), whatever the page size.  Each thread loads its share of a stage's K and V
-// rows as 16-byte vectors into registers one stage ahead, so the device
-// memory reads of stage n + 1 are in flight while stage n is computed, then
-// dequantizes them (int8 pools) and stores them as float into shared memory.
-// So every slot is read from device memory once per block, whatever the
-// number of rows in the tile.  Per stage each warp scores its rows against
-// the stage's slots (a lane per slot, fp32 FMA), folds them into the online
-// softmax of those rows with warp shuffles (m and l in registers), and then
-// every thread adds p.V to its share of the fp32 [rows, HD] accumulator.
-// Three barriers per stage.
+// The walk goes in stages of S = 4096 / HD slots (64 at HD = 64), but at
+// least 32 (32 at HD = 128 and 256), whatever the page size.  Each thread
+// loads its share of a stage's K and V rows as 16-byte vectors into
+// registers one stage ahead, so the device memory reads of stage n + 1 are
+// in flight while stage n is computed, then dequantizes them (int8 caches)
+// and stores them as float into shared memory.  So every slot is read from
+// device memory once per block, whatever the number of rows in the tile.
+// Per stage each warp scores its rows against the stage's slots (a lane per
+// slot, fp32 FMA), folds them into the online softmax of those rows with
+// warp shuffles (m and l in registers), and then every thread adds p.V to
+// its share of the fp32 [rows, HD] accumulator.  Three barriers per stage.
 //
 // Masking is position arithmetic, as in the TPU kernels: row r is query
-// lane r / G at absolute position pos0[b] + r / G; slot t lies on logical
-// page t / ps and is valid iff that page is mapped and t <= pos (and
-// t > pos - window when a window is set).  Slots no row of the tile can
-// attend (on unmapped pages, past the tile's last position or before its
-// window) are never read.  A row with no valid slot ends with l == 0 and is
-// written as zeros.
+// lane r / G at absolute position pos0[b] + r / G.  Pages and Dense: slot t
+// holds token t and is valid iff it holds a row (a mapped page; t below the
+// sequence's length) and t <= pos (and t > pos - window when a window is
+// set).  Ring: the walk first lists the ring slots whose token the block's
+// single query position may attend (tok >= 0, tok <= pos, tok > pos -
+// window) and walks that list.  Slots no row of the tile can attend are
+// never read.  A row with no valid slot ends with l == 0 and is written as
+// zeros.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -38,16 +44,18 @@ constexpr int kStageElems = 4096;       // K (and V) elements of one stage
 constexpr int kMaxSmem = 232448;        // opt-in shared memory of a block
 
 struct Args {
-  const void* q;         // [B, Sx, K, G, HD] (decode: Sx = 1)
-  const void* kp;        // [P, ps, K, HD], 16-byte aligned
-  const void* vp;        // [P, ps, K, HD], 16-byte aligned
-  const float* ks;       // [P, ps, K] int8 K scale (null for fp pools)
-  const float* kz;       // [P, ps, K] int8 K zero point
-  const float* vs;       // [P, ps, K] int8 V scale
-  const int32_t* page_table;  // [B, NP], -1 = unmapped
-  const int32_t* pos0;        // [B], absolute position of lane 0
+  const void* q;         // query rows, at the offsets row_offset() gives
+  const void* kv_k;      // K rows [*, HD], 16-byte aligned
+  const void* kv_v;      // V rows [*, HD], 16-byte aligned
+  const float* ks;       // int8 K scale, one per K row (null for fp caches)
+  const float* kz;       // int8 K zero point
+  const float* vs;       // int8 V scale
+  const int32_t* pos0;   // [B], absolute position of lane 0 (null: 0)
   void* out;             // like q
-  int B, Sx, K, G, ps, NP, window;  // window <= 0: no window
+  int B, Sx, K, G, window;  // window <= 0: no window
+  // Query / output row (b, lane, kv head h, g) starts at element
+  // HD * (b * sb + lane * sl + h * sh + g * sg).
+  long long sb, sl, sh, sg;
 };
 
 // Slots of one stage: 4096 / HD, but at least one slot a lane when
@@ -56,14 +64,15 @@ __host__ __device__ constexpr int stage_slots(int HD) {
   return kStageElems / HD > 32 ? kStageElems / HD : 32;
 }
 
-// Dynamic shared memory of a block of TR rows over a table of NP pages.
-__host__ __device__ constexpr size_t smem_bytes(int HD, int TR, int NP) {
+// Dynamic shared memory of a block of TR rows with a walk table of NT
+// entries (page-table entries or ring slots).
+__host__ __device__ constexpr size_t smem_bytes(int HD, int TR, int NT) {
   return sizeof(float) * (TR * HD                          // q
                           + stage_slots(HD) * (HD + 4)     // K, padded
                           + stage_slots(HD) * HD           // V
                           + TR * stage_slots(HD)           // p
                           + 2 * TR)                        // rescale, l
-         + sizeof(int32_t) * NP;                           // page table
+         + sizeof(int32_t) * NT;                           // walk table
 }
 
 // Allow a kernel the dynamic shared memory it is launched with.
@@ -132,19 +141,125 @@ __device__ __forceinline__ bool slot_valid(int t, int pos, int window) {
   return t <= pos && (window <= 0 || t > pos - window);
 }
 
-// Offset of row r = (lane, g) of (b, h) in a [B, Sx, K, G, HD] tensor.
+// Element offset of row r = (lane, g) of (b, h) in q and out.
 template <int HD>
 __device__ __forceinline__ size_t row_offset(const Args& a, int b, int h,
                                              int r) {
   const int lane = r / a.G, g = r % a.G;
-  return ((static_cast<size_t>(b) * a.Sx + lane) * a.K + h) *
-             static_cast<size_t>(a.G) * HD +
-         static_cast<size_t>(g) * HD;
+  return static_cast<size_t>(HD) *
+         (b * a.sb + lane * a.sl + h * a.sh + g * a.sg);
 }
 
-// Attend rows [row0, row0 + TR) of (b, h); rows past Sx * G are padding.
-template <typename TQ, typename TKV, int HD, int TR>
-__device__ void attend_rows(const Args& a, int b, int h, int row0,
+// ----------------------------------------------------------------- walks
+// A walk names the K/V rows of a block's slots t = t_first .. t_last:
+//   begin(a, b, h, p_first, p_last, tbl) sets that range for query rows at
+//     positions p_first .. p_last, staging what it needs into the int
+//     table tbl in shared memory (attend_rows synchronizes after it);
+//   row(t) is the K/V row index of slot t in range, or -1 if it holds none;
+//   attendable(t, pos): may a row at position pos (-1: a padding row)
+//     attend slot t, given row(t) >= 0.
+
+// Pools [P, ps, K, HD] of pages, mapped per request by a page table.
+struct Pages {
+  const int32_t* page_table;  // [B, NP], -1 = unmapped
+  int ps, NP;
+  int t_first, t_last, j0, K, h, window;
+  const int32_t* tbl;         // page-table entries j0 .. t_last / ps
+
+  __device__ void begin(const Args& a, int b, int h_, int p_first,
+                        int p_last, int32_t* tbl_s) {
+    K = a.K;
+    h = h_;
+    window = a.window;
+    tbl = tbl_s;
+    t_last = min(p_last, NP * ps - 1);
+    t_first = window > 0 ? max(0, p_first - window + 1) : 0;
+    j0 = t_first / ps;
+    if (t_first <= t_last)
+      for (int j = j0 + threadIdx.x; j <= t_last / ps; j += kThreads)
+        tbl_s[j - j0] = page_table[static_cast<size_t>(b) * NP + j];
+  }
+  __device__ long long row(int t) const {
+    const int phys = tbl[t / ps - j0];
+    return phys < 0 ? -1
+                    : (static_cast<long long>(phys) * ps + t % ps) * K + h;
+  }
+  __device__ bool attendable(int t, int pos) const {
+    return slot_valid(t, pos, window);
+  }
+};
+
+// A dense ring [B, C, K, HD] per request; tok [B, C] holds the absolute
+// token of each slot (-1 = empty).  One query position per block.
+struct Ring {
+  const int32_t* tok;
+  int C;
+  int t_first, t_last, K, h;
+  long long base;             // first ring row of request b
+  const int32_t* idx;         // the attendable slots, in ring order
+
+  __device__ void begin(const Args& a, int b, int h_, int p_first,
+                        int p_last, int32_t* tbl_s) {
+    __shared__ int warp_n[kWarps];
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    K = a.K;
+    h = h_;
+    base = static_cast<long long>(b) * C;
+    idx = tbl_s;
+    // List the slots whose token position p_last may attend, kThreads
+    // slots a round, in ring order (a ballot per warp, then the warps'
+    // counts in order): deterministic, so sums do not vary between runs.
+    int n = 0;
+    for (int c0 = 0; c0 < C; c0 += kThreads) {
+      const int c = c0 + threadIdx.x;
+      const int t = c < C ? tok[base + c] : -1;
+      const bool ok = t >= 0 && slot_valid(t, p_last, a.window);
+      const unsigned m = __ballot_sync(0xffffffffu, ok);
+      if (lane == 0) warp_n[warp] = __popc(m);
+      __syncthreads();
+      int before = 0, total = 0;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        before += w < warp ? warp_n[w] : 0;
+        total += warp_n[w];
+      }
+      if (ok) tbl_s[n + before + __popc(m & ((1u << lane) - 1u))] = c;
+      n += total;
+      __syncthreads();  // warp_n is rewritten in the next round
+    }
+    t_first = 0;
+    t_last = n - 1;
+  }
+  __device__ long long row(int t) const { return (base + idx[t]) * K + h; }
+  __device__ bool attendable(int, int pos) const { return pos >= 0; }
+};
+
+// Contiguous K/V rows [B, K, S, HD] of full sequences; slot t holds token
+// t.  Slots at or past the sequence's length are never read.
+struct Dense {
+  const int32_t* lengths;     // [B] valid tokens of each sequence, or null
+  int S;
+  int t_first, t_last, window;
+  long long base;             // first row of (b, h)
+
+  __device__ void begin(const Args& a, int b, int h, int p_first,
+                        int p_last, int32_t*) {
+    window = a.window;
+    base = (static_cast<long long>(b) * a.K + h) * S;
+    const int len = lengths ? min(lengths[b], S) : S;
+    t_last = min(p_last, len - 1);      // tiles past the diagonal: skipped
+    t_first = window > 0 ? max(0, p_first - window + 1) : 0;
+  }
+  __device__ long long row(int t) const { return base + t; }
+  __device__ bool attendable(int t, int pos) const {
+    return slot_valid(t, pos, window);
+  }
+};
+
+// Attend rows [row0, row0 + TR) of (b, h) over the slots of ``w``; rows
+// past Sx * G are padding.
+template <typename TQ, typename TKV, int HD, int TR, typename Walk>
+__device__ void attend_rows(const Args& a, Walk w, int b, int h, int row0,
                             float* smem) {
   constexpr int S = stage_slots(HD);      // slots per stage
   constexpr int SPL = S / 32;             // slots per lane when scoring
@@ -160,12 +275,11 @@ __device__ void attend_rows(const Args& a, int b, int h, int row0,
   static_assert((S * CPR) % kThreads == 0, "stage must split");
 
   const TQ* q = static_cast<const TQ*>(a.q);
-  const uint4* kp = static_cast<const uint4*>(a.kp);
-  const uint4* vp = static_cast<const uint4*>(a.vp);
+  const uint4* kp = static_cast<const uint4*>(a.kv_k);
+  const uint4* vp = static_cast<const uint4*>(a.kv_v);
   TQ* out = static_cast<TQ*>(a.out);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int R = a.Sx * a.G;
-  const int ps = a.ps;
 
   float* q_s = smem;              // [TR][HD], pre-scaled by HD^-0.5
   float* k_s = q_s + TR * HD;     // [S][KST] the stage's K rows
@@ -173,21 +287,15 @@ __device__ void attend_rows(const Args& a, int b, int h, int row0,
   float* p_s = v_s + S * HD;      // [TR][S]  the stage's probabilities
   float* c_s = p_s + TR * S;      // [TR] the stage's rescale factor
   float* l_s = c_s + TR;          // [TR] final denominators
-  int32_t* tbl_s = reinterpret_cast<int32_t*>(l_s + TR);  // pages j0..
+  int32_t* tbl_s = reinterpret_cast<int32_t*>(l_s + TR);  // the walk's
 
   const float scale = 1.0f / sqrtf(static_cast<float>(HD));
-  const int base = a.pos0[b];
+  const int base = a.pos0 ? a.pos0[b] : 0;
 
-  // Slots any row of the tile can attend: [t_first, t_last].
+  // Slots any row of the tile can attend: [w.t_first, w.t_last].
   const int last = min(R, row0 + TR) - 1;
-  const int t_last = min(base + last / a.G, a.NP * ps - 1);
-  const int t_first =
-      a.window > 0 ? max(0, base + row0 / a.G - a.window + 1) : 0;
-  const int j0 = t_first / ps;
-
-  if (t_first <= t_last)
-    for (int j = j0 + tid; j <= t_last / ps; j += kThreads)
-      tbl_s[j - j0] = a.page_table[static_cast<size_t>(b) * a.NP + j];
+  w.begin(a, b, h, base + row0 / a.G, base + last / a.G, tbl_s);
+  const int t_first = w.t_first, t_last = w.t_last;
   for (int i = tid; i < TR * HD; i += kThreads) {
     const int r = row0 + i / HD;
     q_s[i] = r < R ? to_float(q[row_offset<HD>(a, b, h, r) + i % HD]) * scale
@@ -204,11 +312,10 @@ __device__ void attend_rows(const Args& a, int b, int h, int row0,
     for (int v = 0; v < NV; ++v) {
       const int idx = tid + v * kThreads;
       const int t = t0 + idx / CPR;
-      const int phys = t <= t_last ? tbl_s[t / ps - j0] : -1;
+      const long long slot = t <= t_last ? w.row(t) : -1;
       kr[v] = vr[v] = make_uint4(0u, 0u, 0u, 0u);
       ksr[v] = kzr[v] = vsr[v] = 0.f;
-      if (phys >= 0) {
-        const size_t slot = (static_cast<size_t>(phys) * ps + t % ps) * a.K + h;
+      if (slot >= 0) {
         kr[v] = __ldg(kp + slot * CPR + idx % CPR);
         vr[v] = __ldg(vp + slot * CPR + idx % CPR);
         if constexpr (kQuant) {
@@ -295,7 +402,7 @@ __device__ void attend_rows(const Args& a, int b, int h, int row0,
 #pragma unroll
     for (int k = 0; k < SPL; ++k) {
       const int t = t0 + lane + 32 * k;
-      mapped[k] = t <= t_last && tbl_s[t / ps - j0] >= 0;
+      mapped[k] = t <= t_last && w.row(t) >= 0;
     }
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
@@ -305,7 +412,7 @@ __device__ void attend_rows(const Args& a, int b, int h, int row0,
       float mx = kNegInf;
 #pragma unroll
       for (int k = 0; k < SPL; ++k) {
-        ok[k] = mapped[k] && slot_valid(t0 + lane + 32 * k, pos, a.window);
+        ok[k] = mapped[k] && w.attendable(t0 + lane + 32 * k, pos);
         if (ok[k]) mx = fmaxf(mx, sc[i][k]);
       }
       const float m_new = fmaxf(m[i], warp_max(mx));

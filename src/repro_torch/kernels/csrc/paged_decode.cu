@@ -43,37 +43,40 @@ constexpr int kRows = 16;  // G <= 16 query rows per block
 // TR query rows per block: 4 when G <= 4, 8 when G <= 8, else 16.
 template <typename TQ, typename TKV, int HD, int TR>
 __global__ void __launch_bounds__(paged::kThreads)
-    paged_decode_kernel(paged::Args a) {
+    paged_decode_kernel(paged::Args a, paged::Pages w) {
   extern __shared__ float4 smem[];
-  paged::attend_rows<TQ, TKV, HD, TR>(a, blockIdx.y, blockIdx.x, 0,
+  paged::attend_rows<TQ, TKV, HD, TR>(a, w, blockIdx.y, blockIdx.x, 0,
                                       reinterpret_cast<float*>(smem));
 }
 
 template <typename TQ, typename TKV, int HD, int TR>
-cudaError_t launch(const paged::Args& a, cudaStream_t stream) {
-  const size_t smem = paged::smem_bytes(HD, TR, a.NP);
+cudaError_t launch(const paged::Args& a, const paged::Pages& w,
+                   cudaStream_t stream) {
+  const size_t smem = paged::smem_bytes(HD, TR, w.NP);
   const cudaError_t err =
       paged::allow_smem(paged_decode_kernel<TQ, TKV, HD, TR>, smem);
   if (err != cudaSuccess) return err;
   paged_decode_kernel<TQ, TKV, HD, TR>
-      <<<dim3(a.K, a.B), paged::kThreads, smem, stream>>>(a);
+      <<<dim3(a.K, a.B), paged::kThreads, smem, stream>>>(a, w);
   return cudaGetLastError();
 }
 
 template <typename TQ, typename TKV, int HD>
-cudaError_t by_rows(const paged::Args& a, cudaStream_t stream) {
-  if (a.G <= 4) return launch<TQ, TKV, HD, 4>(a, stream);
-  if (a.G <= 8) return launch<TQ, TKV, HD, 8>(a, stream);
-  return launch<TQ, TKV, HD, kRows>(a, stream);
+cudaError_t by_rows(const paged::Args& a, const paged::Pages& w,
+                    cudaStream_t stream) {
+  if (a.G <= 4) return launch<TQ, TKV, HD, 4>(a, w, stream);
+  if (a.G <= 8) return launch<TQ, TKV, HD, 8>(a, w, stream);
+  return launch<TQ, TKV, HD, kRows>(a, w, stream);
 }
 
 template <typename TQ, typename TKV>
-cudaError_t by_head_dim(int hd, const paged::Args& a, cudaStream_t stream) {
+cudaError_t by_head_dim(int hd, const paged::Args& a, const paged::Pages& w,
+                        cudaStream_t stream) {
   switch (hd) {
-    case 32: return by_rows<TQ, TKV, 32>(a, stream);
-    case 64: return by_rows<TQ, TKV, 64>(a, stream);
-    case 128: return by_rows<TQ, TKV, 128>(a, stream);
-    case 256: return by_rows<TQ, TKV, 256>(a, stream);
+    case 32: return by_rows<TQ, TKV, 32>(a, w, stream);
+    case 64: return by_rows<TQ, TKV, 64>(a, w, stream);
+    case 128: return by_rows<TQ, TKV, 128>(a, w, stream);
+    case 256: return by_rows<TQ, TKV, 256>(a, w, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -94,15 +97,17 @@ extern "C" int paged_decode(int dtype, const void* q, const void* kp,
                       static_cast<const float*>(ks),
                       static_cast<const float*>(kz),
                       static_cast<const float*>(vs),
-                      static_cast<const int32_t*>(page_table),
                       static_cast<const int32_t*>(pos), out,
-                      B, 1, K, G, ps, NP, window};
+                      B, 1, K, G, window,
+                      // q, out [B, K, G, HD]
+                      static_cast<long long>(K) * G, 0, G, 1};
+  const paged::Pages w{static_cast<const int32_t*>(page_table), ps, NP};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return by_head_dim<float, float>(hd, a, st);
-    case 1: return by_head_dim<__nv_bfloat16, __nv_bfloat16>(hd, a, st);
-    case 2: return by_head_dim<float, int8_t>(hd, a, st);
-    case 3: return by_head_dim<__nv_bfloat16, int8_t>(hd, a, st);
+    case 0: return by_head_dim<float, float>(hd, a, w, st);
+    case 1: return by_head_dim<__nv_bfloat16, __nv_bfloat16>(hd, a, w, st);
+    case 2: return by_head_dim<float, int8_t>(hd, a, w, st);
+    case 3: return by_head_dim<__nv_bfloat16, int8_t>(hd, a, w, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -48,34 +48,36 @@ constexpr int kRows = HD == 256 ? 16 : 1024 / HD;
 
 template <typename TQ, typename TKV, int HD>
 __global__ void __launch_bounds__(paged::kThreads)
-    paged_extend_kernel(paged::Args a) {
+    paged_extend_kernel(paged::Args a, paged::Pages w) {
   extern __shared__ float4 smem[];
   constexpr int TR = kRows<HD>;
-  paged::attend_rows<TQ, TKV, HD, TR>(a, blockIdx.z, blockIdx.y,
+  paged::attend_rows<TQ, TKV, HD, TR>(a, w, blockIdx.z, blockIdx.y,
                                       blockIdx.x * TR,
                                       reinterpret_cast<float*>(smem));
 }
 
 template <typename TQ, typename TKV, int HD>
-cudaError_t launch(const paged::Args& a, cudaStream_t stream) {
+cudaError_t launch(const paged::Args& a, const paged::Pages& w,
+                   cudaStream_t stream) {
   constexpr int TR = kRows<HD>;
   const int tiles = (a.Sx * a.G + TR - 1) / TR;
-  const size_t smem = paged::smem_bytes(HD, TR, a.NP);
+  const size_t smem = paged::smem_bytes(HD, TR, w.NP);
   const cudaError_t err =
       paged::allow_smem(paged_extend_kernel<TQ, TKV, HD>, smem);
   if (err != cudaSuccess) return err;
   paged_extend_kernel<TQ, TKV, HD>
-      <<<dim3(tiles, a.K, a.B), paged::kThreads, smem, stream>>>(a);
+      <<<dim3(tiles, a.K, a.B), paged::kThreads, smem, stream>>>(a, w);
   return cudaGetLastError();
 }
 
 template <typename TQ, typename TKV>
-cudaError_t by_head_dim(int hd, const paged::Args& a, cudaStream_t stream) {
+cudaError_t by_head_dim(int hd, const paged::Args& a, const paged::Pages& w,
+                        cudaStream_t stream) {
   switch (hd) {
-    case 32: return launch<TQ, TKV, 32>(a, stream);
-    case 64: return launch<TQ, TKV, 64>(a, stream);
-    case 128: return launch<TQ, TKV, 128>(a, stream);
-    case 256: return launch<TQ, TKV, 256>(a, stream);
+    case 32: return launch<TQ, TKV, 32>(a, w, stream);
+    case 64: return launch<TQ, TKV, 64>(a, w, stream);
+    case 128: return launch<TQ, TKV, 128>(a, w, stream);
+    case 256: return launch<TQ, TKV, 256>(a, w, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -95,15 +97,18 @@ extern "C" int paged_extend(int dtype, const void* q, const void* kp,
                       static_cast<const float*>(ks),
                       static_cast<const float*>(kz),
                       static_cast<const float*>(vs),
-                      static_cast<const int32_t*>(page_table),
                       static_cast<const int32_t*>(pos0), out,
-                      B, Sx, K, G, ps, NP, window};
+                      B, Sx, K, G, window,
+                      // q, out [B, Sx, K, G, HD]
+                      static_cast<long long>(Sx) * K * G,
+                      static_cast<long long>(K) * G, G, 1};
+  const paged::Pages w{static_cast<const int32_t*>(page_table), ps, NP};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return by_head_dim<float, float>(hd, a, st);
-    case 1: return by_head_dim<__nv_bfloat16, __nv_bfloat16>(hd, a, st);
-    case 2: return by_head_dim<float, int8_t>(hd, a, st);
-    case 3: return by_head_dim<__nv_bfloat16, int8_t>(hd, a, st);
+    case 0: return by_head_dim<float, float>(hd, a, w, st);
+    case 1: return by_head_dim<__nv_bfloat16, __nv_bfloat16>(hd, a, w, st);
+    case 2: return by_head_dim<float, int8_t>(hd, a, w, st);
+    case 3: return by_head_dim<__nv_bfloat16, int8_t>(hd, a, w, st);
     default: return cudaErrorInvalidValue;
   }
 }

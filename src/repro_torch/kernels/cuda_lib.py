@@ -28,6 +28,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = {"paged_decode": "paged_decode.cu",
            "paged_extend": "paged_extend.cu",
+           "decode_attention": "decode_attention.cu",
+           "flash_attention": "flash_attention.cu",
            "mamba_scan": "mamba_scan.cu",
            "rglru_scan": "rglru_scan.cu"}
 HEADERS = ("paged_common.cuh",)
@@ -40,12 +42,18 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures:
 #   paged_*:    (dtype, q, kp, vp, ks, kz, vs, page_table, pos, out,
 #                B, [Sx,] K, G, hd, ps, NP, window, stream)
+#   decode_attention: (dtype, q, k, v, ks, kz, vs, tok, pos, out,
+#                B, K, G, hd, C, window, stream)
+#   flash_attention:  (dtype, q, k, v, lengths, out, B, K, G, hd, S,
+#                window, stream)
 #   mamba_scan: (x_dtype, dt, Bm, Cm, x, A, Dsk, h0, y, h, B, S, D, N,
 #                stream)
 #   rglru_scan: (a, b, h0, hs, h, B, S, W, stream)
 _ARGTYPES = {
     "paged_decode": [_I] + [_P] * 9 + [_I] * 7 + [_P],
     "paged_extend": [_I] + [_P] * 9 + [_I] * 8 + [_P],
+    "decode_attention": [_I] + [_P] * 9 + [_I] * 6 + [_P],
+    "flash_attention": [_I] + [_P] * 5 + [_I] * 6 + [_P],
     "mamba_scan": [_I] + [_P] * 9 + [_I] * 4 + [_P],
     "rglru_scan": [_P] * 5 + [_I] * 3 + [_P],
 }
@@ -145,8 +153,12 @@ def stage_slots(hd: int) -> int:
     return max(32, 4096 // hd)
 
 
+MAX_DECODE_G = 16      # query heads per group a decode block holds
+
+
 def decode_rows(G: int) -> int:
-    """Query rows of a paged-decode block (``paged_decode.cu::by_rows``)."""
+    """Query rows of a paged or ring decode block (``by_rows`` in
+    ``paged_decode.cu`` and ``decode_attention.cu``)."""
     return 4 if G <= 4 else 8 if G <= 8 else 16
 
 
@@ -155,54 +167,64 @@ def extend_rows(hd: int) -> int:
     return 16 if hd == 256 else 1024 // hd
 
 
-def smem_bytes(hd: int, rows: int, n_pages: int) -> int:
+def smem_bytes(hd: int, rows: int, n_table: int) -> int:
     """Dynamic shared memory of one block (``paged::smem_bytes``): q rows,
-    one stage of K and V slots, its probabilities, and the request's
-    page-table row."""
+    one stage of K and V slots, its probabilities, and the walk's table
+    (a request's page-table row, or a ring's slot list)."""
     slots = stage_slots(hd)
     return 4 * (rows * hd + slots * (hd + 4) + slots * hd + rows * slots
-                + 2 * rows) + 4 * n_pages
+                + 2 * rows) + 4 * n_table
 
 
-def check_paged_inputs(q, k_pool, v_pool, page_table, pos, k_scale, k_zero,
-                       v_scale, rows: int) -> int:
-    """Validate the operands of a paged kernel launch; returns the dtype
-    code.  ``q`` is [B, ..., K, G, hd]; ``rows`` is the block's row tile.
-    Raises ValueError on anything the kernels do not take."""
-    tensors = [q, k_pool, v_pool, page_table, pos]
+def check_operands(kind: str, tensors, q) -> None:
+    """Every operand on q's CUDA device and contiguous, or ValueError."""
+    for t in tensors:
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"{kind} kernels take CUDA tensors on one "
+                             "device")
+        if not t.is_contiguous():
+            raise ValueError(f"{kind} kernels take contiguous tensors")
+
+
+def check_kv_inputs(kind: str, q, k, v, index, pos, k_scale, k_zero,
+                    v_scale, rows_shape, rows: int) -> int:
+    """Validate the operands of a paged or ring attention launch; returns
+    the dtype code.  ``q`` is [B, ..., K, G, hd]; K/V are ``rows_shape +
+    (K, hd)`` (pools [P, ps] or rings [B, C]) with ``[*rows_shape, K]``
+    float32 sidecars in int8 mode; ``index`` is the [B, n] int32 page
+    table or ring tokens, which sits in shared memory beside a block of
+    ``rows`` rows.  Raises ValueError on anything the kernels do not
+    take."""
+    tensors = [q, k, v, index, pos]
     quant = k_scale is not None
     if quant != (k_zero is not None) or quant != (v_scale is not None):
         raise ValueError("k_scale, k_zero and v_scale come together")
     if quant:
         tensors += [k_scale, k_zero, v_scale]
-    for t in tensors:
-        if not t.is_cuda or t.device != q.device:
-            raise ValueError("paged kernels take CUDA tensors on one device")
-        if not t.is_contiguous():
-            raise ValueError("paged kernels take contiguous tensors")
-    code = DTYPE_CODES.get((q.dtype, k_pool.dtype))
-    if code is None or v_pool.dtype != k_pool.dtype or (code >= 2) != quant:
+    check_operands(kind, tensors, q)
+    code = DTYPE_CODES.get((q.dtype, k.dtype))
+    if code is None or v.dtype != k.dtype or (code >= 2) != quant:
         raise ValueError(f"unsupported dtypes q={q.dtype} "
-                         f"pool={k_pool.dtype} quantized={quant}")
-    if page_table.dtype != torch.int32 or pos.dtype != torch.int32:
-        raise ValueError("page_table and positions must be int32")
+                         f"kv={k.dtype} quantized={quant}")
+    if index.dtype != torch.int32 or pos.dtype != torch.int32:
+        raise ValueError("page tables, tokens and positions must be int32")
     B, K, G, hd = q.shape[0], q.shape[-3], q.shape[-2], q.shape[-1]
-    P, ps = k_pool.shape[0], k_pool.shape[1]
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
-    if k_pool.shape != (P, ps, K, hd) or v_pool.shape != k_pool.shape:
-        raise ValueError(f"pool shape {tuple(k_pool.shape)} does not match "
+    if k.shape != (*rows_shape, K, hd) or v.shape != k.shape:
+        raise ValueError(f"K/V shape {tuple(k.shape)} does not match "
                          f"q {tuple(q.shape)}")
-    if quant and any(s.shape != (P, ps, K) or s.dtype != torch.float32
+    if quant and any(s.shape != (*rows_shape, K) or s.dtype != torch.float32
                      for s in (k_scale, k_zero, v_scale)):
-        raise ValueError("scale sidecars must be float32 [P, ps, K]")
-    if page_table.dim() != 2 or page_table.shape[0] != B or pos.shape != (B,):
-        raise ValueError("page_table must be [B, NP] and positions [B]")
-    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
-        raise ValueError("pools must be 16-byte aligned")
-    if smem_bytes(hd, rows, page_table.shape[1]) > MAX_SMEM_BYTES:
-        raise ValueError(f"page table of {page_table.shape[1]} pages too "
-                         f"long for one block")
+        raise ValueError(f"scale sidecars must be float32 "
+                         f"{[*rows_shape, K]}")
+    if index.dim() != 2 or index.shape[0] != B or pos.shape != (B,):
+        raise ValueError("page_table / tok must be [B, n] and positions [B]")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("K/V must be 16-byte aligned")
+    if smem_bytes(hd, rows, index.shape[1]) > MAX_SMEM_BYTES:
+        raise ValueError(f"a table of {index.shape[1]} entries is too long "
+                         f"for one block")
     return code
 
 

@@ -24,8 +24,6 @@ import torch
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.ref import paged_decode_attention_ref as plain
 
-MAX_G = 16      # query rows per block: 4, 8 or 16 (cuda_lib.decode_rows)
-
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, page_table: torch.Tensor,
@@ -40,11 +38,12 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if q.dim() != 4:
         raise ValueError(f"q must be [B, K, G, hd], got {tuple(q.shape)}")
     B, K, G, hd = q.shape
-    if G > MAX_G:
-        raise ValueError(f"paged decode takes G <= {MAX_G} heads per group")
-    code = cuda_lib.check_paged_inputs(q, k_pool, v_pool, page_table, pos,
-                                       k_scale, k_zero, v_scale,
-                                       cuda_lib.decode_rows(G))
+    if G > cuda_lib.MAX_DECODE_G:
+        raise ValueError(f"paged decode takes G <= {cuda_lib.MAX_DECODE_G} "
+                         "heads per group")
+    code = cuda_lib.check_kv_inputs(
+        "paged", q, k_pool, v_pool, page_table, pos, k_scale, k_zero,
+        v_scale, k_pool.shape[:2], cuda_lib.decode_rows(G))
     if window is not None and window <= 0:
         raise ValueError("window must be positive")
     out = torch.empty_like(q)

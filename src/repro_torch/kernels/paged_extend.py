@@ -42,8 +42,9 @@ def paged_extend_attention(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError(f"q must be [B, Sx, K, G, hd], got {tuple(q.shape)}")
     B, Sx, K, G, hd = q.shape
     rows = cuda_lib.extend_rows(hd) if hd in cuda_lib.HEAD_DIMS else 1
-    code = cuda_lib.check_paged_inputs(q, k_pool, v_pool, page_table, pos0,
-                                       k_scale, k_zero, v_scale, rows)
+    code = cuda_lib.check_kv_inputs(
+        "paged", q, k_pool, v_pool, page_table, pos0, k_scale, k_zero,
+        v_scale, k_pool.shape[:2], rows)
     if window is not None and window <= 0:
         raise ValueError("window must be positive")
     out = torch.empty_like(q)

@@ -1,20 +1,23 @@
 """Plain PyTorch versions of the port's kernels.
 
-Ports of ``repro/kernels/ref.py``: ``paged_decode_attention_ref`` and
-``paged_extend_attention_ref`` gather each request's pages into a dense
-logical ``[B, NP*ps, K, hd]`` view, mask by absolute position and
-softmax in float32; ``mamba_scan_ref`` and ``rglru_scan_ref`` run the two
-recurrences as sequential float32 loops over time.  They are the CPU
-path of the port (``kernels/ops.py``) and the oracles ``chip_smoke.py``
-holds the CUDA kernels against.
+Ports of ``repro/kernels/ref.py``: ``flash_attention_ref`` (causal
+full-sequence attention), ``decode_attention_ref`` (one query over a dense
+ring cache), ``paged_decode_attention_ref`` and
+``paged_extend_attention_ref`` (which gather each request's pages into a
+dense logical ``[B, NP*ps, K, hd]`` view) all mask by absolute position
+and softmax in float32 through :func:`masked_attention`;
+``mamba_scan_ref`` and ``rglru_scan_ref`` run the two recurrences as
+sequential float32 loops over time.  They are the CPU path of the port
+(``kernels/ops.py``) and the oracles ``chip_smoke.py`` holds the CUDA
+kernels against.
 
 One rule differs from the JAX oracle, on purpose: a query row with NO
 valid slot (an empty batch slot, a pad lane) comes out as zeros.  The JAX
 oracle softmaxes an all ``-1e30`` row into a uniform average of whatever
-pages the row maps; the CUDA kernels skip unmapped pages and pages wholly
-past ``pos``, so they cannot reproduce that average, and a zero row is
-finite where an empty softmax would be NaN.  Rows with at least one valid
-slot are unchanged.
+slots the row sees; the CUDA kernels never read slots no row may attend,
+so they cannot reproduce that average, and a zero row is finite where an
+empty softmax would be NaN.  Rows with at least one valid slot are
+unchanged.
 """
 from __future__ import annotations
 
@@ -35,29 +38,79 @@ def _gather(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
     return g.reshape(B, NP * pool.shape[1], *pool.shape[2:])
 
 
-def _paged_attend(q, k_pool, v_pool, page_table, pos_lane, k_scale, k_zero,
-                  v_scale, window):
-    """q: [B,Sx,K,G,hd]; pos_lane: [B,Sx] absolute position of each lane."""
-    B, Sx, K, G, hd = q.shape
-    ps, NP = k_pool.shape[1], page_table.shape[1]
-    kg, vg = _gather(k_pool, page_table), _gather(v_pool, page_table)
-    if k_scale is not None:
-        kg = kv_quant.dequantize_k(kg, _gather(k_scale, page_table),
-                                   _gather(k_zero, page_table))
-        vg = kv_quant.dequantize_v(vg, _gather(v_scale, page_table))
-    s = torch.einsum("bskgd,btkd->bskgt", q.float(), kg.float()) * hd ** -0.5
-    t = torch.arange(NP * ps, device=q.device)[None, None, :]
-    mapped = torch.repeat_interleave(page_table >= 0, ps, dim=1)[:, None, :]
-    pl = pos_lane.long()[..., None]                          # [B,Sx,1]
-    valid = mapped & (t <= pl)
-    if window is not None:
-        valid = valid & (t > pl - window)
+def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     valid: torch.Tensor) -> torch.Tensor:
+    """Softmax attention in float32 with an explicit mask.  q:
+    [B,Sx,K,G,hd]; k/v: [B,T,K,hd] (float); valid: [B,Sx,T], may lane s
+    attend slot t.  Returns [B,Sx,K,G,hd] in q's dtype; a lane with no
+    valid slot is zeros."""
+    hd = q.shape[-1]
+    s = torch.einsum("bskgd,btkd->bskgt", q.float(), k.float()) * hd ** -0.5
     valid = valid[:, :, None, None, :]                       # [B,Sx,1,1,T]
     s = s.masked_fill(~valid, NEG_INF)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * valid
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bskgt,btkd->bskgd", p / l.clamp_min(1e-30), vg.float())
+    o = torch.einsum("bskgt,btkd->bskgd", p / l.clamp_min(1e-30), v.float())
     return o.to(q.dtype)
+
+
+def _dequant(k, v, k_scale, k_zero, v_scale):
+    """Float K/V of an fp or int8 cache (scales mark int8)."""
+    if k_scale is None:
+        return k, v
+    return (kv_quant.dequantize_k(k, k_scale, k_zero),
+            kv_quant.dequantize_v(v, v_scale))
+
+
+def _in_window(t, pos, window):
+    """Slot position(s) t attendable from query position(s) pos."""
+    ok = t <= pos
+    return ok if window is None else ok & (t > pos - window)
+
+
+def flash_attention_ref(q, k, v, *, window: Optional[int] = None,
+                        lengths: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """q: [B,H,S,hd]; k/v: [B,K,S,hd] -> [B,H,S,hd].  Causal: token i
+    attends j <= i (and j > i - window); with ``lengths`` ([B]) also only
+    j < lengths[b] — the mask of the JAX ``attention_full_qkv``."""
+    B, H, S, hd = q.shape
+    K = k.shape[1]
+    i = torch.arange(S, device=q.device)
+    valid = _in_window(i[None, :], i[:, None], window)[None]  # [1,S,S]
+    if lengths is not None:
+        valid = valid & (i[None, None, :] < lengths.long()[:, None, None])
+    q5 = q.reshape(B, K, H // K, S, hd).permute(0, 3, 1, 2, 4)
+    o = masked_attention(q5, k.transpose(1, 2), v.transpose(1, 2),
+                         valid.expand(B, S, S))
+    return o.permute(0, 2, 3, 1, 4).reshape(B, H, S, hd)
+
+
+def decode_attention_ref(q, k, v, tok, pos, *, k_scale=None, k_zero=None,
+                         v_scale=None, window: Optional[int] = None
+                         ) -> torch.Tensor:
+    """q: [B,K,G,hd]; k/v: [B,C,K,hd] ring; tok: [B,C] absolute token of
+    each slot (-1 = empty); pos: [B].  Slot c is valid iff tok >= 0 and
+    tok <= pos (and tok > pos - window).  Scale sidecars ([B,C,K] f32)
+    mark an int8 ring, dequantized here."""
+    kf, vf = _dequant(k, v, k_scale, k_zero, v_scale)
+    tok = tok.long()
+    valid = (tok >= 0) & _in_window(tok, pos.long()[:, None], window)
+    return masked_attention(q[:, None], kf, vf, valid[:, None])[:, 0]
+
+
+def _paged_attend(q, k_pool, v_pool, page_table, pos_lane, k_scale, k_zero,
+                  v_scale, window):
+    """q: [B,Sx,K,G,hd]; pos_lane: [B,Sx] absolute position of each lane."""
+    ps, NP = k_pool.shape[1], page_table.shape[1]
+    kg, vg = _dequant(
+        _gather(k_pool, page_table), _gather(v_pool, page_table),
+        *(None if s is None else _gather(s, page_table)
+          for s in (k_scale, k_zero, v_scale)))
+    t = torch.arange(NP * ps, device=q.device)[None, None, :]
+    mapped = torch.repeat_interleave(page_table >= 0, ps, dim=1)[:, None, :]
+    valid = mapped & _in_window(t, pos_lane.long()[..., None], window)
+    return masked_attention(q, kg, vg, valid)
 
 
 def paged_decode_attention_ref(q, k_pool, v_pool, page_table, pos, *,

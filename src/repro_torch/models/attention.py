@@ -1,23 +1,38 @@
-"""GQA attention over a paged KV pool (port of the paged subset of
+"""GQA attention blocks: full-sequence (forward / prefill), and decode and
+extend steps over a ring KV cache or a paged KV pool (port of
 ``repro/models/attention.py``).
 
-Layout per attention layer: a dict ``{"kp": [P, ps, K, hd], "vp": [P, ps,
-K, hd]}`` — a pool of P physical pages of ps tokens each, shared by every
-request — plus, with ``kv_dtype="int8"``, int8 pools and float32 scale
-sidecar pools ``ksp``/``kzp``/``vsp`` ([P, ps, K]; asymmetric K, symmetric
-V — kernels/kv_quant.py).  Each request owns a page table row mapping
-logical page (position // ps) to a physical page (-1 = unmapped), so
-masking is position arithmetic.
+Full-sequence attention (``attention_full_qkv``) goes through
+``ops.flash_attention`` whatever the sequence length: the reference's
+split at ``ATTN_CHUNK`` chooses between two XLA forms of one function.
 
-The pools are updated IN PLACE (``index_put_``), where the JAX package
-rebuilt them functionally and donated the old buffers.  The order inside
-a step is unchanged: each layer writes its new K/V rows first and then
-reads the post-write pool, which is what lets a speculative verify step
-write drafted tokens before knowing whether they are accepted — every
-read masks by absolute position and every step rewrites positions from
-the committed frontier before attending.  Lanes whose page is unmapped,
-and pad lanes, are filtered out of the write (the reference routed them
-to ``phys >= P`` and relied on ``mode="drop"``, which torch lacks).
+Ring layout per attention layer: ``{"k": [B, C, K, hd], "v": [B, C, K,
+hd], "tok": [B, C] int32}`` where C is the capacity (a ring when a window
+is active) and ``tok`` holds the absolute token in each slot (-1 =
+empty), so windowed and ring masking is exact; with ``kv_dtype="int8"``
+K/V are int8 with float32 sidecars ``ks``/``kz``/``vs`` ([B, C, K]).
+Decode reads the ring through ``ops.decode_attention``; the multi-lane
+extend read has no kernel in the JAX package either (it is XLA there) and
+stays plain PyTorch here.
+
+Paged layout per attention layer: a dict ``{"kp": [P, ps, K, hd], "vp":
+[P, ps, K, hd]}`` — a pool of P physical pages of ps tokens each, shared
+by every request — plus, with ``kv_dtype="int8"``, int8 pools and float32
+scale sidecar pools ``ksp``/``kzp``/``vsp`` ([P, ps, K]; asymmetric K,
+symmetric V — kernels/kv_quant.py).  Each request owns a page table row
+mapping logical page (position // ps) to a physical page (-1 = unmapped),
+so masking is position arithmetic.
+
+Rings and pools are updated IN PLACE (``index_put_``), where the JAX
+package rebuilt them functionally and donated the old buffers.  The order
+inside a step is unchanged: each layer writes its new K/V rows first and
+then reads the post-write cache, which is what lets a speculative verify
+step write drafted tokens before knowing whether they are accepted —
+every read masks by absolute position and every step rewrites positions
+from the committed frontier before attending.  Lanes whose page is
+unmapped, and pad lanes, are filtered out of the write (the reference
+routed them to ``phys >= P`` or a scratch slot and relied on
+``mode="drop"``, which torch lacks).
 
 The reads go through ``kernels/ops.py``: the hand-written CUDA kernels on
 a CUDA device, their plain PyTorch versions on the CPU.
@@ -32,9 +47,11 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import kv_quant as Q
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import masked_attention
 from repro_torch.models import layers as L
 
 Pool = Dict[str, torch.Tensor]
+Ring = Dict[str, torch.Tensor]
 
 
 class Attention(nn.Module):
@@ -90,7 +107,40 @@ def _out_proj(p: Attention, out: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Paged KV pool
+# Full-sequence attention (forward / prefill)
+# ---------------------------------------------------------------------------
+
+def attention_full_qkv(cfg: ModelConfig, p: Attention, q: torch.Tensor,
+                       k: torch.Tensor, v: torch.Tensor,
+                       window: Optional[int],
+                       lengths: Optional[torch.Tensor] = None,
+                       prefix_len: int = 0) -> torch.Tensor:
+    """Causal (optionally sliding-window) attention of projected q [B, S,
+    H, hd] and k/v [B, S, K, hd] at positions 0..S-1, the positions
+    ``forward`` and ``prefill`` give; ``lengths`` ([B] int32) masks key
+    tokens at or past each sequence's length.  Returns [B, S, d] in q's
+    dtype."""
+    if prefix_len:
+        raise NotImplementedError("a bidirectional prefix (the VLM's) is "
+                                  "not ported")
+    B, S, H, hd = q.shape
+    out = ops.flash_attention(
+        q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+        v.transpose(1, 2).contiguous(), window=window,
+        lengths=None if lengths is None else lengths.to(torch.int32))
+    return _out_proj(p, out.transpose(1, 2))
+
+
+def attention_full(cfg: ModelConfig, p: Attention, x: torch.Tensor,
+                   positions: torch.Tensor, window: Optional[int],
+                   lengths: Optional[torch.Tensor] = None,
+                   prefix_len: int = 0) -> torch.Tensor:
+    q, k, v = _qkv(cfg, p, x, positions)
+    return attention_full_qkv(cfg, p, q, k, v, window, lengths, prefix_len)
+
+
+# ---------------------------------------------------------------------------
+# KV storage shared by ring caches and page pools
 # ---------------------------------------------------------------------------
 
 def resolve_kv_dtype(cfg: ModelConfig, kv_dtype: Optional[str]) -> str:
@@ -99,6 +149,179 @@ def resolve_kv_dtype(cfg: ModelConfig, kv_dtype: Optional[str]) -> str:
         raise ValueError(f"unknown kv_dtype {kvd!r}")
     return kvd
 
+
+def _put_kv(cache: Dict[str, torch.Tensor], names: Tuple[str, ...], idx,
+            k: torch.Tensor, v: torch.Tensor) -> None:
+    """Write K/V rows at ``idx`` in place into the leaves ``names`` (K, V
+    and the K scale, K zero and V scale sidecars).  An int8 cache
+    quantizes here, at write time: the scales land at the same index as
+    their int8 rows."""
+    kn, vn, ksn, kzn, vsn = names
+    if ksn in cache:
+        kq, ks, kz = Q.quantize_k(k)
+        vq, vs = Q.quantize_v(v)
+        for name, val in ((kn, kq), (vn, vq), (ksn, ks), (kzn, kz),
+                          (vsn, vs)):
+            cache[name].index_put_(idx, val)
+    else:
+        cache[kn].index_put_(idx, k.to(cache[kn].dtype))
+        cache[vn].index_put_(idx, v.to(cache[vn].dtype))
+
+
+def _scales(cache: Dict[str, torch.Tensor], names: Tuple[str, ...]
+            ) -> Dict[str, Optional[torch.Tensor]]:
+    """The int8 sidecars of a cache as kernel keyword arguments (None for
+    an fp cache)."""
+    return {"k_scale": cache.get(names[2]), "k_zero": cache.get(names[3]),
+            "v_scale": cache.get(names[4])}
+
+
+POOL_LEAVES = ("kp", "vp", "ksp", "kzp", "vsp")
+RING_LEAVES = ("k", "v", "ks", "kz", "vs")
+
+
+# ---------------------------------------------------------------------------
+# Ring KV cache
+# ---------------------------------------------------------------------------
+
+def kv_cache_def(cfg: ModelConfig, batch: int, capacity: int,
+                 dtype: torch.dtype, kv_dtype: Optional[str] = None
+                 ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """Shapes and dtypes of one attention layer's ring cache; "int8" adds
+    the scale sidecars ``ks``/``kz``/``vs`` ([batch, capacity, K])."""
+    K, hd = cfg.num_kv_heads, cfg.head_dim
+    quant = resolve_kv_dtype(cfg, kv_dtype) == "int8"
+    kv = torch.int8 if quant else dtype
+    d = {"k": ((batch, capacity, K, hd), kv),
+         "v": ((batch, capacity, K, hd), kv),
+         "tok": ((batch, capacity), torch.int32)}
+    if quant:
+        for leaf in ("ks", "kz", "vs"):
+            d[leaf] = ((batch, capacity, K), torch.float32)
+    return d
+
+
+def empty_cache(defs: Dict[str, Tuple[Tuple[int, ...], torch.dtype]],
+                device: Optional[torch.device] = None
+                ) -> Dict[str, torch.Tensor]:
+    """A cache dict in its EMPTY state: zeros, except ``tok`` leaves, which
+    hold -1 (no token cached)."""
+    return {name: torch.full(shape, -1 if name == "tok" else 0, dtype=dt,
+                             device=device)
+            for name, (shape, dt) in defs.items()}
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, capacity: int,
+                  dtype: torch.dtype, kv_dtype: Optional[str] = None,
+                  device: Optional[torch.device] = None) -> Ring:
+    return empty_cache(kv_cache_def(cfg, batch, capacity, dtype, kv_dtype),
+                       device)
+
+
+def _ring_write(cache: Ring, k: torch.Tensor, v: torch.Tensor,
+                b: torch.Tensor, slot: torch.Tensor,
+                positions: torch.Tensor) -> Ring:
+    """Write K/V rows [n, K, hd] of tokens ``positions`` [n] at ring
+    coordinates (b, slot) [n] in place; no two rows share a slot."""
+    idx = (b.long(), slot.long())
+    _put_kv(cache, RING_LEAVES, idx, k, v)
+    cache["tok"].index_put_(idx, positions.to(torch.int32))
+    return cache
+
+
+def prefill_into_cache(cache: Ring, k: torch.Tensor, v: torch.Tensor,
+                       lengths: torch.Tensor) -> Ring:
+    """Write a full prefill's K/V [B, S, K, hd] into an empty ring.
+    Tokens at or past a sequence's length stay unwritten (tok = -1); when
+    S exceeds the capacity C only each sequence's last C tokens survive —
+    exactly the sliding-window semantics."""
+    S, C = k.shape[1], cache["k"].shape[1]
+    t = torch.arange(S, device=k.device)[None, :]
+    n = lengths.long()[:, None]
+    keep = (t < n) & (t >= n - C)
+    b, tt = torch.nonzero(keep, as_tuple=True)
+    return _ring_write(cache, k[b, tt], v[b, tt], b, tt % C, tt)
+
+
+def _masked_ring_write(cache: Ring, k: torch.Tensor, v: torch.Tensor,
+                       positions: torch.Tensor,
+                       valid: Optional[torch.Tensor]) -> Ring:
+    """Write the valid lanes of a [B, Sx] block into the ring, in place.
+    When Sx exceeds the capacity two lanes can alias one slot; the later
+    lane wins (the earlier token has already left the window).
+
+    Speculative verify writes follow the write-then-mask rollback contract
+    of the paged pool: rejected lanes leave ``tok`` entries past the
+    committed frontier, which every read masks (``tok <= pos``) and the
+    next step overwrites.  But a ring write at position p evicts position
+    p - C; when C is window-clamped the evicted token may still be
+    attendable after a rejection, so the engine speculates only on rings
+    whose capacity is max_seq."""
+    B, Sx = positions.shape
+    C = cache["k"].shape[1]
+    if valid is None:
+        valid = torch.ones_like(positions, dtype=torch.bool)
+    slot = positions % C
+    lane = torch.arange(Sx, device=positions.device)
+    same = slot[:, :, None] == slot[:, None, :]                 # [B,Sx,Sx]
+    later = lane[None, None, :] > lane[None, :, None]
+    dup = (same & later & valid[:, None, :]).any(dim=-1)
+    b, s = torch.nonzero(valid & ~dup, as_tuple=True)
+    return _ring_write(cache, k[b, s], v[b, s], b, slot[b, s],
+                       positions[b, s])
+
+
+def attention_decode(cfg: ModelConfig, p: Attention, x: torch.Tensor,
+                     cache: Ring, pos: torch.Tensor, window: Optional[int]
+                     ) -> Tuple[torch.Tensor, Ring]:
+    """One-token decode over the ring.  x: [B, 1, d]; pos: [B] int32.
+    Writes this token at slot pos % C, then reads the post-write ring
+    through the ring decode kernel."""
+    B = x.shape[0]
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    C = cache["k"].shape[1]
+    q, k, v = _qkv(cfg, p, x, pos[:, None])
+    _ring_write(cache, k[:, 0], v[:, 0], torch.arange(B, device=x.device),
+                pos % C, pos)
+    out = ops.decode_attention(
+        q.reshape(B, K, H // K, hd).contiguous(), cache["k"], cache["v"],
+        cache["tok"], pos, window=window, **_scales(cache, RING_LEAVES))
+    return _out_proj(p, out.reshape(B, 1, H, hd).to(x.dtype)), cache
+
+
+def attention_extend(cfg: ModelConfig, p: Attention, x: torch.Tensor,
+                     cache: Ring, pos0: torch.Tensor, window: Optional[int],
+                     valid: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, Ring]:
+    """Multi-token extension over the ring: x: [B, Sx, d] continues at
+    position pos0 [B] int32.  Writes the suffix's valid lanes ([B, Sx]
+    ``valid``; all lanes when None), then attends over the whole ring with
+    exact token masking: lane l attends slots holding tokens <= pos0 + l
+    (and > pos0 + l - window).  The JAX package reads the ring here with
+    XLA, having no kernel for it, so this read is plain PyTorch."""
+    B, Sx, _ = x.shape
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    positions = pos0[:, None] + torch.arange(Sx, device=x.device,
+                                             dtype=pos0.dtype)[None, :]
+    q, k, v = _qkv(cfg, p, x, positions)
+    _masked_ring_write(cache, k, v, positions, valid)
+    kf, vf = cache["k"], cache["v"]
+    if "ks" in cache:
+        kf = Q.dequantize_k(kf, cache["ks"], cache["kz"])
+        vf = Q.dequantize_v(vf, cache["vs"])
+    tok = cache["tok"][:, None, :].long()                       # [B,1,C]
+    pl = positions[:, :, None].long()                           # [B,Sx,1]
+    attendable = (tok >= 0) & (tok <= pl)
+    if window is not None:
+        attendable = attendable & (tok > pl - window)
+    out = masked_attention(q.reshape(B, Sx, K, H // K, hd), kf, vf,
+                           attendable)
+    return _out_proj(p, out.reshape(B, Sx, H, hd).to(x.dtype)), cache
+
+
+# ---------------------------------------------------------------------------
+# Paged KV pool
+# ---------------------------------------------------------------------------
 
 def paged_kv_cache_def(cfg: ModelConfig, num_pages: int, page_size: int,
                        dtype: torch.dtype, kv_dtype: Optional[str] = None
@@ -121,26 +344,11 @@ def _paged_write(pool: Pool, k: torch.Tensor, v: torch.Tensor,
                  phys: torch.Tensor, off: torch.Tensor) -> Pool:
     """Write K/V rows into pool pages in place.  k/v: [B, (Sx,) K, hd];
     phys/off: [B] or [B, Sx] (phys < 0 drops the lane: pad lanes and
-    unmapped positions).  Quantized pools quantize here, at write time:
-    the scales land at the same (page, offset) as their int8 rows."""
+    unmapped positions)."""
     keep = torch.nonzero(phys >= 0, as_tuple=True)   # one host sync
-    phys, off = phys[keep].long(), off[keep].long()
-    k, v = k[keep], v[keep]
-    if "ksp" in pool:
-        kq, ks, kz = Q.quantize_k(k)
-        vq, vs = Q.quantize_v(v)
-        for name, val in (("kp", kq), ("vp", vq), ("ksp", ks), ("kzp", kz),
-                          ("vsp", vs)):
-            pool[name].index_put_((phys, off), val)
-    else:
-        pool["kp"].index_put_((phys, off), k.to(pool["kp"].dtype))
-        pool["vp"].index_put_((phys, off), v.to(pool["vp"].dtype))
+    _put_kv(pool, POOL_LEAVES, (phys[keep].long(), off[keep].long()),
+            k[keep], v[keep])
     return pool
-
-
-def _pool_scales(pool: Pool) -> Dict[str, Optional[torch.Tensor]]:
-    return {"k_scale": pool.get("ksp"), "k_zero": pool.get("kzp"),
-            "v_scale": pool.get("vsp")}
 
 
 def _write_phys(page_table: torch.Tensor, positions: torch.Tensor,
@@ -168,7 +376,7 @@ def attention_decode_paged(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     _paged_write(pool, k[:, 0], v[:, 0], phys, pos % ps)
     out = ops.paged_decode_attention(
         q.reshape(B, K, H // K, hd).contiguous(), pool["kp"], pool["vp"],
-        page_table, pos, window=window, **_pool_scales(pool))
+        page_table, pos, window=window, **_scales(pool, POOL_LEAVES))
     return _out_proj(p, out.reshape(B, 1, H, hd).to(x.dtype)), pool
 
 
@@ -195,7 +403,8 @@ def attention_extend_paged(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     _paged_write(pool, k, v, phys, positions % ps)
     out = ops.paged_extend_attention(
         q.reshape(B, Sx, K, H // K, hd).contiguous(), pool["kp"],
-        pool["vp"], page_table, pos0, window=window, **_pool_scales(pool))
+        pool["vp"], page_table, pos0, window=window,
+        **_scales(pool, POOL_LEAVES))
     return _out_proj(p, out.reshape(B, Sx, H, hd).to(x.dtype)), pool
 
 
@@ -209,27 +418,66 @@ def block_window(cfg: ModelConfig, kind: str) -> Optional[int]:
     return cfg.sliding_window
 
 
-def attn_block_decode(cfg: ModelConfig, p: AttnBlock, x: torch.Tensor,
-                      pool: Pool, pos: torch.Tensor, kind: str = "attn",
-                      page_table: Optional[torch.Tensor] = None
-                      ) -> Tuple[torch.Tensor, Pool]:
-    h = L.rmsnorm(p.ln1.scale, x, cfg.norm_eps)
-    y, pool = attention_decode_paged(cfg, p.attn, h, pool, pos, page_table,
-                                     block_window(cfg, kind))
-    x = x + y
+def _mlp_residual(cfg: ModelConfig, p: AttnBlock,
+                  x: torch.Tensor) -> torch.Tensor:
     h = L.rmsnorm(p.ln2.scale, x, cfg.norm_eps)
-    return x + L.mlp(p.mlp, h, cfg.mlp_act), pool
+    return x + L.mlp(p.mlp, h, cfg.mlp_act)
+
+
+def attn_block_forward(cfg: ModelConfig, p: AttnBlock, x: torch.Tensor,
+                       positions: torch.Tensor, kind: str = "attn",
+                       lengths: Optional[torch.Tensor] = None,
+                       prefix_len: int = 0) -> torch.Tensor:
+    h = L.rmsnorm(p.ln1.scale, x, cfg.norm_eps)
+    x = x + attention_full(cfg, p.attn, h, positions,
+                           block_window(cfg, kind), lengths, prefix_len)
+    return _mlp_residual(cfg, p, x)
+
+
+def attn_block_prefill(cfg: ModelConfig, p: AttnBlock, x: torch.Tensor,
+                       positions: torch.Tensor, lengths: torch.Tensor,
+                       capacity: int, kind: str = "attn",
+                       prefix_len: int = 0) -> Tuple[torch.Tensor, Ring]:
+    """Full-sequence forward that also returns the primed ring cache (in
+    ``cfg.kv_dtype``)."""
+    h = L.rmsnorm(p.ln1.scale, x, cfg.norm_eps)
+    q, k, v = _qkv(cfg, p.attn, h, positions)
+    cache = init_kv_cache(cfg, x.shape[0], capacity, x.dtype,
+                          device=x.device)
+    prefill_into_cache(cache, k, v, lengths)
+    x = x + attention_full_qkv(cfg, p.attn, q, k, v, block_window(cfg, kind),
+                               lengths, prefix_len)
+    return _mlp_residual(cfg, p, x), cache
+
+
+def attn_block_decode(cfg: ModelConfig, p: AttnBlock, x: torch.Tensor,
+                      cache: Dict[str, torch.Tensor], pos: torch.Tensor,
+                      kind: str = "attn",
+                      page_table: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    h = L.rmsnorm(p.ln1.scale, x, cfg.norm_eps)
+    if "kp" in cache:                                   # paged pool layer
+        y, cache = attention_decode_paged(cfg, p.attn, h, cache, pos,
+                                          page_table,
+                                          block_window(cfg, kind))
+    else:
+        y, cache = attention_decode(cfg, p.attn, h, cache, pos,
+                                    block_window(cfg, kind))
+    return _mlp_residual(cfg, p, x + y), cache
 
 
 def attn_block_extend(cfg: ModelConfig, p: AttnBlock, x: torch.Tensor,
-                      pool: Pool, pos0: torch.Tensor, kind: str = "attn",
+                      cache: Dict[str, torch.Tensor], pos0: torch.Tensor,
+                      kind: str = "attn",
                       valid: Optional[torch.Tensor] = None,
                       page_table: Optional[torch.Tensor] = None
-                      ) -> Tuple[torch.Tensor, Pool]:
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     h = L.rmsnorm(p.ln1.scale, x, cfg.norm_eps)
-    y, pool = attention_extend_paged(cfg, p.attn, h, pool, pos0,
-                                     block_window(cfg, kind), page_table,
-                                     valid)
-    x = x + y
-    h = L.rmsnorm(p.ln2.scale, x, cfg.norm_eps)
-    return x + L.mlp(p.mlp, h, cfg.mlp_act), pool
+    if "kp" in cache:                                   # paged pool layer
+        y, cache = attention_extend_paged(cfg, p.attn, h, cache, pos0,
+                                          block_window(cfg, kind),
+                                          page_table, valid)
+    else:
+        y, cache = attention_extend(cfg, p.attn, h, cache, pos0,
+                                    block_window(cfg, kind), valid)
+    return _mlp_residual(cfg, p, x + y), cache

@@ -4,7 +4,8 @@
 Attention-free: the mixer is a depthwise causal conv + selective scan.
 Each layer's serving state is a dense per-slot dict ``{"conv": [B, ck-1,
 d_inner], "h": [B, d_inner, state]}`` that the extend and decode steps
-update IN PLACE.  The recurrence itself — the reference's chunked
+update IN PLACE; full-sequence forward and prefill start from a zero
+state.  The recurrence itself — the reference's chunked
 associative scan over time, and its one-step decode update — goes through
 ``kernels/ops.mamba_scan``: the hand-written CUDA kernel on a card, its
 sequential float32 plain version on the CPU.  The scan's output already
@@ -137,6 +138,21 @@ def mamba_mixer_decode(cfg: ModelConfig, p: MambaBlock, x: torch.Tensor,
     state["conv"].copy_(conv_in[:, 1:])
     state["h"].copy_(h)
     return out
+
+
+def mamba_block_prefill(cfg: ModelConfig, p: MambaBlock, x: torch.Tensor
+                        ) -> Tuple[torch.Tensor, State]:
+    """Full-sequence forward from a zero state (a zero conv history, h0 =
+    0); also returns the state after the last token."""
+    state = {name: torch.zeros(shape, dtype=dt, device=x.device)
+             for name, (shape, dt) in
+             mamba_cache_def(cfg, x.shape[0], x.dtype).items()}
+    return mamba_block_extend(cfg, p, x, state)
+
+
+def mamba_block_forward(cfg: ModelConfig, p: MambaBlock,
+                        x: torch.Tensor) -> torch.Tensor:
+    return mamba_block_prefill(cfg, p, x)[0]
 
 
 def mamba_block_extend(cfg: ModelConfig, p: MambaBlock, x: torch.Tensor,

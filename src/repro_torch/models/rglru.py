@@ -7,7 +7,8 @@ recurrent : local-attention interleave is the block pattern; ``rg_attn``
 blocks are attention blocks with ``local_window`` (models/attention.py).
 
 Each layer's serving state is a dense per-slot dict ``{"conv": [B, 3, w],
-"h": [B, w]}`` updated IN PLACE.  The gates run in PyTorch in float32 with
+"h": [B, w]}`` updated IN PLACE; full-sequence forward and prefill start
+from a zero state.  The gates run in PyTorch in float32 with
 float32 weight casts, as in the reference; the recurrence ``h_t = a_t *
 h_{t-1} + b_t`` goes through ``kernels/ops.rglru_scan`` (the CUDA kernel
 on a card, its plain version on the CPU).  Pad lanes are masked to a = 1,
@@ -130,6 +131,21 @@ def _mlp_sub_block(cfg: ModelConfig, p: RGLRUBlock,
                    x: torch.Tensor) -> torch.Tensor:
     h = L.rmsnorm(p.ln2.scale, x, cfg.norm_eps)
     return x + L.mlp(p.mlp, h, cfg.mlp_act)
+
+
+def rglru_block_prefill(cfg: ModelConfig, p: RGLRUBlock, x: torch.Tensor
+                        ) -> Tuple[torch.Tensor, State]:
+    """Full-sequence forward from a zero state (a zero conv history, h0 =
+    0); also returns the state after the last token."""
+    state = {name: torch.zeros(shape, dtype=dt, device=x.device)
+             for name, (shape, dt) in
+             rglru_cache_def(cfg, x.shape[0], x.dtype).items()}
+    return rglru_block_extend(cfg, p, x, state)
+
+
+def rglru_block_forward(cfg: ModelConfig, p: RGLRUBlock,
+                        x: torch.Tensor) -> torch.Tensor:
+    return rglru_block_prefill(cfg, p, x)[0]
 
 
 def rglru_block_extend(cfg: ModelConfig, p: RGLRUBlock, x: torch.Tensor,

@@ -1,18 +1,23 @@
-"""Decoder-only LM over a paged KV pool and dense recurrent state (port of
-the paged serving subset of ``repro/models/transformer.py``).
+"""Decoder-only LM over ring or paged KV caches and dense recurrent state
+(port of ``repro/models/transformer.py``).
 
 ``TransformerLM`` is an ``nn.Module`` with one block per layer of
 ``cfg.block_pattern``: ``attn`` and ``rg_attn`` (attention blocks; the
 latter with RecurrentGemma's ``local_window``), ``mamba`` and ``rglru``.
 The reference's ``lax.scan`` over a stacked repeating unit becomes a loop
-over ``self.blocks``.  Its serving entry points are ``prefill_extend``
-(chunked prefill, mixed steps and speculative verify) and
-``decode_step``; both take the cache — a list with one dict per layer:
-the shared page pools of an attention layer, the dense per-slot
-``{"conv", "h"}`` state of a recurrent one — and the ``[B, NP]`` int32
-page table, update the cache in place and return ``(logits, cache)``.
-Not ported yet: MoE blocks, ring caches with full-sequence
-``forward``/``prefill``, and the whisper and vlm models.
+over ``self.blocks``.  Entry points, all without gradients:
+
+* ``forward`` (teacher forcing: logits at every position) and
+  ``prefill`` (logits at each sequence's last valid token and the primed
+  decode cache), whose attention layers run ``ops.flash_attention``;
+* ``prefill_extend`` (chunked prefill, mixed steps and speculative
+  verify) and ``decode_step``, which take the cache — a list with one
+  dict per layer: the ring cache or shared page pools of an attention
+  layer, the dense per-slot ``{"conv", "h"}`` state of a recurrent one —
+  and, for paged caches, the ``[B, NP]`` int32 page table; they update
+  the cache in place and return ``(logits, cache)``.
+
+Not ported yet: MoE blocks and the whisper and vlm models.
 """
 from __future__ import annotations
 
@@ -32,8 +37,7 @@ Cache = List[Dict[str, torch.Tensor]]
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 ATTN_KINDS = ("attn", "rg_attn")
 STATE_KINDS = ("mamba", "rglru")
-UNPORTED = ("MoE blocks, ring caches (paged_kv=False), whisper and vlm "
-            "models")
+UNPORTED = "MoE blocks, whisper and vlm models"
 
 
 def _block(cfg: ModelConfig, kind: str, dtype: torch.dtype) -> nn.Module:
@@ -71,6 +75,38 @@ class TransformerLM(nn.Module):
         """Random weights from ``generator`` (layers.init_params)."""
         return L.init_params(self, generator)
 
+    def attn_capacity(self, max_seq: int) -> int:
+        w = self.cfg.sliding_window
+        return min(max_seq, w) if w else max_seq
+
+    def cache_defs(self, batch: int, max_seq: int,
+                   kv_dtype: Optional[str] = None) -> List[Dict]:
+        """Per-layer ring-cache shapes and dtypes: attention layers get a
+        [batch, capacity] ring (``rg_attn`` layers capped at
+        ``local_window``), recurrent layers their dense state."""
+        cap = self.attn_capacity(max_seq)
+        defs = []
+        for kind in self.cfg.block_pattern:
+            if kind in ATTN_KINDS:
+                c = min(cap, self.cfg.local_window) if kind == "rg_attn" \
+                    else cap
+                defs.append(A.kv_cache_def(self.cfg, batch, c, self.dtype,
+                                           kv_dtype))
+            elif kind == "mamba":
+                defs.append(M.mamba_cache_def(self.cfg, batch, self.dtype))
+            else:
+                defs.append(RG.rglru_cache_def(self.cfg, batch, self.dtype))
+        return defs
+
+    def init_cache(self, batch: int, max_seq: int,
+                   kv_dtype: Optional[str] = None,
+                   device: Optional[torch.device] = None) -> Cache:
+        """Empty ring caches (tok = -1) and zeroed state, one dict per
+        layer."""
+        device = device or self.embed.device
+        return [A.empty_cache(defs, device)
+                for defs in self.cache_defs(batch, max_seq, kv_dtype)]
+
     def cache_defs_paged(self, num_pages: int, page_size: int,
                          kv_dtype: Optional[str] = None, batch: int = 1
                          ) -> List[Dict]:
@@ -97,8 +133,7 @@ class TransformerLM(nn.Module):
                          batch: int = 1) -> Cache:
         """Zeroed page pools and recurrent state, one dict per layer."""
         device = device or self.embed.device
-        return [{name: torch.zeros(shape, dtype=dt, device=device)
-                 for name, (shape, dt) in defs.items()}
+        return [A.empty_cache(defs, device)
                 for defs in self.cache_defs_paged(num_pages, page_size,
                                                   kv_dtype, batch)]
 
@@ -110,6 +145,65 @@ class TransformerLM(nn.Module):
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         w = self.embed.T if self.cfg.tie_embeddings else self.unembed
         return L.unembed(w, x)
+
+    # ---------------- full sequences -----------------------------------------
+
+    @torch.no_grad()
+    def forward(self, batch: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Teacher forcing: ``batch["tokens"]`` [B, S] (and optional
+        ``batch["lengths"]`` [B]) -> (logits [B, S, V], aux loss).  The aux
+        loss is MoE load balancing, 0 without MoE blocks.  There is no
+        backward: the flash kernel has none, as the TPU kernel had none."""
+        tokens = batch["tokens"]
+        lengths = batch.get("lengths")
+        x = self.embed_tokens(tokens)
+        positions = torch.arange(tokens.shape[1], device=tokens.device,
+                                 dtype=torch.int32)[None, :]
+        for kind, blk in zip(self.cfg.block_pattern, self.blocks):
+            if kind in ATTN_KINDS:
+                x = A.attn_block_forward(self.cfg, blk, x, positions, kind,
+                                         lengths)
+            elif kind == "mamba":
+                x = M.mamba_block_forward(self.cfg, blk, x)
+            else:
+                x = RG.rglru_block_forward(self.cfg, blk, x)
+        x = L.rmsnorm(self.ln_f.scale, x, self.cfg.norm_eps)
+        return self.logits(x), torch.zeros((), device=x.device)
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor,
+                lengths: Optional[torch.Tensor] = None,
+                max_seq: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
+        """tokens: [B, S], valid up to ``lengths`` [B] (all S when None).
+        Returns (logits at each row's last valid token [B, V], the primed
+        ring cache for ``decode_step``); attention rings hold
+        ``attn_capacity(max_seq or S)`` slots, so when S exceeds that only
+        each row's last tokens survive.  Recurrent state summarizes all S
+        tokens, as in the reference."""
+        B, S = tokens.shape
+        if lengths is None:
+            lengths = torch.full((B,), S, dtype=torch.int32,
+                                 device=tokens.device)
+        capacity = self.attn_capacity(max_seq or S)
+        x = self.embed_tokens(tokens)
+        positions = torch.arange(S, device=tokens.device,
+                                 dtype=torch.int32)[None, :]
+        cache: Cache = []
+        for kind, blk in zip(self.cfg.block_pattern, self.blocks):
+            if kind in ATTN_KINDS:
+                cap = (min(capacity, self.cfg.local_window)
+                       if kind == "rg_attn" else capacity)
+                x, c = A.attn_block_prefill(self.cfg, blk, x, positions,
+                                            lengths, cap, kind)
+            elif kind == "mamba":
+                x, c = M.mamba_block_prefill(self.cfg, blk, x)
+            else:
+                x, c = RG.rglru_block_prefill(self.cfg, blk, x)
+            cache.append(c)
+        x = L.rmsnorm(self.ln_f.scale, x, self.cfg.norm_eps)
+        last = (lengths.long() - 1).clamp_min(0)
+        return self.logits(x[torch.arange(B, device=x.device), last]), cache
 
     # ---------------- serving steps ------------------------------------------
 
@@ -128,8 +222,9 @@ class TransformerLM(nn.Module):
         (0 = no-op for its pages) and logits come from its last valid
         lane.  ``all_logits`` returns logits at every lane ([B, Sx, V]),
         the speculative verify step; lanes >= n_valid are meaningless.
+        ``page_table`` ([B, NP] int32) is required by paged caches and
+        ignored by ring caches.
         """
-        _need_pages(page_table)
         x = self.embed_tokens(tokens)
         valid = None
         if n_valid is not None:
@@ -157,9 +252,9 @@ class TransformerLM(nn.Module):
                     pos: torch.Tensor,
                     page_table: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, Cache]:
-        """tokens: [B, 1]; pos: [B] int32 absolute position of this token.
-        Returns ([B, V] logits, cache)."""
-        _need_pages(page_table)
+        """tokens: [B, 1]; pos: [B] int32 absolute position of this token;
+        ``page_table`` as in ``prefill_extend``.  Returns ([B, V] logits,
+        cache)."""
         x = self.embed_tokens(tokens)
         for kind, blk, c in zip(self.cfg.block_pattern, self.blocks, cache):
             if kind in ATTN_KINDS:
@@ -172,9 +267,3 @@ class TransformerLM(nn.Module):
         x = L.rmsnorm(self.ln_f.scale, x, self.cfg.norm_eps)
         return self.logits(x)[:, 0], cache
 
-
-def _need_pages(page_table: Optional[torch.Tensor]) -> None:
-    if page_table is None:
-        raise NotImplementedError(
-            "the port serves from a paged KV pool only: pass page_table "
-            f"(still to port: {UNPORTED})")

@@ -12,32 +12,36 @@ The paper's three levers are first-class here:
 Scheduling is chunked-prefill continuous batching: prompts and
 reflection-round suffixes are split into chunks and interleaved with
 in-flight decode tokens in one mixed step (``model.prefill_extend(...,
-n_valid)``), under a per-step token budget.  KV memory is a paged pool:
-every attention layer shares one ``[num_pages, page_size, K, hd]`` pool
-and each request owns a page table.  Prefill chunks shrink to allocatable
-pages, prefix snapshots pin pages by refcount, the first write past a
-shared page copies it (copy-on-write), and on exhaustion the youngest
-request is preempted and later replays its prompt and output.
-Self-speculative decoding (``ServeConfig.spec_decode``) drafts by n-gram
-lookup and scores ``1 + spec_tokens`` lanes per row in one verify step;
-rejected lanes roll back by truncating page-table tails.  Only committed
-tokens are billed (``TokenUsage``).
+n_valid)``), under a per-step token budget.  KV memory is a paged pool by
+default: every attention layer shares one ``[num_pages, page_size, K,
+hd]`` pool and each request owns a page table.  Prefill chunks shrink to
+allocatable pages, prefix snapshots pin pages by refcount, the first write
+past a shared page copies it (copy-on-write), and on exhaustion the
+youngest request is preempted and later replays its prompt and output.
+``ServeConfig.paged_kv=False`` serves from dense per-slot ring caches
+instead (``[max_batch, capacity]`` per attention layer): the mixed-step
+width is clamped to the smallest ring, prefix snapshots copy the slot's
+cache, and there is no pool to run out of.  Self-speculative decoding
+(``ServeConfig.spec_decode``) drafts by n-gram lookup and scores ``1 +
+spec_tokens`` lanes per row in one verify step; rejected lanes roll back
+by truncating page-table tails (paged) or are masked and overwritten
+(rings whose capacity is max_seq; a window-clamped ring does not
+speculate).  Only committed tokens are billed (``TokenUsage``).
 
 Differences from the reference:
   * PyTorch runs eagerly: there is no ``jax.jit``, no per-shape
     executable cache and no AOT warmup; ``stats()["step_compiles"]`` is 0.
   * The model runs on ``device`` (CUDA unless the caller asks for the
-    CPU); the page pools are updated in place, and COW copies run as one
-    indexed copy per pool leaf with only real (src, dst) pairs.
+    CPU); page pools and ring caches are updated in place, and COW copies
+    run as one indexed copy per pool leaf with only real (src, dst) pairs.
   * Recurrent models (mamba, RG-LRU) keep dense per-slot state beside the
     page pool, as in the reference: zeroed at admission (so a preemption
     replay restarts from zero), copied into prefix snapshots and restored
     from them; speculative decoding is off for them.
   * Not ported yet — the constructor raises ``NotImplementedError`` when
     asked for them: fault injection, deadlines, NaN quarantine, the stall
-    detector, SLO pricing, meshes, AOT warmup and ring caches
-    (``paged_kv=False``); MoE, whisper and vlm models fail when the
-    model is built.
+    detector, SLO pricing, meshes and AOT warmup; MoE, whisper and vlm
+    models fail when the model is built.
 """
 from __future__ import annotations
 
@@ -71,7 +75,6 @@ def _unsupported(scfg: ServeConfig, faults, mesh) -> List[str]:
         "nan_quarantine": scfg.nan_quarantine,
         "stall_limit": scfg.stall_limit > 0,
         "slo_price_model": scfg.slo_price_model is not None,
-        "ring caches (paged_kv=False)": not scfg.paged_kv,
     }
     return [name for name, on in asked.items() if on]
 
@@ -95,38 +98,63 @@ class Engine:
         kinds = self.cfg.block_pattern
         self._state_layers = [i for i, k in enumerate(kinds)
                               if k in STATE_KINDS]
-        self._pool_layers = [i for i, k in enumerate(kinds)
-                             if k in ATTN_KINDS]
         self.prefix_cache = (PrefixCache(scfg.page_size, model_cfg=self.cfg)
                              if scfg.prefix_cache else None)
         self.kv_dtype = scfg.kv_dtype or self.cfg.kv_dtype
         self.attn_impl = ops.resolve_attn_impl(self.device)
-        ps = scfg.page_size
-        self.pages_per_seq = -(-S // ps)
-        num_pages = scfg.num_pages or B * self.pages_per_seq
-        if num_pages < self.pages_per_seq:
-            raise ValueError(
-                f"num_pages={num_pages} cannot hold one max_seq request "
-                f"({self.pages_per_seq} pages)")
-        self.pool = PagePool(num_pages, ps)
-        # logical page -> physical page, per slot (-1 = unmapped)
-        self.page_tables = np.full((B, self.pages_per_seq), -1, np.int64)
-        self.cache = model.init_cache_paged(num_pages, ps,
-                                            kv_dtype=self.kv_dtype,
-                                            device=self.device, batch=B)
-        # paged lanes have no ring aliasing: the mixed-step width is
-        # bounded only by max_seq
-        self.chunk = max(1, min(scfg.prefill_chunk, S))
-        # With EVERY attention layer windowed, pages that slid out of the
-        # window can never be attended again and are freed as a request
-        # advances (every layer shares one table: the widest window rules).
-        # rg_attn layers attend within local_window; a model without
-        # attention layers frees nothing (its pages hold no KV).
-        wins = [self.cfg.local_window if k == "rg_attn"
-                else self.cfg.sliding_window for k in set(kinds)
-                if k in ATTN_KINDS]
-        self._window_free = (max(wins) if wins and None not in wins
-                             else None)
+        self.paged = bool(scfg.paged_kv)
+        if self.paged:
+            self._pool_layers = [i for i, k in enumerate(kinds)
+                                 if k in ATTN_KINDS]
+            # per-slot (batch-axis) layers: what a slot reset, a snapshot
+            # copy and adoption touch; the pools are shared
+            self._slot_layers = self._state_layers
+            ps = scfg.page_size
+            self.pages_per_seq = -(-S // ps)
+            num_pages = scfg.num_pages or B * self.pages_per_seq
+            if num_pages < self.pages_per_seq:
+                raise ValueError(
+                    f"num_pages={num_pages} cannot hold one max_seq request "
+                    f"({self.pages_per_seq} pages)")
+            self.pool = PagePool(num_pages, ps)
+            # logical page -> physical page, per slot (-1 = unmapped)
+            self.page_tables = np.full((B, self.pages_per_seq), -1,
+                                       np.int64)
+            self.cache = model.init_cache_paged(num_pages, ps,
+                                                kv_dtype=self.kv_dtype,
+                                                device=self.device, batch=B)
+            # paged lanes have no ring aliasing: the mixed-step width is
+            # bounded only by max_seq
+            self.chunk = max(1, min(scfg.prefill_chunk, S))
+            # With EVERY attention layer windowed, pages that slid out of
+            # the window can never be attended again and are freed as a
+            # request advances (every layer shares one table: the widest
+            # window rules).  rg_attn layers attend within local_window; a
+            # model without attention layers frees nothing (its pages
+            # hold no KV).
+            wins = [self.cfg.local_window if k == "rg_attn"
+                    else self.cfg.sliding_window for k in set(kinds)
+                    if k in ATTN_KINDS]
+            self._window_free = (max(wins) if wins and None not in wins
+                                 else None)
+            # bytes of one physical page across every layer's pools
+            self._page_nbytes = sum(
+                t.numel() * t.element_size() for i in self._pool_layers
+                for t in self.cache[i].values()) // num_pages
+            self._ring_cap = None
+        else:
+            self._slot_layers = list(range(len(kinds)))
+            self.pool = self.page_tables = self._window_free = None
+            self.cache = model.init_cache(B, S, kv_dtype=self.kv_dtype,
+                                          device=self.device)
+            # the mixed-step width never exceeds the smallest ring: with
+            # more lanes than slots a chunk would overwrite ring entries
+            # before its own lanes attend to them
+            cap = model.attn_capacity(S)
+            if "rg_attn" in kinds:
+                cap = min(cap, self.cfg.local_window)
+            self.chunk = max(1, min(scfg.prefill_chunk, cap))
+            self._ring_cap = cap
         self.prefill_budget = max(1, scfg.prefill_token_budget)
         # each mixed step runs at the smallest bucket width that fits its
         # planned chunks; the full chunk width is always the last bucket
@@ -136,19 +164,17 @@ class Engine:
 
         # self-speculative decoding: recurrent state mutates irreversibly,
         # so a rejected draft could not be rolled back — off for mamba /
-        # RG-LRU models; paged attention models always qualify
+        # RG-LRU models; a capacity-clamped ring is unsafe too (a rejected
+        # lane's write evicts a live in-window token); paged attention
+        # models always qualify
         self.spec = (bool(scfg.spec_decode)
                      and getattr(model, "supports_verify", False)
-                     and not self._state_layers)
+                     and not self._state_layers
+                     and (self.paged or self._ring_cap == S))
         self.spec_tokens = max(1, min(scfg.spec_tokens, S - 1))
         self.speculator = (NGramSpeculator(scfg.spec_ngram,
                                            scfg.spec_ngram_min)
                            if self.spec else None)
-
-        # bytes of one physical page across every layer's pools
-        self._page_nbytes = sum(t.numel() * t.element_size()
-                                for i in self._pool_layers
-                                for t in self.cache[i].values()) // num_pages
 
         self.slots: List[Optional[Request]] = [None] * B
         self.pos = np.zeros(B, np.int64)
@@ -216,16 +242,19 @@ class Engine:
     # ------------------------------------------------------------ statistics
 
     def _kv_stats(self) -> Dict[str, Any]:
-        """Resident KV: pool leaves count only their used pages, dense
-        per-slot recurrent state is always resident."""
+        """Resident KV: pool leaves count only their used pages; dense
+        per-slot leaves (rings, recurrent state) are always resident."""
         def nbytes(layers):
             return [t.numel() * t.element_size()
                     for i in layers for t in self.cache[i].values()]
 
-        used = self.pool.utilization()
         allocated = sum(nbytes(range(len(self.cache))))
+        if not self.paged:
+            return {"resident_kv_bytes": allocated,
+                    "allocated_kv_bytes": allocated}
+        used = self.pool.utilization()
         resident = (sum(int(nb * used) for nb in nbytes(self._pool_layers))
-                    + sum(nbytes(self._state_layers)))
+                    + sum(nbytes(self._slot_layers)))
         return {"resident_kv_bytes": resident,
                 "allocated_kv_bytes": allocated,
                 "kv_pool_pages_used": self.pool.used_pages,
@@ -253,8 +282,9 @@ class Engine:
                 "errors")}
         out["in_flight"] = sum(r is not None for r in self.slots)
         out["queued"] = len(self.queue)
-        out["kv_pool_pages_used"] = self.pool.used_pages
-        out["kv_pool_pages"] = self.pool.num_pages
+        if self.paged:
+            out["kv_pool_pages_used"] = self.pool.used_pages
+            out["kv_pool_pages"] = self.pool.num_pages
         if self.prefix_cache is not None:
             out["prefix_cache"] = self.prefix_cache.stats_snapshot()
         return out
@@ -278,7 +308,9 @@ class Engine:
         self.finished.append(req)
         self.requests.pop(req.uid, None)
 
-    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+    def _tensor(self, a: Optional[np.ndarray]) -> Optional[torch.Tensor]:
+        if a is None:
+            return None
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
             self.device)
 
@@ -301,6 +333,8 @@ class Engine:
                 leaf[dst] = leaf[src]
 
     def _release_slot_pages(self, slot: int) -> None:
+        if not self.paged:
+            return
         pages = [int(p) for p in self.page_tables[slot] if p >= 0]
         if pages and self._pending_copies:
             # Drop scheduled COW copies targeting this slot's pages: a
@@ -422,14 +456,15 @@ class Engine:
                 else:
                     drafts[slot] = d[:got - 1]
 
-    # ------------------------------------------------ dense recurrent state
+    # ------------------------------------------------- dense per-slot cache
 
     def _slot_cache(self, slot: int) -> Dict[int, Dict[str, torch.Tensor]]:
-        """A copy of one request's dense recurrent state, by layer index
-        (``[1, ...]`` leaves); the shared page pools are not part of it."""
+        """A copy of one request's dense per-slot cache, by layer index
+        (``[1, ...]`` leaves): ring caches and recurrent state; the shared
+        page pools are not part of it."""
         return {i: {k: v[slot:slot + 1].clone()
                     for k, v in self.cache[i].items()}
-                for i in self._state_layers}
+                for i in self._slot_layers}
 
     def _set_slot_cache(self, slot: int,
                         state: Dict[int, Dict[str, torch.Tensor]]) -> None:
@@ -437,11 +472,12 @@ class Engine:
             for k, v in leaves.items():
                 self.cache[i][k][slot].copy_(v[0])
 
-    def _zero_slot_state(self, slot: int) -> None:
-        """The blank row: no state of the previous occupant survives."""
-        for i in self._state_layers:
-            for leaf in self.cache[i].values():
-                leaf[slot].zero_()
+    def _blank_slot(self, slot: int) -> None:
+        """The blank row: no cache of the previous occupant survives
+        (rings empty, tok = -1; state zero)."""
+        for i in self._slot_layers:
+            for name, leaf in self.cache[i].items():
+                leaf[slot].fill_(-1 if name == "tok" else 0)
 
     # ------------------------------------------------------------ snapshots
 
@@ -455,7 +491,7 @@ class Engine:
         if self._window_free is None and len(live) != npages:
             raise RuntimeError("snapshot of unmapped pages")
         self.pool.incref(live)
-        rec = self._slot_cache(slot) if self._state_layers else None
+        rec = self._slot_cache(slot) if self._slot_layers else None
         rec_nbytes = sum(t.numel() * t.element_size()
                          for leaves in (rec or {}).values()
                          for t in leaves.values())
@@ -466,21 +502,30 @@ class Engine:
 
     def _insert_snapshot(self, tokens: List[int], slot: int,
                          boundary: bool = False) -> None:
-        """Publish a prefix snapshot: O(1) page pins."""
+        """Publish a prefix snapshot: O(1) page pins when paged, a copy of
+        the slot's cache with rings."""
         if not tokens:
             return
-        snap = self._make_snapshot(slot, len(tokens))
-        on_evict = (lambda pages=tuple(p for p in snap.pages if p >= 0):
-                    self.pool.decref(pages))
+        on_evict = None
+        if self.paged:
+            snap = self._make_snapshot(slot, len(tokens))
+            on_evict = (lambda pages=tuple(p for p in snap.pages if p >= 0):
+                        self.pool.decref(pages))
+        else:
+            snap = self._slot_cache(slot)
         if boundary:
             self.prefix_cache.insert_boundary(list(tokens), snap, on_evict)
         else:
             self.prefix_cache.insert(list(tokens), snap, on_evict)
 
-    def _adopt_snapshot(self, slot: int, snap: PagedSnapshot,
-                        cached: int) -> None:
-        """Map a snapshot's physical pages into this slot's table
-        (shared, refcounted) and restore dense recurrent state."""
+    def _adopt_snapshot(self, slot: int, snap, cached: int) -> None:
+        """Paged: map a snapshot's physical pages into this slot's table
+        (shared, refcounted) and restore dense recurrent state.  Ring: copy
+        the snapshot (already truncated to ``cached`` tokens by the lookup)
+        into the slot."""
+        if not self.paged:
+            self._set_slot_cache(slot, snap)
+            return
         ps = self.pool.page_size
         npages = -(-cached // ps)
         pages = snap.pages[:npages]
@@ -508,7 +553,7 @@ class Engine:
             res = self.prefix_cache.lookup(target)
             # a full-prompt hit still needs >=1 suffix token for logits
             cached_len = min(res.cached_len, len(target) - 1)
-        self._zero_slot_state(slot)
+        self._blank_slot(slot)
         if cached_len > 0 and res.cache is not None:
             self._adopt_snapshot(slot, res.cache, cached_len)
             req.usage += TokenUsage(cache_read_tokens=max(
@@ -657,7 +702,7 @@ class Engine:
             if req is None or req.status is not Status.PREFILLING:
                 continue                  # preempted during an earlier alloc
             n = min(width, req.prefill_remaining, budget)
-            if n > 0:
+            if n > 0 and self.paged:
                 n = self._ensure_range(slot, req.prefill_pos, n)
             if n > 0:
                 plan[slot] = n
@@ -739,6 +784,8 @@ class Engine:
             self._maybe_finish(slot)
             if self.slots[slot] is None:      # finished (eos / cap): pages
                 return                        # are already released
+        if not self.paged:
+            return          # rejected ring writes are masked and rewritten
         # free tail pages holding ONLY rejected draft positions; the page
         # holding the committed frontier stays
         ps = self.pool.page_size
@@ -765,13 +812,15 @@ class Engine:
         drafts = self._make_drafts() if self.spec else {}
         if drafts:
             self._clamp_drafts_to_budget(drafts)
-        self._ensure_decode_pages(drafts)
+        if self.paged:
+            self._ensure_decode_pages(drafts)
         plan = self._plan_chunks(
             width=min(self.chunk, 1 + self.spec_tokens) if drafts else None,
             budget=(self.prefill_budget
                     - sum(len(d) for d in drafts.values()))
             if drafts else None)
-        self._flush_copies()
+        if self.paged:
+            self._flush_copies()
         pt = self._tensor(self.page_tables)
         decode_rows = [i for i, r in enumerate(self.slots)
                        if r is not None and r.status is Status.DECODING]

@@ -6,10 +6,10 @@ the card:
 
 Each kernel is held against its plain PyTorch version on the same inputs
 (float32 to 1e-4, bfloat16 against the plain version in float32 on the
-same rounded inputs to 2e-2, int8 pools to 1e-4; the scans to 1e-4, and
+same rounded inputs to 2e-2, int8 caches to 1e-4; the scans to 1e-4, and
 the RG-LRU scan bit for bit), the wrappers refuse what the kernels do not
-take, and small engine runs on the card launch the kernels of their
-models' paths.
+take, and small engine and model runs on the card launch the kernels of
+their models' paths.
 """
 import pytest
 import torch
@@ -254,3 +254,181 @@ def test_engine_on_card_serves_recurrent_models(dev, arch, kernels):
     assert all(ops.LAUNCHES[k] > 0 for k in kernels), ops.LAUNCHES
     assert eng.prefix_cache.stats["hits"] > 0
     eng.pool.check()
+
+
+# ------------------------------------------------- ring decode and flash
+
+def _ring_inputs(act, quant, B, K, G, hd, C, seed):
+    """A wrapped ring per row (positions past C), empty slots, slots
+    holding tokens past pos (a rejected draft's writes), and an empty
+    last row; returns (q, k, v, tok, pos, scales) on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(B, K, G, hd, generator=g).to(act)
+    k = torch.randn(B, C, K, hd, generator=g)
+    v = torch.randn(B, C, K, hd, generator=g)
+    pos = torch.randint(C // 2, 3 * C, (B,), generator=g)
+    c = torch.arange(C)
+    tok = pos[:, None] - (pos[:, None] - c[None, :]) % C  # latest t == c mod C
+    tok[(tok < 0) | (torch.rand(B, C, generator=g) < 0.1)] = -1
+    ahead = (c[None, :] - pos[:, None] % C) % C
+    tok = torch.where((ahead >= 1) & (ahead <= 3), pos[:, None] + ahead, tok)
+    tok[B - 1] = -1
+    sc = {}
+    if quant:
+        k, ks, kz = kv_quant.quantize_k(k)
+        v, vs = kv_quant.quantize_v(v)
+        sc = {"k_scale": ks, "k_zero": kz, "v_scale": vs}
+    else:
+        k, v = k.to(act), v.to(act)
+    return q, k, v, tok.to(torch.int32), pos.to(torch.int32), sc
+
+
+def _f32(t):
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
+@pytest.mark.parametrize("mode", ["float32", "bfloat16", "int8",
+                                  "int8+bf16"])
+@pytest.mark.parametrize("window", [None, 48])
+@pytest.mark.parametrize("B,K,G,hd,C", [(8, 4, 3, 64, 2048),
+                                        (8, 1, 16, 256, 2048),
+                                        (3, 2, 5, 32, 300),
+                                        (2, 2, 8, 128, 130)])
+def test_ring_decode_matches_plain(dev, mode, window, B, K, G, hd, C):
+    """reflect_demo_100m's and recurrentgemma-9b's decode shapes and two
+    ragged rings (C not a multiple of a stage)."""
+    act = torch.bfloat16 if "bf" in mode else torch.float32
+    tol = 2e-2 if act == torch.bfloat16 else 1e-4
+    q, k, v, tok, pos, sc = _ring_inputs(act, mode.startswith("int8"), B, K,
+                                         G, hd, C, seed=C + hd)
+    got = ops.decode_attention(q.to(dev), k.to(dev), v.to(dev), tok.to(dev),
+                               pos.to(dev), window=window,
+                               **{n: t.to(dev) for n, t in sc.items()})
+    want = ref.decode_attention_ref(_f32(q), _f32(k), _f32(v), tok, pos,
+                                    window=window, **sc)
+    torch.testing.assert_close(got.float().cpu(), want, atol=tol, rtol=0)
+    assert not got[B - 1].any()                 # the empty row is zeros
+
+
+def _flash_inputs(act, B, H, K, S, hd, seed):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(B, H, S, hd, generator=g).to(act),
+            torch.randn(B, K, S, hd, generator=g).to(act),
+            torch.randn(B, K, S, hd, generator=g).to(act))
+
+
+@pytest.mark.parametrize("act", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,K,S,hd,window,ragged", [
+    (8, 12, 4, 2048, 64, None, False),   # reflect_demo_100m's prefill
+    (8, 12, 4, 2048, 64, 48, False),
+    (4, 16, 1, 4096, 256, 2048, False),  # recurrentgemma-9b's prefill
+    (3, 12, 4, 1000, 64, None, True),    # ragged S and lengths
+    (2, 4, 2, 77, 32, 16, True),
+    (2, 8, 2, 300, 128, None, False)])
+def test_flash_matches_plain(dev, act, B, H, K, S, hd, window, ragged):
+    tol = 2e-2 if act == torch.bfloat16 else 1e-4
+    q, k, v = _flash_inputs(act, B, H, K, S, hd, seed=S + hd)
+    lengths = (torch.tensor([S, S // 2, 1][:B], dtype=torch.int32)
+               if ragged else None)
+    got = ops.flash_attention(q.to(dev), k.to(dev), v.to(dev), window=window,
+                              lengths=None if lengths is None
+                              else lengths.to(dev))
+    want = ref.flash_attention_ref(_f32(q).to(dev), _f32(k).to(dev),
+                                   _f32(v).to(dev), window=window,
+                                   lengths=None if lengths is None
+                                   else lengths.to(dev))
+    torch.testing.assert_close(got.float(), want, atol=tol, rtol=0)
+
+
+def test_ring_and_flash_wrappers_count_launches_and_refuse_bad_operands(dev):
+    q, k, v, tok, pos, _ = _ring_inputs(torch.float32, False, 2, 2, 3, 64,
+                                        256, 0)
+    q, k, v, tok, pos = (t.to(dev) for t in (q, k, v, tok, pos))
+    fq, fk, fv = (t.to(dev) for t in _flash_inputs(torch.float32, 2, 6, 2,
+                                                   100, 64, 0))
+    ops.reset_launches()
+    ops.decode_attention(q, k, v, tok, pos)
+    ops.flash_attention(fq, fk, fv)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["decode_attention"] == 1
+    assert ops.LAUNCHES["flash_attention"] == 1
+    with pytest.raises(ValueError):          # int64 tokens
+        ops.decode_attention(q, k, v, tok.long(), pos)
+    with pytest.raises(ValueError):          # ring on another device
+        ops.decode_attention(q, k.cpu(), v, tok, pos)
+    with pytest.raises(ValueError):          # non-contiguous ring
+        ops.decode_attention(q, k.transpose(0, 1).contiguous()
+                             .transpose(0, 1), v, tok, pos)
+    with pytest.raises(ValueError):          # ring dtype != q dtype
+        ops.decode_attention(q, k.bfloat16(), v.bfloat16(), tok, pos)
+    with pytest.raises(ValueError):          # float16 is not taken
+        ops.flash_attention(fq.half(), fk.half(), fv.half())
+    with pytest.raises(ValueError):          # non-contiguous q
+        ops.flash_attention(fq.transpose(1, 2), fk, fv)
+    with pytest.raises(ValueError):          # int64 lengths
+        ops.flash_attention(fq, fk, fv,
+                            lengths=torch.full((2,), 50, device=dev))
+    with pytest.raises(ValueError):          # H not a multiple of K
+        ops.flash_attention(fq[:, :5].contiguous(), fk, fv)
+    assert ops.LAUNCHES["decode_attention"] == 1
+    assert ops.LAUNCHES["flash_attention"] == 1
+
+
+@pytest.mark.parametrize("kv_dtype", ["model", "int8"])
+def test_ring_engine_on_card_launches_ring_decode(dev, kv_dtype):
+    """The ring engine (paged_kv=False) serves two reflection rounds with
+    speculation on: the ring decode kernel launches, no paged kernel
+    does, and round 2 hits the prefix cache."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.models.registry import build_model, get_smoke_config
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import Request, Status
+
+    m = build_model(get_smoke_config("reflect_demo_100m")).init(
+        torch.Generator().manual_seed(0))
+    eng = Engine(m, ServeConfig(max_batch=2, max_seq=128, paged_kv=False,
+                                spec_decode=True, kv_dtype=kv_dtype),
+                 device="cuda")
+    assert eng.spec
+    ops.reset_launches()
+    convo = [1] + list(range(10, 22)) * 3
+    for _ in range(2):
+        r = Request(prompt=list(convo), max_new_tokens=12, eos_id=None)
+        eng.submit(r)
+        eng.run()
+        assert r.status is Status.DONE and len(r.output) == 12
+        convo += r.output + [99, 98]
+    assert ops.LAUNCHES["decode_attention"] > 0, ops.LAUNCHES
+    assert ops.LAUNCHES["paged_decode"] == ops.LAUNCHES["paged_extend"] == 0
+    assert eng.prefix_cache.stats["hits"] > 0
+
+
+@pytest.mark.parametrize("arch", ["reflect_demo_100m", "recurrentgemma_9b"])
+def test_prefill_on_card_launches_flash_and_matches_cpu(dev, arch):
+    """prefill (ragged lengths, S past recurrentgemma's 32-token window)
+    launches the flash kernel once per attention layer, decode_step the
+    ring decode kernel; logits agree with the CPU plain path (q/k
+    projections softened, as random-init attention is near one-hot)."""
+    from repro_torch.models.registry import build_model, get_smoke_config
+
+    cpu = build_model(get_smoke_config(arch).replace(dtype="float32")).init(
+        torch.Generator().manual_seed(0))
+    cpu.load_state_dict({n: t * (0.25 if n.endswith((".wq", ".wk")) else 1)
+                         for n, t in cpu.state_dict().items()})
+    card = build_model(cpu.cfg)
+    card.load_state_dict(cpu.state_dict())
+    card.to(dev)
+    g = torch.Generator().manual_seed(1)
+    tokens = torch.randint(3, cpu.cfg.vocab_size, (3, 50), generator=g)
+    lengths = torch.tensor([50, 41, 7], dtype=torch.int32)
+    n_attn = sum(k in ("attn", "rg_attn") for k in cpu.cfg.block_pattern)
+    ops.reset_launches()
+    got, cache = card.prefill(tokens.to(dev), lengths.to(dev), max_seq=64)
+    want, cpu_cache = cpu.prefill(tokens, lengths, max_seq=64)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=1e-3)
+    assert ops.LAUNCHES["flash_attention"] == n_attn
+    nxt = want.argmax(-1, keepdim=True).to(torch.int32)
+    got, _ = card.decode_step(cache, nxt.to(dev), lengths.to(dev))
+    want, _ = cpu.decode_step(cpu_cache, nxt, lengths)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=1e-3)
+    assert ops.LAUNCHES["decode_attention"] == n_attn

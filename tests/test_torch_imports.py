@@ -25,12 +25,42 @@ def test_port_imports_no_jax_and_no_repro():
                      if m == "repro" or m.startswith("repro."))
         assert not bad, bad
         assert len(names) >= 20, names
+        for name in ("kernels.flash_attention", "kernels.decode_attention",
+                     "models.attention", "models.transformer",
+                     "serving.engine"):
+            assert "repro_torch." + name in names, name
         print(len(names))
     """)
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_chip_smoke_imports_no_jax_and_no_repro():
+    """chip_smoke.py drives the port alone: no import of JAX or of the
+    reference package anywhere in it."""
+    import ast
+    tree = ast.parse((SRC.parent / "chip_smoke.py").read_text())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.module]
+    assert any(n.startswith("repro_torch") for n in names), names
+    bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, bad
+
+
+def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
+    """Without a CUDA device chip_smoke.py exits non-zero and prints no
+    result line."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run([sys.executable, str(SRC.parent / "chip_smoke.py")],
+                         cwd=tmp_path, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
 
 
 def test_engine_on_cuda_raises_without_a_card():
