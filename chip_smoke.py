@@ -34,7 +34,12 @@ Phases, each of which stops the run with a non-zero exit on any error:
    The two attention kernels are also timed against one PyTorch call
    computing the same function, ``scaled_dot_product_attention`` with
    ``enable_gqa`` (causal, or a boolean mask for windows, lengths and ring
-   tokens); int8 rings have no such call.
+   tokens), in turns within one loop (kernel, library, library, kernel;
+   medians and ranges of each); int8 rings have no such call.  Flash
+   cases print their achieved TFLOP/s and ring decode its split count;
+   the build prints the tensor-core instructions (HGMMA, HMMA) that
+   ``cuobjdump -sass`` finds in the flash library, which must hold
+   HGMMA.
 4. serve   — three models through the port's ``Engine``, one after the
    other, each freed before the next: 8 conversations of a few hundred
    tokens, 3 reflection rounds with the suffix [99, 98], paged KV or ring
@@ -70,6 +75,7 @@ the port's sources are not next to this script.
 """
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -130,6 +136,17 @@ def phase_build():
         for line in text.splitlines():
             if line.strip():
                 log(f"[build] {name}: {line.strip()}")
+    cuobjdump = Path(cuda_lib._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(cuda_lib._library_path(
+            "flash_attention"))], capture_output=True, text=True, check=True,
+        timeout=300).stdout
+    counts = {op: len(re.findall(rf"\b{op}\.", sass))
+              for op in ("HGMMA", "HMMA")}
+    log(f"[build] flash_attention SASS: {counts['HGMMA']} HGMMA, "
+        f"{counts['HMMA']} HMMA instructions")
+    if counts["HGMMA"] == 0:
+        raise AssertionError("the bf16 flash kernel has no wgmma (HGMMA)")
 
 
 # -------------------------------------------------------------- 3. kernels
@@ -224,21 +241,59 @@ def cuda_ms(fn, n=30, flush=None):
     return total / n
 
 
-def time_record(kern, plain, flush, nbytes, nops, dtype, err, exps=0):
+def interleaved_ms(kern, lib, flush, rounds=10):
+    """Kernel and library call timed in turns within one loop, cold-L2
+    each (kernel, library, library, kernel a round), so that both see the
+    same card state: (median, min, max) milliseconds of each."""
+    times = {kern: [], lib: []}
+    for fn in (kern, lib):
+        for _ in range(3):
+            fn()
+    torch.cuda.synchronize()
+    for _ in range(rounds):
+        for fn in (kern, lib, lib, kern):
+            flush()
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            fn()
+            e.record()
+            torch.cuda.synchronize()
+            times[fn].append(s.elapsed_time(e))
+    return [(float(np.median(t)), min(t), max(t))
+            for t in (times[kern], times[lib])]
+
+
+def time_record(kern, plain, flush, nbytes, nops, dtype, err, exps=0,
+                lib=None):
     """Kernel cold-L2 / warm-L2 and plain-version cold-L2 times beside
     the bound: bytes over the HBM rate against operations over the peak
-    rate for ``dtype`` (and exponentials over the SFU rate)."""
+    rate for ``dtype`` (and exponentials over the SFU rate).  With a
+    library call ``lib``, the kernel's cold-L2 time and the library's are
+    medians of ``interleaved_ms``."""
     bms, by = bound_ms(nbytes, nops, dtype)
     if exps / SFU_PER_S * 1e3 > bms:
         bms, by = exps / SFU_PER_S * 1e3, "operations"
-    return {"ms": cuda_ms(kern, flush=flush), "warm_ms": cuda_ms(kern),
-            "plain_ms": cuda_ms(plain, n=10, flush=flush),
-            "bound_ms": bms, "bound_by": by, "max_abs_err": err,
-            "bytes": nbytes, "ops": nops, "exps": exps}
+    rec = {"warm_ms": cuda_ms(kern),
+           "plain_ms": cuda_ms(plain, n=10, flush=flush),
+           "bound_ms": bms, "bound_by": by, "max_abs_err": err,
+           "bytes": nbytes, "ops": nops, "exps": exps}
+    if lib is None:
+        rec["ms"] = cuda_ms(kern, flush=flush)
+    else:
+        (rec["ms"], *rec["ms_range"]), (rec["library_ms"],
+                                        *rec["library_range"]) = \
+            interleaved_ms(kern, lib, flush)
+    return rec
 
 
 def log_record(label, rec):
     lib = rec.get("library_ms")
+    if lib is not None:
+        log(f"[kernels] {label}: interleaved cold-L2, kernel median "
+            f"{rec['ms']:.4f} ms (range {rec['ms_range'][0]:.4f}-"
+            f"{rec['ms_range'][1]:.4f}), library median {lib:.4f} ms (range "
+            f"{rec['library_range'][0]:.4f}-{rec['library_range'][1]:.4f}); "
+            f"kernel / library {rec['ms'] / lib:.2f}")
     log(f"[kernels] {label}: kernel {rec['ms']:.4f} ms cold-L2 / "
         f"{rec['warm_ms']:.4f} ms warm-L2, plain {rec['plain_ms']:.4f} ms "
         f"cold-L2, library {'none' if lib is None else f'{lib:.4f} ms'} "
@@ -416,7 +471,7 @@ def ring_cases(records, dev, flush):
     shapes, every mode and window against the plain version; timed at
     window None (demo) and 2048 (recurrentgemma), with SDPA on a boolean
     mask built from the tokens as the library yardstick."""
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import cuda_lib, ops, ref
     F = torch.nn.functional
     fp = (lambda t: t.float() if t.is_floating_point() else t)
     modes = (("float32", torch.float32, False, 1e-4),
@@ -428,6 +483,10 @@ def ring_cases(records, dev, flush):
             ("demo", (8, 4, 3, 64, 2048), (None, 48), None, modes),
             ("rg", (8, 1, 16, 256, 2048), (None, 48, 2048), 2048,
              modes[:3])):
+        splits = cuda_lib.ring_splits(B, K, C, hd)
+        log(f"[kernels] {tag} decode_attention B={B} K={K} C={C} hd={hd}: "
+            f"{splits} splits of {C // splits}-{-(-C // splits)} slots, "
+            f"{B * K * splits} blocks")
         for mode, dtype, quant, tol in mds:
             for window in windows:
                 seed += 1
@@ -453,16 +512,17 @@ def ring_cases(records, dev, flush):
                               + (3 * K * 4 if quant else 0))
                 nbytes = (n * slot_bytes + tok.numel() * 4 + pos.numel() * 4
                           + 2 * q.numel() * q.element_size())
-                rec = time_record(kern, plain, flush, nbytes,
-                                  4 * hd * G * K * n, dtype, err, G * K * n)
+                lib = None
                 if not quant:
                     qh = q.reshape(B, K * G, 1, hd)
                     kh, vh = k.transpose(1, 2), v.transpose(1, 2)
                     mask = valid[:, None, None, :]
-                    rec["library_ms"] = cuda_ms(
-                        lambda: F.scaled_dot_product_attention(
-                            qh, kh, vh, attn_mask=mask, enable_gqa=True),
-                        flush=flush)
+                    lib = lambda: F.scaled_dot_product_attention(
+                        qh, kh, vh, attn_mask=mask, enable_gqa=True)
+                rec = time_record(kern, plain, flush, nbytes,
+                                  4 * hd * G * K * n, dtype, err, G * K * n,
+                                  lib=lib)
+                rec["splits"] = splits
                 log_record(f"{tag} decode_attention {mode} window={window}",
                            rec)
                 records[("decode_attention", tag, mode)] = rec
@@ -517,8 +577,6 @@ def flash_cases(records, dev, flush):
         kv_rows = (B * S if lengths is None
                    else int(lengths.clamp_max(S).sum()))
         nbytes = (2 * q.numel() + 2 * kv_rows * K * hd) * q.element_size()
-        rec = time_record(kern, plain, flush, nbytes, 4 * hd * pairs, dtype,
-                          err, pairs)
         if window is None and lengths is None:
             lib = lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True)
@@ -526,8 +584,13 @@ def flash_cases(records, dev, flush):
             mask = valid[:, None]
             lib = lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, enable_gqa=True)
-        rec["library_ms"] = cuda_ms(lib, flush=flush)
+        rec = time_record(kern, plain, flush, nbytes, 4 * hd * pairs, dtype,
+                          err, pairs, lib=lib)
         log_record(f"{tag} flash_attention {mode} window={window}", rec)
+        log(f"[flash] {tag} {mode} window={window} lengths={ragged}: "
+            f"{rec['ops'] / rec['ms'] / 1e9:.1f} TFLOP/s achieved "
+            f"({rec['ops']} FLOP in {rec['ms']:.4f} ms), library "
+            f"{rec['ops'] / rec['library_ms'] / 1e9:.1f} TFLOP/s")
         records[("flash_attention", tag, mode, window)] = rec
         del q, k, v, valid
         torch.cuda.empty_cache()
@@ -935,9 +998,10 @@ def phase_serve(dev):
         del eng
         release()
         if arch == "recurrentgemma_9b":
-            eng, _, runs[arch + " ring"] = serve(
+            eng, convos, runs[arch + " ring"] = serve(
                 model, "model", rounds=3, max_new=32, seed=3,
                 path=("rglru_scan", "decode_attention"), paged=False)
+            profile_round(eng, convos, max_new=8)
             del eng
             release()
             runs[arch + " full-sequence"] = full_sequence(

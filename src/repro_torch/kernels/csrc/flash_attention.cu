@@ -19,20 +19,30 @@
 // What bounds it on the H100: operations.  A (b, kv head) does 4 * HD FLOP
 // for each of its G * S * (S + 1) / 2 (query, key) pairs (S * window with a
 // window) against 2 * S * HD elements of K and V: hundreds of FLOP per
-// byte at S = 2048, above the ridge.  This kernel runs them as fp32 FMA
-// (67 TFLOP/s), not on the tensor cores (989 TFLOP/s bf16); mma.sync or
-// wgmma is later work.
+// byte at S = 2048, far above the ~295 FLOP/byte ridge of bf16.
 //
-// What the design does about it: the staged walk of paged_common.cuh with
-// a Dense walk.  One block per (b, kv head, tile of 4096 / HD rows, at
-// most 64) of the S * G query rows of that kv head (row r is token r / G,
-// query head r % G), so each K/V stage is staged into shared memory once
-// for the G heads of the group and every row of the tile.  A tile walks
-// only the slots between its first row's window start and its last row's
-// diagonal (capped at the sequence's length), so tiles above the diagonal
-// and outside the window are never visited; any S works, the last tile's
-// padding rows are masked.  Softmax and accumulation are fp32.  Blocks are
-// issued longest tile first.
+// What the design does about it: the body is chosen by dtype, and neither
+// falls back to the other.
+//
+// * bf16 (dtype 1) runs on the tensor cores: flash_tc.cuh, a block of two
+//   warpgroups per 128 query tokens of one query head, S = Q K^T and
+//   O += P V as wgmma (bf16 in, fp32 accumulate; P rounded to bf16 in
+//   registers as the A operand), the online softmax in fp32 registers,
+//   K/V tiles through a two-stage cp.async ring shared by the two
+//   warpgroups, tiles above the diagonal and outside the window never
+//   visited, masks only on the tiles that straddle an edge, longest tiles
+//   first.  See the note at its top.
+// * fp32 (dtype 0) has no tensor-core path at full precision (TF32 would
+//   round the inputs), so it runs as fp32 FMA on the CUDA cores (67
+//   TFLOP/s): the staged walk of paged_common.cuh with a Dense walk.  One
+//   block per (b, kv head, tile of 4096 / HD rows, at most 64) of the S * G
+//   query rows of that kv head (row r is token r / G, query head r % G), so
+//   each K/V stage is staged into shared memory once for the G heads of
+//   the group and every row of the tile.  A tile walks only the slots
+//   between its first row's window start and its last row's diagonal
+//   (capped at the sequence's length); the last tile's padding rows are
+//   masked; blocks are issued longest tile first.
+#include "flash_tc.cuh"
 #include "paged_common.cuh"
 
 namespace {
@@ -96,7 +106,16 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return by_head_dim<float>(hd, a, w, st);
-    case 1: return by_head_dim<__nv_bfloat16>(hd, a, w, st);
+    case 1:
+      return flash_tc::by_head_dim(
+          hd,
+          flash_tc::Args{static_cast<const __nv_bfloat16*>(q),
+                         static_cast<const __nv_bfloat16*>(k),
+                         static_cast<const __nv_bfloat16*>(v),
+                         static_cast<const int32_t*>(lengths),
+                         static_cast<__nv_bfloat16*>(out), B, K, G, S,
+                         window},
+          st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,10 +1,18 @@
-// Shared staged walk of the attention kernels (paged_decode.cu,
-// paged_extend.cu, decode_attention.cu, flash_attention.cu): one thread
-// block owns a tile of query rows of one (request b, kv head h) pair and
-// walks the K/V slots those rows can attend.  Where a slot's K/V row lives
-// is the kernel's "walk" (below): a page table over shared pools (Pages),
-// a dense ring whose tok array names each slot's token (Ring), or the
-// contiguous rows of a full sequence (Dense).
+// Shared staged walk of the attention kernels that run on the CUDA cores:
+// paged decode (replaces src/repro/kernels/paged_attention.py), paged
+// extend (paged_extend.py), ring decode (decode_attention.py) and fp32
+// flash attention (flash_attention.py; bf16 flash runs on the tensor
+// cores, flash_tc.cuh).  One thread block owns a tile of query rows of one
+// (request b, kv head h) pair and walks the K/V slots those rows can
+// attend.  Where a slot's K/V row lives is the kernel's "walk" (below): a
+// page table over shared pools (Pages), a dense ring whose tok array names
+// each slot's token (Ring), or the contiguous rows of a full sequence
+// (Dense).
+//
+// What bounds them on the H100: device-memory bytes for the three decode
+// and extend kernels (a few FLOP per K/V byte against a ridge of ~295), so
+// what matters is how many blocks keep loads in flight; operations for
+// fp32 flash (67 TFLOP/s of FMA).
 //
 // The walk goes in stages of S = 4096 / HD slots (64 at HD = 64), but at
 // least 32 (32 at HD = 128 and 256), whatever the page size.  Each thread
@@ -18,15 +26,23 @@
 // warp shuffles (m and l in registers), and then every thread adds p.V to
 // its share of the fp32 [rows, HD] accumulator.  Three barriers per stage.
 //
+// The result of a row goes out by an epilogue policy: Normalized (acc / l
+// in q's type) or Partial, the unnormalized (acc, m, l) of one segment of
+// a walk split across blocks (ring decode: a Ring walk over one segment of
+// the ring, and a combine kernel).  A split walk covers a short segment,
+// so it also stages q with 16-byte loads issued before its slot list and
+// adds p.V slot by slot, each V vector read once for all of a thread's
+// rows; the Normalized instantiations compile as before.
+//
 // Masking is position arithmetic, as in the TPU kernels: row r is query
 // lane r / G at absolute position pos0[b] + r / G.  Pages and Dense: slot t
 // holds token t and is valid iff it holds a row (a mapped page; t below the
 // sequence's length) and t <= pos (and t > pos - window when a window is
-// set).  Ring: the walk first lists the ring slots whose token the block's
-// single query position may attend (tok >= 0, tok <= pos, tok > pos -
-// window) and walks that list.  Slots no row of the tile can attend are
-// never read.  A row with no valid slot ends with l == 0 and is written as
-// zeros.
+// set).  Ring: the walk first lists the slots of its segment whose token
+// the block's single query position may attend (tok >= 0, tok <= pos, tok
+// > pos - window) and walks that list.  Slots no row of the tile can
+// attend are never read.  A row with no valid slot ends with l == 0 and is
+// written as zeros (Partial: m = -inf, l = 0).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -190,10 +206,12 @@ struct Pages {
 };
 
 // A dense ring [B, C, K, HD] per request; tok [B, C] holds the absolute
-// token of each slot (-1 = empty).  One query position per block.
+// token of each slot (-1 = empty).  One query position per block.  The
+// ring splits into ``splits`` segments: a block walks the slots of segment
+// ``split``, [split * C / splits, (split + 1) * C / splits).
 struct Ring {
   const int32_t* tok;
-  int C;
+  int C, splits, split;
   int t_first, t_last, K, h;
   long long base;             // first ring row of request b
   const int32_t* idx;         // the attendable slots, in ring order
@@ -202,17 +220,22 @@ struct Ring {
                         int p_last, int32_t* tbl_s) {
     __shared__ int warp_n[kWarps];
     const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    const int c_lo = static_cast<int>(static_cast<long long>(split) * C /
+                                      splits);
+    const int c_hi = static_cast<int>(static_cast<long long>(split + 1) *
+                                      C / splits);
     K = a.K;
     h = h_;
     base = static_cast<long long>(b) * C;
     idx = tbl_s;
-    // List the slots whose token position p_last may attend, kThreads
-    // slots a round, in ring order (a ballot per warp, then the warps'
-    // counts in order): deterministic, so sums do not vary between runs.
+    // List the segment's slots whose token position p_last may attend,
+    // kThreads slots a round, in ring order (a ballot per warp, then the
+    // warps' counts in order): deterministic, so sums do not vary between
+    // runs.
     int n = 0;
-    for (int c0 = 0; c0 < C; c0 += kThreads) {
+    for (int c0 = c_lo; c0 < c_hi; c0 += kThreads) {
       const int c = c0 + threadIdx.x;
-      const int t = c < C ? tok[base + c] : -1;
+      const int t = c < c_hi ? tok[base + c] : -1;
       const bool ok = t >= 0 && slot_valid(t, p_last, a.window);
       const unsigned m = __ballot_sync(0xffffffffu, ok);
       if (lane == 0) warp_n[warp] = __popc(m);
@@ -256,11 +279,24 @@ struct Dense {
   }
 };
 
+// ------------------------------------------------------------ epilogues
+// Where attend_rows puts each row's result.
+// Normalized: out = acc / l in q's type; a row with l == 0 is zeros.
+struct Normalized {};
+// Partial: one split of the walk's unnormalized result, float [HD + 2] =
+// (acc, m, l) at row ((b * K + h) * splits + split) * Sx * G + r of part;
+// where l == 0, m is -inf and acc is not written (the combine skips it).
+struct Partial {
+  float* part;
+  int splits, split;
+};
+
 // Attend rows [row0, row0 + TR) of (b, h) over the slots of ``w``; rows
 // past Sx * G are padding.
-template <typename TQ, typename TKV, int HD, int TR, typename Walk>
+template <typename TQ, typename TKV, int HD, int TR, typename Walk,
+          typename Epilogue = Normalized>
 __device__ void attend_rows(const Args& a, Walk w, int b, int h, int row0,
-                            float* smem) {
+                            float* smem, Epilogue epi = Epilogue()) {
   constexpr int S = stage_slots(HD);      // slots per stage
   constexpr int SPL = S / 32;             // slots per lane when scoring
   constexpr int RPW = TR / kWarps;        // rows per warp when scoring
@@ -292,14 +328,46 @@ __device__ void attend_rows(const Args& a, Walk w, int b, int h, int row0,
   const float scale = 1.0f / sqrtf(static_cast<float>(HD));
   const int base = a.pos0 ? a.pos0[b] : 0;
 
+  // A split walk covers a short segment, so the latency of staging q is
+  // a large share of it: its q rows are loaded 16 bytes at a time, all
+  // issued before the walk lists its slots.
+  constexpr bool kSplit = std::is_same<Epilogue, Partial>::value;
+  constexpr int QV = 16 / sizeof(TQ);     // q elements per 16-byte load
+  constexpr int NQ = (TR * HD / QV + kThreads - 1) / kThreads;
+  uint4 qr[kSplit ? NQ : 1];
+  if constexpr (kSplit) {
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+      const int c = (tid + i * kThreads) * QV, r = row0 + c / HD;
+      qr[i] = c < TR * HD && r < R
+                  ? *reinterpret_cast<const uint4*>(
+                        q + row_offset<HD>(a, b, h, r) + c % HD)
+                  : make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+
   // Slots any row of the tile can attend: [w.t_first, w.t_last].
   const int last = min(R, row0 + TR) - 1;
   w.begin(a, b, h, base + row0 / a.G, base + last / a.G, tbl_s);
   const int t_first = w.t_first, t_last = w.t_last;
-  for (int i = tid; i < TR * HD; i += kThreads) {
-    const int r = row0 + i / HD;
-    q_s[i] = r < R ? to_float(q[row_offset<HD>(a, b, h, r) + i % HD]) * scale
-                   : 0.f;
+  if constexpr (kSplit) {
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+      const int c = (tid + i * kThreads) * QV;
+      if (c < TR * HD) {
+        float f[QV];
+        unpack<TQ>(qr[i], f);
+#pragma unroll
+        for (int e = 0; e < QV; ++e) q_s[c + e] = f[e] * scale;
+      }
+    }
+  } else {
+    for (int i = tid; i < TR * HD; i += kThreads) {
+      const int r = row0 + i / HD;
+      q_s[i] = r < R ? to_float(q[row_offset<HD>(a, b, h, r) + i % HD]) *
+                           scale
+                     : 0.f;
+    }
   }
   __syncthreads();
 
@@ -432,32 +500,59 @@ __device__ void attend_rows(const Args& a, Walk w, int b, int h, int row0,
 
     // acc = acc * corr + p . V over the stage's slots that exist.
     const int n = (min(S, t_last - t0 + 1) + 3) & ~3;
+    if constexpr (kSplit) {
+      // Slot-outer: a thread's accumulators share one column d (CH
+      // divides kThreads), so each V vector is read once for all its rows.
+      static_assert(kThreads % CH == 0, "one column a thread");
+      const int d = (tid % CH) * 4;
 #pragma unroll
-    for (int k = 0; k < NC; ++k) {
-      const int c = tid + k * kThreads;
-      if (c < TR * CH) {
-        const int rl = c / CH, d = (c % CH) * 4;
-        const float corr = c_s[rl];
-        const float* pr = p_s + rl * S;
-        float4 x = acc[k];
-        x.x *= corr;
-        x.y *= corr;
-        x.z *= corr;
-        x.w *= corr;
-        for (int t = 0; t < n; t += 4) {
-          const float4 p4 = *reinterpret_cast<const float4*>(pr + t);
-          const float pe[4] = {p4.x, p4.y, p4.z, p4.w};
+      for (int k = 0; k < NC; ++k) {
+        const float corr = c_s[min((tid + k * kThreads) / CH, TR - 1)];
+        acc[k].x *= corr;
+        acc[k].y *= corr;
+        acc[k].z *= corr;
+        acc[k].w *= corr;
+      }
+      for (int t = 0; t < n; ++t) {
+        const float4 v4 = *reinterpret_cast<const float4*>(v_s + t * HD + d);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float4 v4 =
-                *reinterpret_cast<const float4*>(v_s + (t + e) * HD + d);
-            x.x = fmaf(pe[e], v4.x, x.x);
-            x.y = fmaf(pe[e], v4.y, x.y);
-            x.z = fmaf(pe[e], v4.z, x.z);
-            x.w = fmaf(pe[e], v4.w, x.w);
-          }
+        for (int k = 0; k < NC; ++k) {
+          const int rl = min((tid + k * kThreads) / CH, TR - 1);
+          const float pe = p_s[rl * S + t];
+          acc[k].x = fmaf(pe, v4.x, acc[k].x);
+          acc[k].y = fmaf(pe, v4.y, acc[k].y);
+          acc[k].z = fmaf(pe, v4.z, acc[k].z);
+          acc[k].w = fmaf(pe, v4.w, acc[k].w);
         }
-        acc[k] = x;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < NC; ++k) {
+        const int c = tid + k * kThreads;
+        if (c < TR * CH) {
+          const int rl = c / CH, d = (c % CH) * 4;
+          const float corr = c_s[rl];
+          const float* pr = p_s + rl * S;
+          float4 x = acc[k];
+          x.x *= corr;
+          x.y *= corr;
+          x.z *= corr;
+          x.w *= corr;
+          for (int t = 0; t < n; t += 4) {
+            const float4 p4 = *reinterpret_cast<const float4*>(pr + t);
+            const float pe[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float4 v4 =
+                  *reinterpret_cast<const float4*>(v_s + (t + e) * HD + d);
+              x.x = fmaf(pe[e], v4.x, x.x);
+              x.y = fmaf(pe[e], v4.y, x.y);
+              x.z = fmaf(pe[e], v4.z, x.z);
+              x.w = fmaf(pe[e], v4.w, x.w);
+            }
+          }
+          acc[k] = x;
+        }
       }
     }
     __syncthreads();  // the next stage overwrites k_s, v_s, p_s and c_s
@@ -468,16 +563,43 @@ __device__ void attend_rows(const Args& a, Walk w, int b, int h, int row0,
     if (lane == 0) l_s[warp + kWarps * i] = l[i];
   __syncthreads();
 
+  if constexpr (kSplit) {
+    float* part = epi.part + static_cast<size_t>(HD + 2) *
+                                 ((static_cast<size_t>(b) * a.K + h) *
+                                      epi.splits + epi.split) * R;
 #pragma unroll
-  for (int k = 0; k < NC; ++k) {
-    const int c = tid + k * kThreads;
-    const int rl = c / CH, d = (c % CH) * 4, r = row0 + rl;
-    if (c < TR * CH && r < R) {
-      const float li = l_s[rl];
-      const float o[4] = {acc[k].x, acc[k].y, acc[k].z, acc[k].w};
-      TQ* dst = out + row_offset<HD>(a, b, h, r) + d;
+    for (int i = 0; i < RPW; ++i) {
+      const int r = row0 + warp + kWarps * i;
+      if (lane == 0 && r < R) {
+        part[static_cast<size_t>(r) * (HD + 2) + HD] =
+            l[i] > 0.f ? m[i] : -INFINITY;
+        part[static_cast<size_t>(r) * (HD + 2) + HD + 1] = l[i];
+      }
+    }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) store(dst + e, li > 0.f ? o[e] / li : 0.f);
+    for (int k = 0; k < NC; ++k) {
+      const int c = tid + k * kThreads;
+      const int rl = c / CH, d = (c % CH) * 4, r = row0 + rl;
+      if (c < TR * CH && r < R && l_s[rl] > 0.f) {
+        float2* dst = reinterpret_cast<float2*>(
+            part + static_cast<size_t>(r) * (HD + 2) + d);
+        dst[0] = make_float2(acc[k].x, acc[k].y);
+        dst[1] = make_float2(acc[k].z, acc[k].w);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      const int c = tid + k * kThreads;
+      const int rl = c / CH, d = (c % CH) * 4, r = row0 + rl;
+      if (c < TR * CH && r < R) {
+        const float li = l_s[rl];
+        const float o[4] = {acc[k].x, acc[k].y, acc[k].z, acc[k].w};
+        TQ* dst = out + row_offset<HD>(a, b, h, r) + d;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          store(dst + e, li > 0.f ? o[e] / li : 0.f);
+      }
     }
   }
 }

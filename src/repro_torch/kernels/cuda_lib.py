@@ -32,7 +32,7 @@ SOURCES = {"paged_decode": "paged_decode.cu",
            "flash_attention": "flash_attention.cu",
            "mamba_scan": "mamba_scan.cu",
            "rglru_scan": "rglru_scan.cu"}
-HEADERS = ("paged_common.cuh",)
+HEADERS = ("paged_common.cuh", "flash_tc.cuh")
 
 # Kernel launches per kernel since the last reset: each wrapper adds one
 # where it launches its kernel, and nowhere else.
@@ -42,8 +42,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures:
 #   paged_*:    (dtype, q, kp, vp, ks, kz, vs, page_table, pos, out,
 #                B, [Sx,] K, G, hd, ps, NP, window, stream)
-#   decode_attention: (dtype, q, k, v, ks, kz, vs, tok, pos, out,
-#                B, K, G, hd, C, window, stream)
+#   decode_attention: (dtype, q, k, v, ks, kz, vs, tok, pos, out, part,
+#                B, K, G, hd, C, window, splits, stream)
 #   flash_attention:  (dtype, q, k, v, lengths, out, B, K, G, hd, S,
 #                window, stream)
 #   mamba_scan: (x_dtype, dt, Bm, Cm, x, A, Dsk, h0, y, h, B, S, D, N,
@@ -52,7 +52,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "paged_decode": [_I] + [_P] * 9 + [_I] * 7 + [_P],
     "paged_extend": [_I] + [_P] * 9 + [_I] * 8 + [_P],
-    "decode_attention": [_I] + [_P] * 9 + [_I] * 6 + [_P],
+    "decode_attention": [_I] + [_P] * 10 + [_I] * 7 + [_P],
     "flash_attention": [_I] + [_P] * 5 + [_I] * 6 + [_P],
     "mamba_scan": [_I] + [_P] * 9 + [_I] * 4 + [_P],
     "rglru_scan": [_P] * 5 + [_I] * 3 + [_P],
@@ -160,6 +160,24 @@ def decode_rows(G: int) -> int:
     """Query rows of a paged or ring decode block (``by_rows`` in
     ``paged_decode.cu`` and ``decode_attention.cu``)."""
     return 4 if G <= 4 else 8 if G <= 8 else 16
+
+
+SMS = 132              # streaming multiprocessors of an H100 SXM
+
+
+def ring_splits(B: int, K: int, C: int, hd: int) -> int:
+    """Segments a ring-decode row (request, kv head) is split into, one
+    block each (``decode_attention.cu``): about two blocks per SM over the
+    B * K rows, but at least one stage of slots a segment."""
+    want = -(-2 * SMS // (B * K))
+    return max(1, min(want, C // stage_slots(hd)))
+
+
+def ring_partials_shape(B: int, K: int, G: int, hd: int,
+                        splits: int) -> tuple:
+    """Float scratch of the split ring walk: each split's unnormalized
+    (acc [hd], m, l) for each of its G rows."""
+    return (B, K, splits, G, hd + 2)
 
 
 def extend_rows(hd: int) -> int:

@@ -11,10 +11,11 @@ Port of ``repro/kernels/decode_attention.py``, the read of every attention
 layer's decode step on a ring cache (``ServeConfig.paged_kv=False``, and
 ``TransformerLM.decode_step`` after ``prefill``).  On a CUDA tensor the
 call launches the hand-written Hopper kernel ``csrc/decode_attention.cu``
-(one block per (request, kv head) that lists the slots the query may
-attend and streams only those; see the note at the top of the source) or
-raises; on a CPU tensor it runs the plain PyTorch version,
-``ref.decode_attention_ref``.  Slot c is valid iff ``tok >= 0`` and
+(the ring of each (request, kv head) split into ``cuda_lib.ring_splits``
+segments, a block each, that list the slots the query may attend and
+stream only those, then a combine of the splits in split order; see the
+note at the top of the source) or raises; on a CPU tensor it runs the
+plain PyTorch version, ``ref.decode_attention_ref``.  Slot c is valid iff ``tok >= 0`` and
 ``tok <= pos`` (and ``tok > pos - window`` with a window).  With
 ``k_scale``/``k_zero``/``v_scale`` ([B, C, K] float32 sidecars) the ring
 is int8 and is dequantized inside the kernel.
@@ -50,11 +51,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                     cuda_lib.decode_rows(G))
     if window is not None and window <= 0:
         raise ValueError("window must be positive")
+    splits = cuda_lib.ring_splits(B, K, C, hd)
     out = torch.empty_like(q)
+    part = torch.empty(cuda_lib.ring_partials_shape(B, K, G, hd, splits),
+                       dtype=torch.float32, device=q.device)
     cuda_lib.launch(
         "decode_attention", code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         cuda_lib.pointer(k_scale), cuda_lib.pointer(k_zero),
         cuda_lib.pointer(v_scale), tok.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), B, K, G, hd, C, window or 0,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        out.data_ptr(), part.data_ptr(), B, K, G, hd, C, window or 0,
+        splits, torch.cuda.current_stream(q.device).cuda_stream)
     return out

@@ -7,11 +7,16 @@
 
 Port of ``repro/kernels/flash_attention.py``, the attention of every layer
 of ``TransformerLM.forward`` and ``.prefill``.  On a CUDA tensor the call
-launches the hand-written Hopper kernel ``csrc/flash_attention.cu`` (one
-block per (sequence, kv head, tile of query rows of the G heads of that
-kv head), walking only the kv slots between the tile's window start and
-its diagonal; see the note at the top of the source) or raises; on a CPU
-tensor it runs the plain PyTorch version, ``ref.flash_attention_ref``.
+launches the hand-written Hopper kernel ``csrc/flash_attention.cu`` or
+raises; on a CPU tensor it runs the plain PyTorch version,
+``ref.flash_attention_ref``.  The kernel's body is chosen by dtype, not
+as a fallback: bfloat16 runs on the tensor cores (``csrc/flash_tc.cuh``:
+wgmma for Q K^T and P V, two warpgroups per 128 query tokens of one
+head), float32 on the CUDA cores (the staged walk of
+``csrc/paged_common.cuh``: a block per (sequence, kv head, tile of query
+rows of the G heads of that kv head)); both walk only the keys between a
+tile's window start and its diagonal.  See the notes at the top of the
+sources.
 Token i attends j <= i (and j > i - window with a window, and j <
 lengths[b] with lengths); the output takes q's dtype.  A row with no
 attendable token is zeros.

@@ -7,8 +7,9 @@ the card:
 Each kernel is held against its plain PyTorch version on the same inputs
 (float32 to 1e-4, bfloat16 against the plain version in float32 on the
 same rounded inputs to 2e-2, int8 caches to 1e-4; the scans to 1e-4, and
-the RG-LRU scan bit for bit), the wrappers refuse what the kernels do not
-take, and small engine and model runs on the card launch the kernels of
+the RG-LRU scan bit for bit), the bf16 flash body and the split ring walk
+give bit-equal results from call to call, the wrappers refuse what the
+kernels do not take, and small engine and model runs on the card launch the kernels of
 their models' paths.
 """
 import pytest
@@ -338,6 +339,89 @@ def test_flash_matches_plain(dev, act, B, H, K, S, hd, window, ragged):
                                    lengths=None if lengths is None
                                    else lengths.to(dev))
     torch.testing.assert_close(got.float(), want, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("B,H,K,S,hd,window,lengths", [
+    (2, 3, 1, 65, 32, None, None),          # S one past a query tile, G 3
+    (2, 16, 1, 1000, 256, 48, [1000, 1]),   # G 16, window below a key tile
+    (3, 4, 4, 1000, 128, 2048, [517, 1000, 1]),  # G 1
+    (2, 6, 2, 1000, 64, None, [1, 999]),
+    (2, 6, 2, 65, 64, 48, [65, 33]),
+    (1, 16, 1, 65, 256, 2048, None),
+    (2, 12, 4, 2048, 32, 2048, None),
+])
+def test_flash_bf16_tensor_core_edges(dev, B, H, K, S, hd, window, lengths):
+    """The bf16 tensor-core body at ragged S (not a multiple of the 64-row
+    query tile or the key tile), every head dim, G 1 / 3 / 16, windows
+    below a key tile and of 2048, ragged lengths down to 1; two calls are
+    bit-equal."""
+    q, k, v = (t.to(dev) for t in _flash_inputs(torch.bfloat16, B, H, K, S,
+                                                 hd, seed=S * hd + H))
+    lens = (None if lengths is None
+            else torch.tensor(lengths, dtype=torch.int32, device=dev))
+    got = ops.flash_attention(q, k, v, window=window, lengths=lens)
+    again = ops.flash_attention(q, k, v, window=window, lengths=lens)
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                   window=window, lengths=lens)
+    torch.testing.assert_close(got.float(), want, atol=2e-2, rtol=0)
+    assert torch.equal(got, again)
+
+
+def _one_segment(tok, lo, hi):
+    tok = tok.clone()
+    tok[:, :lo] = -1
+    tok[:, hi:] = -1
+    return tok
+
+
+@pytest.mark.parametrize("mode", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("B,K,G,hd,C,splits,window,segment", [
+    (8, 1, 16, 256, 2048, 1, None, None),     # the unsplit walk
+    (8, 1, 16, 256, 2048, 64, 2048, None),    # recurrentgemma, many splits
+    (3, 2, 5, 32, 300, 7, None, None),        # C not a multiple of splits
+    (8, 4, 3, 64, 2048, 9, 48, None),         # window 48: most splits empty
+    (2, 2, 8, 128, 512, 8, None, (128, 192)),  # every slot in split 2
+])
+def test_split_ring_decode(dev, monkeypatch, mode, B, K, G, hd, C, splits,
+                           window, segment):
+    """The ring walk split into a forced number of segments, against the
+    plain version (float32 1e-4, bfloat16 2e-2, int8 1e-4), against the
+    one-split walk, and bit-equal across two calls; the empty last row is
+    zeros."""
+    from repro_torch.kernels import cuda_lib
+    act = torch.bfloat16 if mode == "bfloat16" else torch.float32
+    tol = 2e-2 if act == torch.bfloat16 else 1e-4
+    q, k, v, tok, pos, sc = _ring_inputs(act, mode == "int8", B, K, G, hd,
+                                         C, seed=C + splits)
+    if segment is not None:
+        tok = _one_segment(tok, *segment)
+    args = [t.to(dev) for t in (q, k, v, tok, pos)]
+    kw = {n: t.to(dev) for n, t in sc.items()}
+    monkeypatch.setattr(cuda_lib, "ring_splits", lambda *a: splits)
+    got = ops.decode_attention(*args, window=window, **kw)
+    again = ops.decode_attention(*args, window=window, **kw)
+    monkeypatch.setattr(cuda_lib, "ring_splits", lambda *a: 1)
+    one = ops.decode_attention(*args, window=window, **kw)
+    want = ref.decode_attention_ref(_f32(q), _f32(k), _f32(v), tok, pos,
+                                    window=window, **sc)
+    torch.testing.assert_close(got.float().cpu(), want, atol=tol, rtol=0)
+    torch.testing.assert_close(got.float(), one.float(), atol=tol, rtol=0)
+    assert torch.equal(got, again)
+    assert not got[B - 1].any()
+
+
+def test_ring_splits_in_use(dev):
+    """The wrapper splits recurrentgemma-9b's and reflect_demo_100m's
+    rings as ``ring_splits`` says, and the all-empty ring row of a split
+    call is zeros."""
+    from repro_torch.kernels import cuda_lib
+    assert cuda_lib.ring_splits(8, 1, 2048, 256) == 33
+    assert cuda_lib.ring_splits(8, 4, 2048, 64) == 9
+    q, k, v, tok, pos, _ = _ring_inputs(torch.bfloat16, False, 8, 1, 16, 256,
+                                        2048, 3)
+    tok[:] = -1
+    got = ops.decode_attention(*(t.to(dev) for t in (q, k, v, tok, pos)))
+    assert got.shape == (8, 1, 16, 256) and not got.any()
 
 
 def test_ring_and_flash_wrappers_count_launches_and_refuse_bad_operands(dev):
