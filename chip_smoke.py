@@ -19,6 +19,8 @@ Phases, each of which stops the run with a non-zero exit on any error:
      and 48) in float32, bfloat16 and int8 KV;
    * the same at recurrentgemma-9b's local attention (K 1, G 16, hd 256;
      decode and extend Sx = 32; window None, 48 and 2048);
+     each paged case logs its route (bf16 extend on the tensor cores),
+     its tile and its split count (``cuda_lib.paged_splits``);
    * the mamba scan at falcon-mamba-7b's shapes ([8, 32 or 1, 8192],
      state 16) with float32 and bfloat16 x, and the RG-LRU scan at
      recurrentgemma-9b's ([8, 32 or 1, 4096]), each with a nonzero h0 and
@@ -38,8 +40,8 @@ Phases, each of which stops the run with a non-zero exit on any error:
    medians and ranges of each); int8 rings have no such call.  Flash
    cases print their achieved TFLOP/s and ring decode its split count;
    the build prints the tensor-core instructions (HGMMA, HMMA) that
-   ``cuobjdump -sass`` finds in the flash library, which must hold
-   HGMMA.
+   ``cuobjdump -sass`` finds in the flash and paged-extend libraries,
+   each of which must hold HGMMA.
 4. serve   — three models through the port's ``Engine``, one after the
    other, each freed before the next: 8 conversations of a few hundred
    tokens, 3 reflection rounds with the suffix [99, 98], paged KV or ring
@@ -137,16 +139,17 @@ def phase_build():
             if line.strip():
                 log(f"[build] {name}: {line.strip()}")
     cuobjdump = Path(cuda_lib._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run(
-        [str(cuobjdump), "-sass", str(cuda_lib._library_path(
-            "flash_attention"))], capture_output=True, text=True, check=True,
-        timeout=300).stdout
-    counts = {op: len(re.findall(rf"\b{op}\.", sass))
-              for op in ("HGMMA", "HMMA")}
-    log(f"[build] flash_attention SASS: {counts['HGMMA']} HGMMA, "
-        f"{counts['HMMA']} HMMA instructions")
-    if counts["HGMMA"] == 0:
-        raise AssertionError("the bf16 flash kernel has no wgmma (HGMMA)")
+    for name in ("flash_attention", "paged_extend"):
+        sass = subprocess.run(
+            [str(cuobjdump), "-sass", str(cuda_lib._library_path(name))],
+            capture_output=True, text=True, check=True, timeout=300).stdout
+        counts = {op: len(re.findall(rf"\b{op}\.", sass))
+                  for op in ("HGMMA", "HMMA")}
+        log(f"[build] {name} SASS: {counts['HGMMA']} HGMMA, "
+            f"{counts['HMMA']} HMMA instructions")
+        if counts["HGMMA"] == 0:
+            raise AssertionError(f"the bf16 {name} kernel has no wgmma "
+                                 "(HGMMA)")
 
 
 # -------------------------------------------------------------- 3. kernels
@@ -319,7 +322,7 @@ def paged_cases(records, tag, shape, cases, modes, windows, timed_window,
     """Paged kernels at one model's attention shape: every (case, mode,
     window) against the plain version on a table of ``check_np`` pages,
     then times at ``shape`` (the serve's table) with ``timed_window``."""
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import cuda_lib, ops, ref
     kernels = {"paged_decode": ops.paged_decode_attention,
                "paged_extend": ops.paged_extend_attention}
     plains = {"paged_decode": ref.paged_decode_attention_ref,
@@ -329,6 +332,18 @@ def paged_cases(records, tag, shape, cases, modes, windows, timed_window,
     fp = (lambda t: t.float() if t.is_floating_point() else t)
     for name, Sx in cases:
         for mode, dtype, quant, tol in modes:
+            # the split the wrapper makes of the timed table
+            code = cuda_lib.DTYPE_CODES[(dtype, torch.int8 if quant
+                                         else dtype)]
+            rows = (cuda_lib.decode_rows(G) if name == "paged_decode"
+                    else cuda_lib.extend_rows(hd, Sx * G, code))
+            tiles = -(-Sx * G // rows)
+            splits = cuda_lib.paged_splits(B, K, tiles, NP * ps, hd)
+            route = ("tensor cores" if name == "paged_extend"
+                     and code in cuda_lib.TC_CODES else "CUDA cores")
+            log(f"[kernels] {tag} {name} Sx={Sx} {mode}: {route}, tiles of "
+                f"{rows} rows x {tiles}, {splits} splits a tile, "
+                f"{B * K * tiles * splits} blocks")
             for window in windows + ("timed",):
                 seed += 1
                 timed = window == "timed"
@@ -357,6 +372,7 @@ def paged_cases(records, tag, shape, cases, modes, windows, timed_window,
                 nbytes, nops = work(q5, kp, pt, pos0, sc, win)
                 rec = time_record(kern, plain, flush, nbytes, nops, dtype,
                                   err)
+                rec.update(splits=splits, tile=rows)
                 log_record(f"{tag} {name} Sx={Sx} {mode} window={win}", rec)
                 records[(name, tag, Sx, mode)] = rec
     return seed
@@ -738,8 +754,12 @@ def profile_round(eng, convos, max_new=16):
         f"{traced_s:.3f} s wall under the profiler); again without the "
         f"profiler: {steps2} steps in {wall_s:.3f} s ({wall_ms:.3f} ms per "
         f"step); idle share {1 - busy_ms / wall_ms:.3f}")
-    for e in rows[:15]:
-        if dev_us(e) > 0:
+    # the top 15, then the port's own kernels (the split walks' combine
+    # among them) that are not in it
+    port = re.compile(
+        r"void (\(anonymous namespace\)|paged|flash_tc)::\w+_kernel")
+    for i, e in enumerate(rows):
+        if dev_us(e) > 0 and (i < 15 or port.match(e.key)):
             log(f"[profile] {dev_us(e):10.0f} us {e.count:6d} calls  "
                 f"{e.key[:90]}")
     if busy <= 0:

@@ -37,8 +37,8 @@
 // ahead, dequantizing int8 rows in registers.  Empty slots, future slots
 // and slots outside the window are never read.  Each block writes its G
 // rows' unnormalized (acc, m, l) to ``part``; a second kernel, launched
-// from the same entry point, combines the splits of each row in split
-// order,
+// from the same entry point (paged::combine, shared with the paged
+// kernels), combines the splits of each row in split order,
 //
 //   out = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s,  M = max m_s,
 //
@@ -62,57 +62,6 @@ __global__ void __launch_bounds__(paged::kThreads)
       paged::Partial{part, w.splits, w.split});
 }
 
-// One block per output row (b, h, g): the splits' partials in split order.
-// A thread a split reads (m_s, l_s) into shared memory and turns them into
-// the weight e^(m_s - M) (0 for a split with no slot) and its weighted
-// l; then thread t sums dims 2t, 2t + 1 of the weighted acc over the
-// splits, its loads independent of one another.
-template <typename TQ, int HD>
-__global__ void __launch_bounds__(paged::kThreads)
-    combine_kernel(const float* part, TQ* out, int G, int splits) {
-  static_assert(HD / 2 <= paged::kThreads, "a thread per two dims");
-  extern __shared__ float w_s[];  // [splits] m_s, then weights
-  float* wl_s = w_s + splits;     // [splits] l_s, then weighted
-  const int row = blockIdx.x, bh = row / G, g = row % G;
-  const float* p = part + (static_cast<size_t>(bh) * splits * G + g) *
-                              (HD + 2);
-  const size_t stride = static_cast<size_t>(G) * (HD + 2);
-  for (int s = threadIdx.x; s < splits; s += paged::kThreads) {
-    const float2 ml = *reinterpret_cast<const float2*>(p + s * stride + HD);
-    w_s[s] = ml.y > 0.f ? ml.x : -INFINITY;
-    wl_s[s] = ml.y;
-  }
-  __syncthreads();
-  float M = -INFINITY;
-  for (int s = 0; s < splits; ++s) M = fmaxf(M, w_s[s]);
-  __syncthreads();
-  for (int s = threadIdx.x; s < splits; s += paged::kThreads) {
-    const float w = w_s[s] == -INFINITY ? 0.f : expf(w_s[s] - M);
-    w_s[s] = w;
-    wl_s[s] *= w;
-  }
-  __syncthreads();
-  float l = 0.f;
-  for (int s = 0; s < splits; ++s) l += wl_s[s];
-  const int d = 2 * threadIdx.x;
-  if (d < HD) {
-    float2 o = make_float2(0.f, 0.f);
-#pragma unroll 8
-    for (int s = 0; s < splits; ++s) {
-      const float w = w_s[s];
-      if (w > 0.f) {
-        const float2 x =
-            *reinterpret_cast<const float2*>(p + s * stride + d);
-        o.x += w * x.x;
-        o.y += w * x.y;
-      }
-    }
-    TQ* dst = out + static_cast<size_t>(row) * HD + d;
-    paged::store(dst, l > 0.f ? o.x / l : 0.f);
-    paged::store(dst + 1, l > 0.f ? o.y / l : 0.f);
-  }
-}
-
 template <typename TQ, typename TKV, int HD, int TR>
 cudaError_t launch(const paged::Args& a, const paged::Ring& w, float* part,
                    cudaStream_t stream) {
@@ -126,10 +75,7 @@ cudaError_t launch(const paged::Args& a, const paged::Ring& w, float* part,
                                                                    part);
   const cudaError_t split_err = cudaGetLastError();
   if (split_err != cudaSuccess) return split_err;
-  combine_kernel<TQ, HD>
-      <<<a.B * a.K * a.G, paged::kThreads, 2 * sizeof(float) * w.splits,
-         stream>>>(part, static_cast<TQ*>(a.out), a.G, w.splits);
-  return cudaGetLastError();
+  return paged::combine<TQ, HD>(a, part, w.splits, stream);
 }
 
 template <typename TQ, typename TKV, int HD>

@@ -88,6 +88,33 @@ cudaError_t by_head_dim(int hd, const paged::Args& a, const paged::Dense& w,
   }
 }
 
+// bf16: flash_tc.cuh's kernel, two warpgroups a block.
+template <int HD>
+cudaError_t launch_tc(const flash_tc::Args& a, cudaStream_t stream) {
+  using flash_tc::kGroups;
+  constexpr size_t smem = flash_tc::smem_bytes<HD, kGroups>();
+  const cudaError_t err =
+      paged::allow_smem(flash_tc::flash_tc_kernel<HD, kGroups>, smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (a.S + flash_tc::kRows * kGroups - 1) /
+                    (flash_tc::kRows * kGroups);
+  flash_tc::flash_tc_kernel<HD, kGroups>
+      <<<dim3(a.K * a.G, a.B, tiles), flash_tc::kWG * kGroups, smem,
+         stream>>>(a);
+  return cudaGetLastError();
+}
+
+cudaError_t by_head_dim_tc(int hd, const flash_tc::Args& a,
+                           cudaStream_t stream) {
+  switch (hd) {
+    case 32: return launch_tc<32>(a, stream);
+    case 64: return launch_tc<64>(a, stream);
+    case 128: return launch_tc<128>(a, stream);
+    case 256: return launch_tc<256>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = f32, 1 = bf16 (q, k, v and out alike).  lengths may be null.
@@ -107,7 +134,7 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k,
   switch (dtype) {
     case 0: return by_head_dim<float>(hd, a, w, st);
     case 1:
-      return flash_tc::by_head_dim(
+      return by_head_dim_tc(
           hd,
           flash_tc::Args{static_cast<const __nv_bfloat16*>(q),
                          static_cast<const __nv_bfloat16*>(k),

@@ -36,6 +36,11 @@
 // as a K-major operand (Q and K: the reduction runs along HD) and as an
 // MN-major one (V: the reduction runs along the keys, tnspB = 1), by the
 // descriptors' two strides.  A row with no attendable key is zeros.
+//
+// The bf16 paged extend kernel (paged_extend.cu) runs the same tile on
+// key tiles gathered from a page table: it shares the loader
+// (chunk_of, load_rows), the descriptors and wgmma wrappers, and the
+// three steps of a key tile (score_tile, softmax_tile, pv_tile).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -91,25 +96,46 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Row and 16-byte chunk of chunk idx of a [*, HD] tile in the core-matrix
+// layout, where chunk idx lands at byte 16 * idx: a warp's 32 chunks are
+// 8 rows x 4 chunks, so its cp.async writes 512 contiguous bytes.
+template <int HD>
+__device__ __forceinline__ void chunk_of(int idx, int& row, int& c) {
+  constexpr int CPR = HD / 8;  // 16-byte chunks of a row
+  static_assert(CPR % 4 == 0, "tile");
+  const int rest = idx >> 5;
+  c = (rest % (CPR / 4)) * 4 + ((idx >> 3) & 3);
+  row = (rest / (CPR / 4)) * 8 + (idx & 7);
+}
+
+// Rows 0 .. ROWS - 1 of a tile into the core-matrix layout at dst, by the
+// block's THREADS threads; ``src(row, ok)`` gives the row's first element
+// and sets ok, and a row with ok false is zeros (its address is not read
+// but must be a valid one).
+template <int HD, int ROWS, int THREADS, typename Src>
+__device__ __forceinline__ void load_rows(uint32_t dst, Src src) {
+  static_assert((ROWS * HD / 8) % THREADS == 0, "tile");
+#pragma unroll
+  for (int i = 0; i < ROWS * HD / 8 / THREADS; ++i) {
+    const int idx = threadIdx.x + i * THREADS;
+    int row, c;
+    chunk_of<HD>(idx, row, c);
+    bool ok;
+    const __nv_bfloat16* p = src(row, ok);
+    cp_async16(dst + 16 * idx, p + 8 * c, ok);
+  }
+}
+
 // Rows [row0, row0 + ROWS) of a row-major [*, HD] bf16 matrix into the
-// core-matrix layout at dst, by the block's THREADS threads; rows at or
-// past n_valid are zeros.  Chunk idx (16 bytes) lands at byte 16 * idx.
+// core-matrix layout at dst; rows at or past n_valid are zeros.
 template <int HD, int ROWS, int THREADS>
 __device__ __forceinline__ void load_tile(uint32_t dst,
                                           const __nv_bfloat16* src, int row0,
                                           int n_valid) {
-  constexpr int CPR = HD / 8;  // 16-byte chunks of a row
-  static_assert(CPR % 4 == 0 && (ROWS * CPR) % THREADS == 0, "tile");
-#pragma unroll
-  for (int i = 0; i < ROWS * CPR / THREADS; ++i) {
-    const int idx = threadIdx.x + i * THREADS;
-    const int r8 = idx & 7, rest = idx >> 5;
-    const int c = (rest % (CPR / 4)) * 4 + ((idx >> 3) & 3);
-    const int row = row0 + (rest / (CPR / 4)) * 8 + r8;
-    const bool ok = row < n_valid;
-    cp_async16(dst + 16 * idx,
-               src + static_cast<size_t>(ok ? row : 0) * HD + 8 * c, ok);
-  }
+  load_rows<HD, ROWS, THREADS>(dst, [&](int row, bool& ok) {
+    ok = row0 + row < n_valid;
+    return src + static_cast<size_t>(ok ? row0 + row : 0) * HD;
+  });
 }
 
 // wgmma shared-memory descriptor, no swizzle: lbo is the byte stride
@@ -219,6 +245,97 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&t);
 }
 
+// One warpgroup's S = Q K^T over HD in steps of 16 (two core matrices,
+// 256 bytes): s [BN / 2] fp32 in the accumulator layout (thread t holds
+// rows 16 (t / 32) + (t % 32) / 4 and 8 more, two columns of every 8), Q
+// [64, HD] at qw_s and K [BN, HD] at k_s, both K-major core matrices.
+template <int HD, int BN>
+__device__ __forceinline__ void score_tile(float* s, uint32_t qw_s,
+                                           uint32_t k_s) {
+  constexpr uint32_t CM = 128, ROW8 = HD / 8 * CM;
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint64_t da = desc(qw_s + 256 * kk, CM, ROW8);
+    const uint64_t db = desc(k_s + 256 * kk, CM, ROW8);
+    if constexpr (BN == 64)
+      mma_ss_n64(s, da, db, kk > 0);
+    else
+      mma_ss_n32(s, da, db, kk > 0);
+  }
+  wg_commit();
+  wg_wait<0>();
+  fence_regs<BN / 2>(s);
+}
+
+// Online softmax of one masked score tile in the log2 domain, p = 2^(s *
+// scale_log2 - m): updates a thread's two rows' running max m (log2 units,
+// scaled) and its share of their sums l, rescales o [HD / 2], and packs p
+// to bf16 pairs in p [BN / 16][4], the register A fragments of P V.  A
+// masked score is -inf; a row with no key yet keeps p = 0.
+template <int HD, int BN>
+__device__ __forceinline__ void softmax_tile(float* s, float* o, float* m,
+                                             float* l, uint32_t (*p)[4],
+                                             float scale_log2) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
+  float mu[2], corr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i] * scale_log2);
+    mu[i] = m_new == -INFINITY ? 0.f : m_new;  // no key yet: p = 0
+    corr[i] = ex2(m[i] - mu[i]);
+    m[i] = m_new;
+    l[i] *= corr[i];
+  }
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[4 * j + e] = ex2(fmaf(s[4 * j + e], scale_log2, -mu[e >> 1]));
+      l[e >> 1] += s[4 * j + e];
+    }
+    // A fragment of keys 16 (j / 2) ..: (r0, c0), (r0 + 8, c0), then
+    // the same 8 keys on
+    p[j / 2][2 * (j % 2)] = pack_bf16(s[4 * j], s[4 * j + 1]);
+    p[j / 2][2 * (j % 2) + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+  }
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[4 * j + e] *= corr[e >> 1];
+}
+
+// O += P V over a tile's BN keys in steps of 16 (two core matrices along
+// the keys, 2 * ROW8 bytes), in pieces of 64 columns of HD: P from
+// registers, V [BN, HD] at v_s read MN-major (tnspB = 1).
+template <int HD, int BN>
+__device__ __forceinline__ void pv_tile(float* o, const uint32_t (*p)[4],
+                                        uint32_t v_s) {
+  constexpr uint32_t CM = 128, ROW8 = HD / 8 * CM;
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    if constexpr (HD == 32) {
+      mma_rs_n32(o, p[kk], desc(v_s + 2 * ROW8 * kk, ROW8, CM));
+    } else {
+#pragma unroll
+      for (int pc = 0; pc < HD / 64; ++pc)
+        mma_rs_n64(o + 32 * pc, p[kk],
+                   desc(v_s + 2 * ROW8 * kk + 8 * CM * pc, ROW8, CM));
+    }
+  }
+  wg_commit();
+  wg_wait<0>();
+  fence_regs<HD / 2>(o);
+}
+
 template <int HD, int WG>
 __global__ void __launch_bounds__(kWG * WG)
     flash_tc_kernel(const Args a) {
@@ -291,20 +408,7 @@ __global__ void __launch_bounds__(kWG * WG)
     if (qw >= a.S || k0 > w_hi || k0 + BN - 1 < w_lo) continue;
     const uint32_t k_s = k_stage(n), v_s = k_s + KV_BYTES;
 
-    // S = Q K^T over HD in steps of 16 (two core matrices, 256 bytes).
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      const uint64_t da = desc(qw_s + 256 * kk, CM, ROW8);
-      const uint64_t db = desc(k_s + 256 * kk, CM, ROW8);
-      if constexpr (BN == 64)
-        mma_ss_n64(s, da, db, kk > 0);
-      else
-        mma_ss_n32(s, da, db, kk > 0);
-    }
-    wg_commit();
-    wg_wait<0>();
-    fence_regs<BN / 2>(s);
+    score_tile<HD, BN>(s, qw_s, k_s);
 
     // s[4 j + 2 i + e] is row r0 + 8 i, key k0 + 8 j + c0 + e.  Mask only
     // a tile that straddles the diagonal, the window's edge or the length.
@@ -321,59 +425,9 @@ __global__ void __launch_bounds__(kWG * WG)
             s[4 * j + e] = -INFINITY;
         }
     }
-    // Online softmax in the log2 domain: p = 2^(s * scale - m).
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
-    float mu[2], corr[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i] * scale_log2);
-      mu[i] = m_new == -INFINITY ? 0.f : m_new;  // no key yet: p = 0
-      corr[i] = ex2(m[i] - mu[i]);
-      m[i] = m_new;
-      l[i] *= corr[i];
-    }
     uint32_t p[BN / 16][4];
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[4 * j + e] = ex2(fmaf(s[4 * j + e], scale_log2, -mu[e >> 1]));
-        l[e >> 1] += s[4 * j + e];
-      }
-      // A fragment of keys 16 (j / 2) ..: (r0, c0), (r0 + 8, c0), then
-      // the same 8 keys on
-      p[j / 2][2 * (j % 2)] = pack_bf16(s[4 * j], s[4 * j + 1]);
-      p[j / 2][2 * (j % 2) + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
-    }
-#pragma unroll
-    for (int j = 0; j < HD / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[4 * j + e] *= corr[e >> 1];
-
-    // O += P V over the tile's keys in steps of 16 (two core matrices
-    // along the keys, 2 * ROW8 bytes), in pieces of 64 columns of HD.
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      if constexpr (HD == 32) {
-        mma_rs_n32(o, p[kk], desc(v_s + 2 * ROW8 * kk, ROW8, CM));
-      } else {
-#pragma unroll
-        for (int pc = 0; pc < HD / 64; ++pc)
-          mma_rs_n64(o + 32 * pc, p[kk],
-                     desc(v_s + 2 * ROW8 * kk + 8 * CM * pc, ROW8, CM));
-      }
-    }
-    wg_commit();
-    wg_wait<0>();
-    fence_regs<HD / 2>(o);
+    softmax_tile<HD, BN>(s, o, m, l, p, scale_log2);
+    pv_tile<HD, BN>(o, p, v_s);
   }
   cp_async_wait<0>();
 
@@ -390,31 +444,6 @@ __global__ void __launch_bounds__(kWG * WG)
     for (int j = 0; j < HD / 8; ++j)
       dst[4 * j] =
           pack_bf16(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
-  }
-}
-
-template <int HD>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD, kGroups>();
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_tc_kernel<HD, kGroups>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  const int tiles = (a.S + kRows * kGroups - 1) / (kRows * kGroups);
-  flash_tc_kernel<HD, kGroups>
-      <<<dim3(a.K * a.G, a.B, tiles), kWG * kGroups, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-inline cudaError_t by_head_dim(int hd, const Args& a, cudaStream_t stream) {
-  switch (hd) {
-    case 32: return launch<32>(a, stream);
-    case 64: return launch<64>(a, stream);
-    case 128: return launch<128>(a, stream);
-    case 256: return launch<256>(a, stream);
-    default: return cudaErrorInvalidValue;
   }
 }
 

@@ -1,13 +1,14 @@
 // Shared staged walk of the attention kernels that run on the CUDA cores:
 // paged decode (replaces src/repro/kernels/paged_attention.py), paged
-// extend (paged_extend.py), ring decode (decode_attention.py) and fp32
-// flash attention (flash_attention.py; bf16 flash runs on the tensor
-// cores, flash_tc.cuh).  One thread block owns a tile of query rows of one
-// (request b, kv head h) pair and walks the K/V slots those rows can
-// attend.  Where a slot's K/V row lives is the kernel's "walk" (below): a
-// page table over shared pools (Pages), a dense ring whose tok array names
-// each slot's token (Ring), or the contiguous rows of a full sequence
-// (Dense).
+// extend in float32 and int8 with float32 q (paged_extend.py; bf16 extend
+// runs on the tensor cores, paged_extend.cu), ring decode
+// (decode_attention.py) and fp32 flash attention (flash_attention.py;
+// bf16 flash runs on the tensor cores, flash_tc.cuh).  One thread block
+// owns a tile of query rows of one (request b, kv head h) pair and walks
+// the K/V slots those rows can attend.  Where a slot's K/V row lives is
+// the kernel's "walk" (below): a page table over shared pools (Pages), a
+// dense ring whose tok array names each slot's token (Ring), or the
+// contiguous rows of a full sequence (Dense).
 //
 // What bounds them on the H100: device-memory bytes for the three decode
 // and extend kernels (a few FLOP per K/V byte against a ridge of ~295), so
@@ -27,12 +28,13 @@
 // its share of the fp32 [rows, HD] accumulator.  Three barriers per stage.
 //
 // The result of a row goes out by an epilogue policy: Normalized (acc / l
-// in q's type) or Partial, the unnormalized (acc, m, l) of one segment of
-// a walk split across blocks (ring decode: a Ring walk over one segment of
-// the ring, and a combine kernel).  A split walk covers a short segment,
-// so it also stages q with 16-byte loads issued before its slot list and
-// adds p.V slot by slot, each V vector read once for all of a thread's
-// rows; the Normalized instantiations compile as before.
+// in q's type; fp32 flash) or Partial, the unnormalized (acc, m, l) of one
+// segment of a walk split across blocks, which combine() then adds up in
+// split order (the paged kernels and ring decode).  The paged walks split
+// a tile's attendable range into whole stages (segment()), a ring into
+// equal runs of slots.  A split walk covers a short segment, so it also
+// stages q with 16-byte loads issued before its slot list and adds p.V
+// slot by slot, each V vector read once for all of a thread's rows.
 //
 // Masking is position arithmetic, as in the TPU kernels: row r is query
 // lane r / G at absolute position pos0[b] + r / G.  Pages and Dense: slot t
@@ -175,10 +177,27 @@ __device__ __forceinline__ size_t row_offset(const Args& a, int b, int h,
 //   attendable(t, pos): may a row at position pos (-1: a padding row)
 //     attend slot t, given row(t) >= 0.
 
-// Pools [P, ps, K, HD] of pages, mapped per request by a page table.
+// Segment ``split`` of ``splits`` of the slot range [t_first, t_last], in
+// whole stages of ``stage`` slots counted from t_first: of the range's n
+// stages, stages [split * n / splits, (split + 1) * n / splits).  A
+// segment that gets no stage is left empty (t_first > t_last).
+__device__ __forceinline__ void segment(int& t_first, int& t_last, int stage,
+                                        int splits, int split) {
+  if (t_first > t_last) return;
+  const int n = (t_last - t_first + stage) / stage;
+  const int lo = split * n / splits, hi = (split + 1) * n / splits;
+  t_last = min(t_last, t_first + hi * stage - 1);
+  t_first += lo * stage;
+}
+
+// Pools [P, ps, K, HD] of pages, mapped per request by a page table.  The
+// rows' attendable range [max(0, p_first - window + 1), min(p_last,
+// NP * ps - 1)] splits into ``splits`` segments of whole stages; a block
+// walks segment ``split`` and stages only its page-table entries.
 struct Pages {
   const int32_t* page_table;  // [B, NP], -1 = unmapped
-  int ps, NP;
+  int ps, NP, splits, stage;  // stage: slots per stage of the block's walk
+  int split;
   int t_first, t_last, j0, K, h, window;
   const int32_t* tbl;         // page-table entries j0 .. t_last / ps
 
@@ -190,9 +209,10 @@ struct Pages {
     tbl = tbl_s;
     t_last = min(p_last, NP * ps - 1);
     t_first = window > 0 ? max(0, p_first - window + 1) : 0;
+    segment(t_first, t_last, stage, splits, split);
     j0 = t_first / ps;
     if (t_first <= t_last)
-      for (int j = j0 + threadIdx.x; j <= t_last / ps; j += kThreads)
+      for (int j = j0 + threadIdx.x; j <= t_last / ps; j += blockDim.x)
         tbl_s[j - j0] = page_table[static_cast<size_t>(b) * NP + j];
   }
   __device__ long long row(int t) const {
@@ -284,12 +304,23 @@ struct Dense {
 // Normalized: out = acc / l in q's type; a row with l == 0 is zeros.
 struct Normalized {};
 // Partial: one split of the walk's unnormalized result, float [HD + 2] =
-// (acc, m, l) at row ((b * K + h) * splits + split) * Sx * G + r of part;
-// where l == 0, m is -inf and acc is not written (the combine skips it).
+// (acc, m, l) at row ((b * K + h) * splits + split) * Sx * G + r of part
+// (part_row); where l == 0, m is -inf and acc is not written (combine()
+// skips it).
 struct Partial {
   float* part;
   int splits, split;
 };
+
+// Row r of (b, h) in split ``split``'s partials, [HD + 2] floats.
+template <int HD>
+__device__ __forceinline__ float* part_row(float* part, const Args& a,
+                                           int splits, int split, int b,
+                                           int h, int r) {
+  return part + static_cast<size_t>(HD + 2) *
+                    (((static_cast<size_t>(b) * a.K + h) * splits + split) *
+                         a.Sx * a.G + r);
+}
 
 // Attend rows [row0, row0 + TR) of (b, h) over the slots of ``w``; rows
 // past Sx * G are padding.
@@ -564,9 +595,7 @@ __device__ void attend_rows(const Args& a, Walk w, int b, int h, int row0,
   __syncthreads();
 
   if constexpr (kSplit) {
-    float* part = epi.part + static_cast<size_t>(HD + 2) *
-                                 ((static_cast<size_t>(b) * a.K + h) *
-                                      epi.splits + epi.split) * R;
+    float* part = part_row<HD>(epi.part, a, epi.splits, epi.split, b, h, 0);
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
       const int r = row0 + warp + kWarps * i;
@@ -602,6 +631,77 @@ __device__ void attend_rows(const Args& a, Walk w, int b, int h, int row0,
       }
     }
   }
+}
+
+// One block per output row (b, h, r) of the R = Sx * G rows of each (b,
+// h): the splits' partials [B, K, splits, R, HD + 2] added up in split
+// order,
+//
+//   out = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s,  M = max m_s,
+//
+// skipping splits with no slot (l = 0); a row with none is zeros.  A
+// thread a split reads (m_s, l_s) into shared memory and turns them into
+// the weight e^(m_s - M) and its weighted l; then thread t sums dims 2t,
+// 2t + 1 of the weighted acc over the splits, its loads independent of
+// one another, and writes the row where row_offset() puts it.  The order
+// is fixed, so results are bit-identical from run to run, and one split
+// gives acc / l exactly.
+template <typename TQ, int HD>
+__global__ void __launch_bounds__(HD / 2 > 32 ? HD / 2 : 32)
+    combine_kernel(const float* part, Args a, int splits) {
+  extern __shared__ float w_s[];  // [splits] m_s, then weights
+  float* wl_s = w_s + splits;     // [splits] l_s, then weighted
+  const int R = a.Sx * a.G;
+  const int row = blockIdx.x, bh = row / R, r = row % R;
+  const float* p =
+      part + (static_cast<size_t>(bh) * splits * R + r) * (HD + 2);
+  const size_t stride = static_cast<size_t>(R) * (HD + 2);
+  for (int s = threadIdx.x; s < splits; s += blockDim.x) {
+    const float2 ml = *reinterpret_cast<const float2*>(p + s * stride + HD);
+    w_s[s] = ml.y > 0.f ? ml.x : -INFINITY;
+    wl_s[s] = ml.y;
+  }
+  __syncthreads();
+  float M = -INFINITY;
+  for (int s = 0; s < splits; ++s) M = fmaxf(M, w_s[s]);
+  __syncthreads();
+  for (int s = threadIdx.x; s < splits; s += blockDim.x) {
+    const float w = w_s[s] == -INFINITY ? 0.f : expf(w_s[s] - M);
+    w_s[s] = w;
+    wl_s[s] *= w;
+  }
+  __syncthreads();
+  float l = 0.f;
+  for (int s = 0; s < splits; ++s) l += wl_s[s];
+  const int d = 2 * threadIdx.x;
+  if (d < HD) {
+    float2 o = make_float2(0.f, 0.f);
+#pragma unroll 8
+    for (int s = 0; s < splits; ++s) {
+      const float w = w_s[s];
+      if (w > 0.f) {
+        const float2 x =
+            *reinterpret_cast<const float2*>(p + s * stride + d);
+        o.x += w * x.x;
+        o.y += w * x.y;
+      }
+    }
+    TQ* dst = static_cast<TQ*>(a.out) +
+              row_offset<HD>(a, bh / a.K, bh % a.K, r) + d;
+    store(dst, l > 0.f ? o.x / l : 0.f);
+    store(dst + 1, l > 0.f ? o.y / l : 0.f);
+  }
+}
+
+// Launch combine_kernel over the B * K * Sx * G rows of ``a``.
+template <typename TQ, int HD>
+cudaError_t combine(const Args& a, const float* part, int splits,
+                    cudaStream_t stream) {
+  combine_kernel<TQ, HD><<<a.B * a.K * a.Sx * a.G,
+                           HD / 2 > 32 ? HD / 2 : 32,
+                           2 * sizeof(float) * splits, stream>>>(part, a,
+                                                                 splits);
+  return cudaGetLastError();
 }
 
 }  // namespace paged

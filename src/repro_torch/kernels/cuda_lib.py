@@ -41,7 +41,7 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures:
 #   paged_*:    (dtype, q, kp, vp, ks, kz, vs, page_table, pos, out,
-#                B, [Sx,] K, G, hd, ps, NP, window, stream)
+#                part, B, [Sx,] K, G, hd, ps, NP, window, splits, stream)
 #   decode_attention: (dtype, q, k, v, ks, kz, vs, tok, pos, out, part,
 #                B, K, G, hd, C, window, splits, stream)
 #   flash_attention:  (dtype, q, k, v, lengths, out, B, K, G, hd, S,
@@ -50,8 +50,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #                stream)
 #   rglru_scan: (a, b, h0, hs, h, B, S, W, stream)
 _ARGTYPES = {
-    "paged_decode": [_I] + [_P] * 9 + [_I] * 7 + [_P],
-    "paged_extend": [_I] + [_P] * 9 + [_I] * 8 + [_P],
+    "paged_decode": [_I] + [_P] * 10 + [_I] * 8 + [_P],
+    "paged_extend": [_I] + [_P] * 10 + [_I] * 9 + [_P],
     "decode_attention": [_I] + [_P] * 10 + [_I] * 7 + [_P],
     "flash_attention": [_I] + [_P] * 5 + [_I] * 6 + [_P],
     "mamba_scan": [_I] + [_P] * 9 + [_I] * 4 + [_P],
@@ -173,25 +173,66 @@ def ring_splits(B: int, K: int, C: int, hd: int) -> int:
     return max(1, min(want, C // stage_slots(hd)))
 
 
-def ring_partials_shape(B: int, K: int, G: int, hd: int,
-                        splits: int) -> tuple:
-    """Float scratch of the split ring walk: each split's unnormalized
-    (acc [hd], m, l) for each of its G rows."""
-    return (B, K, splits, G, hd + 2)
+def paged_splits(B: int, K: int, tiles: int, n_slots: int, hd: int) -> int:
+    """Segments the attendable range of each (request, kv head, row tile)
+    of a paged kernel is split into, one block each (``paged_decode.cu``,
+    ``paged_extend.cu``): about two blocks per SM over the B * K * tiles
+    tiles, never more than the stages in a table of ``n_slots`` slots.  A
+    function of the shapes only: the kernels read the positions on the
+    device and split each tile's own range into whole stages."""
+    want = -(-2 * SMS // (B * K * tiles))
+    return max(1, min(want, n_slots // stage_slots(hd)))
 
 
-def extend_rows(hd: int) -> int:
-    """Query rows of a paged-extend block (``paged_extend.cu::kRows``)."""
+def partials_shape(B: int, K: int, rows: int, hd: int, splits: int) -> tuple:
+    """Float scratch of a split walk: each split's unnormalized (acc [hd],
+    m, l) for each of the ``rows`` query rows of a (request, kv head) (G
+    for decode, Sx * G for extend)."""
+    return (B, K, splits, rows, hd + 2)
+
+
+TC_CODES = (1, 3)      # bf16 q: paged extend runs on the tensor cores
+TC_ROWS = 64           # query rows of a warpgroup (wgmma's M)
+
+
+def key_tile(hd: int) -> int:
+    """Slots of a tensor-core key tile (``flash_tc::key_tile``)."""
+    return 32 if hd == 256 else 64
+
+
+def extend_rows(hd: int, rows: int, code: int) -> int:
+    """Query rows of a paged-extend block for ``rows`` = Sx * G rows of a
+    (request, kv head): bf16 q (``TC_CODES``) 64 (one warpgroup) up to 64
+    rows and 128 (two) above; float32 q 1024 / hd, 16 at hd 256
+    (``paged_extend.cu``)."""
+    if code in TC_CODES:
+        return TC_ROWS if rows <= TC_ROWS else 2 * TC_ROWS
     return 16 if hd == 256 else 1024 // hd
 
 
 def smem_bytes(hd: int, rows: int, n_table: int) -> int:
-    """Dynamic shared memory of one block (``paged::smem_bytes``): q rows,
-    one stage of K and V slots, its probabilities, and the walk's table
-    (a request's page-table row, or a ring's slot list)."""
+    """Dynamic shared memory of a staged-walk block (``paged::smem_bytes``):
+    q rows, one stage of K and V slots, its probabilities, and the walk's
+    table (a page-table row, or a ring's slot list)."""
     slots = stage_slots(hd)
     return 4 * (rows * hd + slots * (hd + 4) + slots * hd + rows * slots
                 + 2 * rows) + 4 * n_table
+
+
+def tc_smem_bytes(hd: int, rows: int, n_table: int) -> int:
+    """Dynamic shared memory of a tensor-core paged-extend block
+    (``paged_extend.cu::tc_smem_bytes``): bf16 Q rows, two stages of K and
+    V key tiles with a byte a slot of flags, and the page-table row."""
+    return (2 * hd * (rows + 2 * 2 * key_tile(hd)) + 2 * key_tile(hd)
+            + 4 * n_table)
+
+
+def check_smem(nbytes: int, n_table: int) -> None:
+    """ValueError when a block would need more than the card's shared
+    memory, which only a long table can make it."""
+    if nbytes > MAX_SMEM_BYTES:
+        raise ValueError(f"a table of {n_table} entries is too long for one "
+                         "block")
 
 
 def check_operands(kind: str, tensors, q) -> None:
@@ -205,14 +246,14 @@ def check_operands(kind: str, tensors, q) -> None:
 
 
 def check_kv_inputs(kind: str, q, k, v, index, pos, k_scale, k_zero,
-                    v_scale, rows_shape, rows: int) -> int:
+                    v_scale, rows_shape) -> int:
     """Validate the operands of a paged or ring attention launch; returns
     the dtype code.  ``q`` is [B, ..., K, G, hd]; K/V are ``rows_shape +
     (K, hd)`` (pools [P, ps] or rings [B, C]) with ``[*rows_shape, K]``
     float32 sidecars in int8 mode; ``index`` is the [B, n] int32 page
-    table or ring tokens, which sits in shared memory beside a block of
-    ``rows`` rows.  Raises ValueError on anything the kernels do not
-    take."""
+    table or ring tokens.  Raises ValueError on anything the kernels do
+    not take (the caller checks the block's shared memory,
+    ``check_smem``)."""
     tensors = [q, k, v, index, pos]
     quant = k_scale is not None
     if quant != (k_zero is not None) or quant != (v_scale is not None):
@@ -240,9 +281,6 @@ def check_kv_inputs(kind: str, q, k, v, index, pos, k_scale, k_zero,
         raise ValueError("page_table / tok must be [B, n] and positions [B]")
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("K/V must be 16-byte aligned")
-    if smem_bytes(hd, rows, index.shape[1]) > MAX_SMEM_BYTES:
-        raise ValueError(f"a table of {index.shape[1]} entries is too long "
-                         f"for one block")
     return code
 
 

@@ -47,13 +47,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "heads per group")
     C = k.shape[1] if k.dim() == 4 else -1
     code = cuda_lib.check_kv_inputs("ring", q, k, v, tok, pos, k_scale,
-                                    k_zero, v_scale, (B, C),
-                                    cuda_lib.decode_rows(G))
+                                    k_zero, v_scale, (B, C))
+    cuda_lib.check_smem(
+        cuda_lib.smem_bytes(hd, cuda_lib.decode_rows(G), C), C)
     if window is not None and window <= 0:
         raise ValueError("window must be positive")
     splits = cuda_lib.ring_splits(B, K, C, hd)
     out = torch.empty_like(q)
-    part = torch.empty(cuda_lib.ring_partials_shape(B, K, G, hd, splits),
+    part = torch.empty(cuda_lib.partials_shape(B, K, G, hd, splits),
                        dtype=torch.float32, device=q.device)
     cuda_lib.launch(
         "decode_attention", code, q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -7,10 +7,11 @@ the card:
 Each kernel is held against its plain PyTorch version on the same inputs
 (float32 to 1e-4, bfloat16 against the plain version in float32 on the
 same rounded inputs to 2e-2, int8 caches to 1e-4; the scans to 1e-4, and
-the RG-LRU scan bit for bit), the bf16 flash body and the split ring walk
-give bit-equal results from call to call, the wrappers refuse what the
-kernels do not take, and small engine and model runs on the card launch the kernels of
-their models' paths.
+the RG-LRU scan bit for bit), the bf16 flash body and the split ring and
+page walks give bit-equal results from call to call (the paged kernels
+also at forced split counts at the split walk's edges), the wrappers
+refuse what the kernels do not take, and small engine and model runs on
+the card launch the kernels of their models' paths.
 """
 import pytest
 import torch
@@ -100,6 +101,117 @@ def test_kernels_match_plain_mqa_hd256(dev, mode, window):
     want = ref.paged_decode_attention_ref(fq[:, 0], fkp, fvp, fpt, fpos,
                                           window=window, **sc_cpu)
     torch.testing.assert_close(got.float().cpu(), want, atol=tol, rtol=0)
+
+
+def _split_inputs(dev, act, quant, B, Sx, K, G, hd, NP, case, seed,
+                  ps=16):
+    """Scattered pages, unmapped tails and an empty last row, positions
+    anywhere in the table; ``case`` "holes" unmaps every third page from
+    page 2 to the middle (inside every row's range), "first" puts row 0's
+    lane 0 at position 0 (a row of one slot).  Returns CUDA operands,
+    float32 CPU copies and the int8 sidecars, as ``_inputs``."""
+    g = torch.Generator().manual_seed(seed)
+    P = B * NP + 4
+    q = torch.randn(B, Sx, K, G, hd, generator=g).to(act)
+    kp = torch.randn(P, ps, K, hd, generator=g)
+    vp = torch.randn(P, ps, K, hd, generator=g)
+    pt = torch.randperm(P, generator=g)[:B * NP].view(B, NP).to(torch.int32)
+    top = NP * ps - Sx
+    pos0 = torch.randint(top // 2, top + 1, (B,), generator=g).to(torch.int32)
+    if case == "first":
+        pos0[0] = 0
+    if case == "holes":
+        pt[:, 2:NP // 2:3] = -1
+    for b in range(B):
+        pt[b, (int(pos0[b]) + Sx + ps - 1) // ps:] = -1
+    pt[B - 1] = -1
+    sc = {}
+    if quant:
+        kp, ks, kz = kv_quant.quantize_k(kp)
+        vp, vs = kv_quant.quantize_v(vp)
+        sc = {"k_scale": ks, "k_zero": kz, "v_scale": vs}
+    else:
+        kp, vp = kp.to(act), vp.to(act)
+    cpu = [q, kp, vp, pt, pos0]
+    f32 = [t.float() if t.dtype == torch.bfloat16 else t for t in cpu]
+    return ([t.to(dev) for t in cpu], {k: v.to(dev) for k, v in sc.items()},
+            f32, sc)
+
+
+@pytest.mark.parametrize("mode", ["float32", "bfloat16", "int8",
+                                  "int8+bf16"])
+@pytest.mark.parametrize("B,Sx,K,G,hd,NP,splits,window,case", [
+    (3, 5, 2, 3, 64, 16, 1, None, "plain"),      # one split
+    (3, 5, 2, 3, 64, 16, 64, None, "plain"),     # more splits than stages
+    (3, 5, 2, 3, 64, 16, 9, None, "first"),      # rows of length 1
+    (3, 32, 2, 3, 64, 16, 3, 48, "plain"),       # window edge in a segment
+    (3, 32, 2, 3, 64, 24, 4, None, "holes"),     # unmapped pages mid-range
+    (2, 32, 1, 16, 256, 24, 5, 100, "holes"),    # 512 rows, hd 256
+    (3, 5, 4, 3, 64, 24, 9, None, "holes"),      # a verify step's 15 rows
+    (2, 3, 2, 5, 128, 12, 7, None, "first"),     # 15 rows at hd 128
+    (2, 7, 2, 4, 32, 12, 6, 20, "holes"),        # 28 rows at hd 32
+])
+def test_split_paged_kernels(dev, monkeypatch, mode, B, Sx, K, G, hd, NP,
+                             splits, window, case):
+    """Both paged kernels with a forced split count at the split walk's
+    edges (bf16 extend on the tensor cores, float32 on the staged walk),
+    against the plain version (float32 1e-4, bfloat16 2e-2, int8 1e-4,
+    int8 + bf16 2e-2) and the one-split call, bit-equal across two calls;
+    the empty last row is zeros."""
+    from repro_torch.kernels import cuda_lib
+    act = torch.bfloat16 if "bf" in mode else torch.float32
+    tol = 2e-2 if act == torch.bfloat16 else 1e-4
+    cuda, sc, f32, sc_cpu = _split_inputs(dev, act, mode.startswith("int8"),
+                                          B, Sx, K, G, hd, NP, case,
+                                          seed=NP + splits + Sx)
+    q, kp, vp, pt, pos0 = cuda
+    fq, fkp, fvp, fpt, fpos = f32
+    for fn, plain, qq, fqq in (
+            (ops.paged_extend_attention, ref.paged_extend_attention_ref, q,
+             fq),
+            (ops.paged_decode_attention, ref.paged_decode_attention_ref,
+             q[:, 0].contiguous(), fq[:, 0])):
+        monkeypatch.setattr(cuda_lib, "paged_splits", lambda *a: splits)
+        got = fn(qq, kp, vp, pt, pos0, window=window, **sc)
+        again = fn(qq, kp, vp, pt, pos0, window=window, **sc)
+        monkeypatch.setattr(cuda_lib, "paged_splits", lambda *a: 1)
+        one = fn(qq, kp, vp, pt, pos0, window=window, **sc)
+        want = plain(fqq, fkp, fvp, fpt, fpos, window=window, **sc_cpu)
+        torch.testing.assert_close(got.float().cpu(), want, atol=tol, rtol=0)
+        torch.testing.assert_close(got.float(), one.float(), atol=tol,
+                                   rtol=0)
+        assert torch.equal(got, again)
+        assert not got[B - 1].any()
+
+
+def test_paged_splits_in_use(dev, monkeypatch):
+    """The wrappers split reflect_demo_100m's and recurrentgemma-9b's
+    decode, verify and chunk shapes (128-page tables) as ``paged_splits``
+    says for their tiles."""
+    from repro_torch.kernels import cuda_lib
+    real, seen = cuda_lib.paged_splits, []
+
+    def record(*a):
+        seen.append(real(*a))
+        return seen[-1]
+
+    monkeypatch.setattr(cuda_lib, "paged_splits", record)
+    for act, Sx, K, G, hd in ((torch.bfloat16, 1, 4, 3, 64),
+                              (torch.bfloat16, 1, 1, 16, 256),
+                              (torch.bfloat16, 5, 4, 3, 64),
+                              (torch.bfloat16, 32, 4, 3, 64),
+                              (torch.bfloat16, 32, 1, 16, 256),
+                              (torch.float32, 32, 4, 3, 64)):
+        cuda, sc, _, _ = _split_inputs(dev, act, False, 8, Sx, K, G, hd,
+                                       128, "plain", seed=Sx)
+        q, kp, vp, pt, pos0 = cuda
+        if Sx == 1:
+            ops.paged_decode_attention(q[:, 0].contiguous(), kp, vp, pt,
+                                       pos0)
+        else:
+            ops.paged_extend_attention(q, kp, vp, pt, pos0)
+    torch.cuda.synchronize()
+    assert seen == [9, 33, 9, 9, 9, 2]
 
 
 def _scan_inputs(B, S, D, N, seed):

@@ -157,5 +157,5 @@ def test_ring_splits(B, K, C, hd, splits):
     assert got == 1 or C // got >= cuda_lib.stage_slots(hd)
     assert B * K * got <= 2 * cuda_lib.SMS + B * K
     G = 3
-    assert cuda_lib.ring_partials_shape(B, K, G, hd, got) == (B, K, got, G,
-                                                              hd + 2)
+    assert cuda_lib.partials_shape(B, K, G, hd, got) == (B, K, got, G,
+                                                         hd + 2)
