@@ -22,9 +22,11 @@ Phases, each of which stops the run with a non-zero exit on any error:
      each paged case logs its route (bf16 extend on the tensor cores),
      its tile and its split count (``cuda_lib.paged_splits``);
    * the mamba scan at falcon-mamba-7b's shapes ([8, 32 or 1, 8192],
-     state 16) with float32 and bfloat16 x, and the RG-LRU scan at
-     recurrentgemma-9b's ([8, 32 or 1, 4096]), each with a nonzero h0 and
-     pad lanes masked to the identity;
+     state 16, a per-(d, n) A and a per-d skip) with float32 and bfloat16
+     x, and the RG-LRU scan at recurrentgemma-9b's ([8, 32 or 1, 4096],
+     bit for bit), each with a nonzero h0 and pad lanes masked to the
+     identity; and the RG-LRU scan at recurrentgemma-9b's full-sequence
+     prefill, [4, 4096, 4096], bit for bit;
    * ring decode at reflect_demo_100m's shape (B 8, K 4, G 3, hd 64, C
      2048; rings wrapped past C, empty slots, slots ahead of pos, an
      empty row; window None and 48; float32, bfloat16, int8 and int8 with
@@ -380,9 +382,12 @@ def paged_cases(records, tag, shape, cases, modes, windows, timed_window,
 
 def scan_cases(records, dev, flush):
     """The two scans at the serves' shapes (mixed step S = 32, decode
-    S = 1): nonzero h0, pad lanes masked to the identity (mamba: dt = 0 on
-    the last lanes of all rows but the first; RG-LRU: a = 1, b = 0),
-    against the plain versions on the same inputs."""
+    S = 1): nonzero h0, a per-(d, n) A and a per-d skip (so that a lane
+    reading another channel's or state's value shows), pad lanes masked to
+    the identity (mamba: dt = 0 on the last lanes of all rows but the
+    first; RG-LRU: a = 1, b = 0), against the plain versions on the same
+    inputs; then the RG-LRU scan at recurrentgemma-9b's full-sequence
+    prefill, [4, 4096, 4096]."""
     from repro_torch.kernels import ops, ref
     g = torch.Generator(device=dev).manual_seed(11)
     B, D, N, W = 8, 8192, 16, 4096
@@ -396,8 +401,8 @@ def scan_cases(records, dev, flush):
         Bm, Cm = (torch.randn(B, S, N, generator=g, device=dev)
                   for _ in range(2))
         x32 = torch.randn(B, S, D, generator=g, device=dev)
-        A = -torch.ones(D, N, device=dev)
-        Dsk = torch.ones(D, device=dev)
+        A = -torch.exp(0.5 * torch.randn(D, N, generator=g, device=dev))
+        Dsk = torch.randn(D, generator=g, device=dev)
         h0 = torch.randn(B, D, N, generator=g, device=dev)
         for mode, x in (("float32", x32), ("bfloat16", x32.bfloat16())):
             kern = lambda: ops.mamba_scan(dt, Bm, Cm, x, A, Dsk, h0)
@@ -429,22 +434,38 @@ def scan_cases(records, dev, flush):
         a.masked_fill_(~pad[..., None], 1.0)
         b.masked_fill_(~pad[..., None], 0.0)
         h0 = torch.randn(B, W, generator=g, device=dev)
-        kern = lambda: ops.rglru_scan(a, b, h0)
-        plain = lambda: ref.rglru_scan_ref(a, b, h0)
-        (hs, h), (whs, wh) = kern(), plain()
-        torch.cuda.synchronize()
-        err = max(float((hs - whs).abs().max()), float((h - wh).abs().max()))
-        log(f"[kernels] rglru_scan [{B},{S},{W}]: max_abs_err={err:.3e} "
-            f"(tol 0: the kernel rounds as the plain version does) "
-            f"{'ok' if err == 0 else 'MISMATCH'}")
-        if err != 0 or not bool(torch.isfinite(hs).all()):
-            raise AssertionError(f"rglru_scan S={S} disagrees with its "
-                                 "plain version")
-        rec = time_record(kern, plain, flush,
-                          (3 * a.numel() + 2 * h0.numel()) * 4,
-                          2 * a.numel(), torch.float32, err)
-        log_record(f"rglru_scan S={S}", rec)
-        records[("rglru_scan", S, "float32")] = rec
+        rglru_case(records, a, b, h0, flush)
+    # the full-sequence prefill: 4096 sequential steps a channel
+    a = torch.sigmoid(torch.randn(4, 4096, W, generator=g, device=dev))
+    b = torch.randn(4, 4096, W, generator=g, device=dev)
+    rglru_case(records, a, b, torch.randn(4, W, generator=g, device=dev),
+               flush)
+    del a, b
+    torch.cuda.empty_cache()
+
+
+def rglru_case(records, a, b, h0, flush):
+    """The RG-LRU scan against its plain version, bit for bit, then
+    timed."""
+    from repro_torch.kernels import ops, ref
+    B, S, W = a.shape
+    kern = lambda: ops.rglru_scan(a, b, h0)
+    plain = lambda: ref.rglru_scan_ref(a, b, h0)
+    (hs, h), (whs, wh) = kern(), plain()
+    torch.cuda.synchronize()
+    err = max(float((hs - whs).abs().max()), float((h - wh).abs().max()))
+    log(f"[kernels] rglru_scan [{B},{S},{W}]: max_abs_err={err:.3e} "
+        f"(tol 0: the kernel rounds as the plain version does) "
+        f"{'ok' if err == 0 else 'MISMATCH'}")
+    if err != 0 or not bool(torch.isfinite(hs).all()):
+        raise AssertionError(f"rglru_scan S={S} disagrees with its "
+                             "plain version")
+    del hs, h, whs, wh
+    rec = time_record(kern, plain, flush,
+                      (3 * a.numel() + 2 * h0.numel()) * 4,
+                      2 * a.numel(), torch.float32, err)
+    log_record(f"rglru_scan S={S}", rec)
+    records[("rglru_scan", S, "float32")] = rec
 
 
 def ring_inputs(seed, B, K, G, hd, C, dtype, quant, dev):
@@ -756,8 +777,9 @@ def profile_round(eng, convos, max_new=16):
         f"step); idle share {1 - busy_ms / wall_ms:.3f}")
     # the top 15, then the port's own kernels (the split walks' combine
     # among them) that are not in it
+    # (a kernel that is not a template is named without its "void")
     port = re.compile(
-        r"void (\(anonymous namespace\)|paged|flash_tc)::\w+_kernel")
+        r"(void )?(\(anonymous namespace\)|paged|flash_tc)::\w+_kernel")
     for i, e in enumerate(rows):
         if dev_us(e) > 0 and (i < 15 or port.match(e.key)):
             log(f"[profile] {dev_us(e):10.0f} us {e.count:6d} calls  "

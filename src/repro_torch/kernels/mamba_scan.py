@@ -11,11 +11,14 @@
 
 Port of ``repro/kernels/mamba_scan.py``, the recurrence of every mamba
 layer's prefill chunk, mixed step and decode step.  On a CUDA tensor the
-call launches the hand-written Hopper kernel ``csrc/mamba_scan.cu`` (one
-thread per (request, channel) holding its N states in registers; see the
-note at the top of the source) or raises; on a CPU tensor it runs the
-plain PyTorch version, ``ref.mamba_scan_ref``.  A lane with ``dt = 0``
-leaves the state unchanged exactly, which is how callers mask pad lanes.
+call launches the hand-written Hopper kernel ``csrc/mamba_scan.cu`` (a
+channel's N states spread over two lanes in registers, one at N 4, its
+steps staged in shared memory by ``cp.async`` in groups that the chain
+runs as they land; see the note at the top of the source) or raises; on
+a CPU tensor it runs the plain PyTorch version, ``ref.mamba_scan_ref``.
+Every operand but ``Dsk`` must be 16-byte aligned, as a fresh tensor is.
+A lane with ``dt = 0`` leaves the state unchanged exactly, which is how
+callers mask pad lanes.
 """
 from __future__ import annotations
 
@@ -46,6 +49,8 @@ def mamba_scan(dt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
             raise ValueError("mamba_scan takes CUDA tensors on one device")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if name != "Dsk" and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
         if name != "x" and t.dtype != torch.float32:
             raise ValueError(f"{name} must be float32, got {t.dtype}")
     if x.dtype not in X_DTYPES:

@@ -8,9 +8,10 @@
 Port of ``repro/kernels/rglru_scan.py``, the recurrence of every RG-LRU
 layer's prefill chunk, mixed step and decode step.  On a CUDA tensor the
 call launches the hand-written Hopper kernel ``csrc/rglru_scan.cu`` (one
-thread per (request, channel); see the note at the top of the source) or
-raises; on a CPU tensor it runs the plain PyTorch version,
-``ref.rglru_scan_ref``.
+thread per (request, channel), 32-step register tiles loaded one ahead
+of the chain; see the note at the top of the source) or raises; on a CPU
+tensor it runs the plain PyTorch version, ``ref.rglru_scan_ref``, with
+which it agrees bit for bit.
 """
 from __future__ import annotations
 

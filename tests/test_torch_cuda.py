@@ -253,11 +253,40 @@ def test_mamba_scan_matches_plain(dev, x_dtype, B, S, D, N):
                                    rtol=1e-4)
 
 
-@pytest.mark.parametrize("B,S,W", [(8, 32, 4096), (3, 7, 300), (8, 1, 4096)])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [4, 8, 16])
+@pytest.mark.parametrize("B,S,D", [(3, 33, 65), (2, 100, 129)])
+def test_mamba_scan_layout_edges(dev, x_dtype, N, B, S, D):
+    """The lane split's edges: D one channel past a 64-channel block, S
+    past one 32-step tile, every state size, pad lanes in every row but
+    the first."""
+    dt, Bm, Cm, x, A, Dsk, h0, n_valid = _scan_inputs(B, S, D, N, D + N)
+    x = x.to(x_dtype)
+    y, h = ops.mamba_scan(*[t.to(dev) for t in (dt, Bm, Cm, x, A, Dsk,
+                                                 h0)])
+    want_y, want_h = ref.mamba_scan_ref(dt, Bm, Cm, x.float(), A, Dsk, h0)
+    torch.testing.assert_close(y.cpu(), want_y, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(h.cpu(), want_h, atol=1e-4, rtol=1e-4)
+    for b in range(1, B):                     # pads leave h untouched
+        nv = int(n_valid[b])
+        assert nv < S
+        _, hb = ref.mamba_scan_ref(dt[b:b + 1, :nv], Bm[b:b + 1, :nv],
+                                   Cm[b:b + 1, :nv], x[b:b + 1, :nv].float(),
+                                   A, Dsk, h0[b:b + 1])
+        torch.testing.assert_close(h[b:b + 1].cpu(), hb, atol=1e-4,
+                                   rtol=1e-4)
+
+
+@pytest.mark.parametrize("B,S,W", [(8, 32, 4096), (3, 7, 300), (8, 1, 4096),
+                                   (2, 4096, 256), (2, 100, 257),
+                                   (3, 70, 1), (2, 31, 300), (2, 33, 300)])
 def test_rglru_scan_matches_plain(dev, B, S, W):
-    """recurrentgemma-9b's mixed-step and decode shapes and a ragged one,
-    with identity pad lanes: the kernel rounds as the plain version does,
-    so the two agree bit for bit."""
+    """recurrentgemma-9b's mixed-step and decode shapes, a ragged one, a
+    long sequence of many register tiles, widths one channel past a
+    256-channel block and below it, and calls one step short of a
+    register tile and one step past it, with identity pad lanes: the
+    kernel rounds as the plain version does, so the two agree bit for
+    bit."""
     g = torch.Generator().manual_seed(1)
     a = torch.sigmoid(torch.randn(B, S, W, generator=g))
     b = torch.randn(B, S, W, generator=g)
@@ -285,6 +314,9 @@ def test_scan_wrappers_count_launches_and_refuse_bad_operands(dev):
         ops.mamba_scan(args[0].bfloat16(), *args[1:])
     with pytest.raises(ValueError):          # operands on two devices
         ops.mamba_scan(*args[:6], args[6].cpu())
+    x_off = torch.empty(args[3].numel() + 1, device=dev)[1:]
+    with pytest.raises(ValueError):          # x not 16-byte aligned
+        ops.mamba_scan(*args[:3], x_off.view_as(args[3]), *args[4:])
     with pytest.raises(ValueError):          # non-contiguous decay
         ops.rglru_scan(a.transpose(0, 1), a, a[:, 0].contiguous())
     assert ops.LAUNCHES["mamba_scan"] == 1 and ops.LAUNCHES["rglru_scan"] == 1
