@@ -50,7 +50,14 @@ Phases, each of which stops the run with a non-zero exit on any error:
    caches, chunked prefill and the prefix cache; and the full-sequence
    entry points.  Launch counters are reset just before each run and
    read just after; every kernel of the run's path must have launched,
-   and rounds 2 and 3 must hit the prefix cache.
+   and rounds 2 and 3 must hit the prefix cache.  Every serve runs twice
+   on the same weights and prompts: eagerly, then with
+   ``aot_warmup=True`` (each step shape captured as a CUDA graph at
+   startup and replayed); the captured serve must give the eager serve's
+   token streams, ``TokenUsage`` bills, step counters and kernel launches
+   and run no step outside its captured shapes, and both print their
+   wall and device time a step, tok/s, idle share, startup and peak
+   memory.
    * reflect_demo_100m at full width and depth (12 layers, d_model 768,
      bf16 activations, fp32 parameters), with self-speculative decoding,
      then a shorter int8-KV run: paged decode and extend; the same two
@@ -66,17 +73,22 @@ Phases, each of which stops the run with a non-zero exit on any error:
      and ring decode), ``prefill`` of [4, 4096] (past the 2048-slot local
      ring, which wraps) and 16 ``decode_step``s: flash attention with
      window 2048, ring decode and the RG-LRU scan.
-   Weights are random from a seeded CUDA generator.  After each serve a
-   profiler summary of device time by kernel gives the idle share, and a
-   check holds the model's logits on the card against the plain path on
+   Weights are random from a seeded CUDA generator.  After each fp serve
+   a profiler summary of device time by kernel gives the idle share, and
+   a check holds the model's logits on the card against the plain path on
    the CPU, through chunked paged prefill and through ``prefill`` and
-   ring ``decode_step`` (the recurrent models at a cut depth).
+   ring ``decode_step`` (the recurrent models at a cut depth).  A last
+   check serves reflect_demo_100m at two layers in float32 (q/k softened)
+   on the card with captured steps and on the CPU through the port's
+   engine: token streams and bills must be identical, and the smallest
+   top-1/top-2 logit gap sampled is printed.
 5. result  — a JSON line of kernel records, the card line, and last the
    JSON status line.
 
 Exits non-zero without a result when no CUDA device is present, or when
 the port's sources are not next to this script.
 """
+import dataclasses
 import gc
 import json
 import re
@@ -104,6 +116,9 @@ REPLACES = {"paged_decode": "src/repro/kernels/paged_attention.py:102",
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu"
            for name in REPLACES}
 STEP_KINDS = ("mixed_steps", "decode_batch_steps", "verify_steps")
+# engine step kind -> its counter in Engine.stats()
+STEP_COUNTERS = {"mixed": "mixed_steps", "decode": "decode_batch_steps",
+                 "verify": "verify_steps"}
 
 
 def log(*a):
@@ -663,25 +678,31 @@ def phase_kernels(dev):
 
 # ---------------------------------------------------------------- 4. serve
 
-def serve(model, kv_dtype, rounds, max_new, seed, path, paged=True):
+def serve(model, kv_dtype, rounds, max_new, seed, path, paged=True,
+          aot=False):
     """Serve ``rounds`` reflection rounds of 8 conversations from a paged
-    pool or (``paged=False``) ring caches; ``path`` names the kernels this
-    model's steps must launch."""
+    pool or (``paged=False``) ring caches, eagerly or (``aot``) with every
+    step captured as a CUDA graph at startup; ``path`` names the kernels
+    this model's steps must launch.  Returns (engine, conversations,
+    launches, what the run gave: streams, bills, step counters, times)."""
     from repro_torch.configs.base import ServeConfig
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.request import Request, Status
     scfg = ServeConfig(max_batch=8, max_seq=2048, page_size=16,
                        spec_decode=True, spec_tokens=4, kv_dtype=kv_dtype,
-                       paged_kv=paged)
+                       paged_kv=paged, aot_warmup=aot)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     eng = Engine(model, scfg, device="cuda")
+    startup = time.perf_counter() - t0
     rng = np.random.default_rng(seed)
     convos = [[1] + rng.integers(3, model.cfg.vocab_size, n).tolist()
               for n in rng.integers(200, 400, 8)]
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    hits = []
+    hits, outputs, usage = [], [], []
     t0 = time.perf_counter()
     for _ in range(rounds):
         h0 = eng.prefix_cache.stats["hits"]
@@ -694,6 +715,8 @@ def serve(model, kv_dtype, rounds, max_new, seed, path, paged=True):
                    for r in reqs):
             raise AssertionError("a request did not finish")
         hits.append(eng.prefix_cache.stats["hits"] - h0)
+        outputs += [list(r.output) for r in reqs]
+        usage += [dataclasses.asdict(r.usage) for r in reqs]
         for c, r in zip(convos, reqs):
             c += r.output + [99, 98]              # reflection suffix
     torch.cuda.synchronize()
@@ -711,7 +734,8 @@ def serve(model, kv_dtype, rounds, max_new, seed, path, paged=True):
     processed = st["prefill_tokens"] + st["extend_tokens"] + \
         st["decode_tokens"]
     n_steps = sum(st[k] for k in STEP_KINDS)
-    name = f"{model.cfg.name} kv={kv_dtype} {'paged' if paged else 'ring'}"
+    name = (f"{model.cfg.name} kv={kv_dtype} {'paged' if paged else 'ring'}"
+            f" {'captured' if aot else 'eager'}")
     log(f"[serve] {name}: {rounds} rounds x 8 requests in {dt:.3f}s, "
         f"{n_steps} engine steps ({dt / n_steps * 1e3:.2f} ms each); "
         f"{st['decode_tokens'] / dt:.1f} output tok/s, "
@@ -720,7 +744,11 @@ def serve(model, kv_dtype, rounds, max_new, seed, path, paged=True):
           if paged else f"rings of {eng._ring_cap} slots, "
           f"{st['resident_kv_bytes']} B")
     log(f"[serve] {name}: prefix hits per round {hits}; launches "
-        f"{launches}; peak memory {peak} B; {kv}; speculation {eng.spec}")
+        f"{launches}; peak memory {peak} B (from before the engine was "
+        f"built); {kv}; speculation {eng.spec}; startup {startup:.3f}s "
+        f"(step capture {st.get('startup_compile_s', 0.0):.3f}s, "
+        f"{st.get('aot_warmed', 0)} step shapes); step_compiles "
+        f"{st['step_compiles']} {st.get('step_compiles_by_fn', {})}")
     if any(h <= 0 for h in hits[1:]):
         raise AssertionError("reflection rounds missed the prefix cache")
     if min(launches[k] for k in path) <= 0:
@@ -730,7 +758,118 @@ def serve(model, kv_dtype, rounds, max_new, seed, path, paged=True):
         raise AssertionError("speculative verify steps ran iff the engine "
                              f"speculates (spec={eng.spec}, verify steps "
                              f"{st['verify_steps']})")
-    return eng, convos, launches
+    if aot and (st["step_compiles"] != 0 or st["aot_warmed"] < 2):
+        raise AssertionError(f"a step ran outside the captured shapes: "
+                             f"{st['step_compiles_by_fn']}, warmed "
+                             f"{st['aot_warmed']}")
+    return eng, convos, launches, {"outputs": outputs, "usage": usage,
+                                   "steps": steps, "launches": launches}
+
+
+def serve_pair(model, kv_dtype, rounds, max_new, seed, path, paged=True,
+               profile=None):
+    """The same serve eagerly and then with captured steps, on the same
+    weights and prompts, each followed (``profile``: new tokens of the
+    round) by ``profile_round``.  The captured serve must give the eager
+    one's token streams, bills, step counters and kernel launches, with no
+    step outside its captured shapes.  Returns both runs' launches."""
+    runs = []
+    for aot in (False, True):
+        eng, convos, launches, got = serve(model, kv_dtype, rounds, max_new,
+                                           seed, path, paged, aot)
+        if profile:
+            profile_round(eng, convos, profile)
+        runs.append(got)
+        del eng
+        release()
+    eager, captured = runs
+    for key in ("outputs", "usage", "steps", "launches"):
+        if captured[key] != eager[key]:
+            raise AssertionError(f"the captured serve's {key} differ from "
+                                 f"the eager serve's")
+    log(f"[serve] {model.cfg.name} kv={kv_dtype} "
+        f"{'paged' if paged else 'ring'}: captured = eager in "
+        f"{len(eager['outputs'])} token streams, bills, step counters and "
+        f"launches")
+    return eager["launches"], captured["launches"]
+
+
+def check_engine(cfg, state, dev, soften):
+    """The engine on the card, every step captured, against the port's
+    engine on the CPU (which the CPU tests hold to the JAX engine): float32
+    activations and parameters, q/k scaled by ``soften`` as in
+    ``check_logits``, 8 seeded conversations, 2 reflection rounds.
+    Greedy streams and bills must be identical; prints the smallest
+    top-1/top-2 logit gap that either engine sampled from, so that a
+    near-tie can be told from a fault."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import Request
+
+    class MarginEngine(Engine):
+        """Records the smallest top-1/top-2 gap over the rows (verify:
+        the valid lanes) of the logits each step returns."""
+        margin = float("inf")
+
+        def _run(self, kind, *arrays):
+            logits = super()._run(kind, *arrays)
+            lg = logits.float()
+            if kind == "decode":
+                lg = lg[[i for i, r in enumerate(self.slots)
+                         if r is not None]]
+            else:
+                nv = torch.as_tensor(arrays[2], device=lg.device)
+                lanes = (nv > 0 if kind == "mixed" else
+                         torch.arange(lg.shape[1], device=lg.device)[None]
+                         < nv[:, None])
+                lg = lg[lanes]
+            if lg.numel():
+                top = lg.topk(2, dim=-1).values
+                self.margin = min(self.margin,
+                                  float((top[:, 0] - top[:, 1]).min()))
+            return logits
+
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    state = {k: v * (soften if k.endswith((".wq", ".wk")) else 1.0)
+             for k, v in state.items()}
+    kw = dict(max_batch=8, max_seq=2048, page_size=16, spec_decode=True,
+              spec_tokens=4)
+    rng = np.random.default_rng(4)
+    prompts = [[1] + rng.integers(3, cfg.vocab_size, n).tolist()
+               for n in rng.integers(200, 400, 8)]
+    runs = []
+    for d, aot in ((torch.device("cpu"), False), (dev, True)):
+        m = build_model(cfg32)
+        m.load_state_dict(state)
+        eng = MarginEngine(m, ServeConfig(**kw, aot_warmup=aot), device=d)
+        convos = [list(p) for p in prompts]
+        outs, usage = [], []
+        for _ in range(2):
+            reqs = [Request(prompt=list(c), max_new_tokens=16, eos_id=None)
+                    for c in convos]
+            for r in reqs:
+                eng.submit(r)
+            eng.run()
+            outs += [list(r.output) for r in reqs]
+            usage += [dataclasses.asdict(r.usage) for r in reqs]
+            for c, r in zip(convos, reqs):
+                c += r.output + [99, 98]
+        st = eng.stats()
+        runs.append((outs, usage, eng.margin, st))
+        del eng, m
+    (c_out, c_use, c_gap, c_st), (g_out, g_use, g_gap, g_st) = runs
+    same = sum(a == b for a, b in zip(c_out, g_out))
+    log(f"[check] {cfg.name}, {cfg.num_layers} layers, engine fp32 q/k x "
+        f"{soften}: cuda captured vs cpu eager: {same}/{len(c_out)} "
+        f"identical token streams, bills identical {c_use == g_use}; "
+        f"{g_st['verify_steps']} verify, {g_st['mixed_steps']} mixed and "
+        f"{g_st['decode_batch_steps']} decode steps; smallest top-1/top-2 "
+        f"logit gap sampled: cpu {c_gap:.3e}, cuda {g_gap:.3e}; cuda "
+        f"step_compiles {g_st['step_compiles']}")
+    if c_out != g_out or c_use != g_use or g_st["step_compiles"] != 0:
+        raise AssertionError("the engine on the card disagrees with the "
+                             "port's engine on the CPU")
 
 
 def profile_round(eng, convos, max_new=16):
@@ -738,13 +877,15 @@ def profile_round(eng, convos, max_new=16):
     share.  The profiler's own tracing slows every launch on this card's
     host many times over, so the wall time it is set against is that of
     the same round served again without the profiler (the second pass
-    finds one more token of each prompt cached)."""
+    finds one more token of each prompt cached).  A captured engine's
+    round is then split into graph span and host time (``replay_split``),
+    after which the engine must serve no more."""
     from repro_torch.serving.request import Request
     from torch.profiler import ProfilerActivity, profile
 
     def one_round():
-        """Serve the round; returns (engine steps, wall seconds)."""
-        steps0 = sum(eng.stats()[k] for k in STEP_KINDS)
+        """Serve the round; returns (engine steps by kind, wall seconds)."""
+        before = eng.stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for c in convos:
@@ -752,12 +893,14 @@ def profile_round(eng, convos, max_new=16):
                                eos_id=None))
         eng.run()
         torch.cuda.synchronize()
-        return (sum(eng.stats()[k] for k in STEP_KINDS) - steps0,
+        after = eng.stats()
+        return ({k: after[k] - before[k] for k in STEP_KINDS},
                 time.perf_counter() - t0)
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         steps, traced_s = one_round()
-    steps2, wall_s = one_round()
+    kinds, wall_s = one_round()
+    steps, steps2 = sum(steps.values()), sum(kinds.values())
 
     def dev_us(e):
         return getattr(e, "device_time_total",
@@ -769,12 +912,15 @@ def profile_round(eng, convos, max_new=16):
                   key=dev_us, reverse=True)
     busy = sum(dev_us(e) for e in rows)
     busy_ms, wall_ms = busy / steps / 1e3, wall_s / steps2 * 1e3
-    log(f"[profile] {eng.cfg.name}: {len(convos)} requests x {max_new} new "
-        f"tokens: {steps} engine "
+    mode = "captured" if eng.stats().get("aot_warmed") else "eager"
+    log(f"[profile] {eng.cfg.name} {mode}: {len(convos)} requests x "
+        f"{max_new} new tokens: {len(rows)} kernel rows, {steps} engine "
         f"steps, device busy {busy:.0f} us ({busy_ms:.3f} ms per step; "
         f"{traced_s:.3f} s wall under the profiler); again without the "
         f"profiler: {steps2} steps in {wall_s:.3f} s ({wall_ms:.3f} ms per "
-        f"step); idle share {1 - busy_ms / wall_ms:.3f}")
+        f"step); idle share {1 - busy_ms / wall_ms:.3f}"
+        + ("; the profiler lists a replayed graph's kernels under their own "
+           "names, as in eager runs" if mode == "captured" else ""))
     # the top 15, then the port's own kernels (the split walks' combine
     # among them) that are not in it
     # (a kernel that is not a template is named without its "void")
@@ -787,6 +933,39 @@ def profile_round(eng, convos, max_new=16):
     if busy <= 0:
         log("[profile] the profiler saw no device time; kernel times come "
             "from the CUDA events of the kernels phase")
+    if mode == "captured":
+        replay_split(eng, kinds, wall_s)
+
+
+def replay_split(eng, kinds, wall_s):
+    """Split a captured round's wall time into the graphs' device span and
+    the host's share: each captured step shape replayed alone, 10 times
+    back to back (CUDA events), its span (kernels and the gaps between
+    them) weighted by the round's steps of that kind (``kinds``, mixed
+    steps at the widest bucket).  The replays write into the cache with
+    the last step's inputs: the engine must serve no more after this."""
+    span = {}
+    for kind, step in eng._steps.items():
+        for shapes, sig in step._sigs.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            sig.graph.replay()
+            start.record()
+            for _ in range(10):
+                sig.graph.replay()
+            end.record()
+            torch.cuda.synchronize()
+            span[kind, shapes[0][1]] = start.elapsed_time(end) / 10
+    widest = {k: max(w for kk, w in span if kk == k) for k, _ in span}
+    dev_ms = sum(kinds[STEP_COUNTERS[k]] * span[k, w]
+                 for k, w in widest.items())
+    steps = sum(kinds.values())
+    log(f"[profile] {eng.cfg.name} captured: one replay alone "
+        + ", ".join(f"{k} [{eng.scfg.max_batch}, {w}] {ms:.3f} ms"
+                    for (k, w), ms in sorted(span.items()))
+        + f"; the round's {steps} steps: graph span {dev_ms / steps:.3f} ms"
+        f" a step, host {(wall_s * 1e3 - dev_ms) / steps:.3f} ms a step "
+        f"(wall {wall_s * 1e3 / steps:.3f})")
 
 
 def full_sequence(model, B, S, lengths, steps, forward, path):
@@ -997,32 +1176,34 @@ def release():
 
 def phase_serve(dev):
     """Each model's runs; returns the launch counts read just after each
-    run of a kernel's path."""
+    run of a kernel's path.  Every serve runs eagerly and then with its
+    steps captured as CUDA graphs (``serve_pair``)."""
     from repro_torch.kernels import ops
     from repro_torch.models.registry import build_model, get_config
     runs = {}
     paged = ("paged_decode", "paged_extend")
+    ring = ("decode_attention",)
     cfg = get_config("reflect_demo_100m")
     model = build_on_card(cfg, 0)
-    eng, convos, runs["reflect_demo_100m"] = serve(
-        model, "model", rounds=3, max_new=64, seed=1, path=paged)
-    serve(model, "int8", rounds=2, max_new=32, seed=2, path=paged)
-    profile_round(eng, convos)
-    del eng
-    eng, convos, runs["reflect_demo_100m ring"] = serve(
-        model, "model", rounds=3, max_new=64, seed=1,
-        path=("decode_attention",), paged=False)
-    serve(model, "int8", rounds=2, max_new=32, seed=2,
-          path=("decode_attention",), paged=False)
-    profile_round(eng, convos)
-    del eng
-    release()
+    for kv, rounds, max_new, seed, profile in (("model", 3, 64, 1, 16),
+                                               ("int8", 2, 32, 2, None)):
+        for is_paged, path, tag in ((True, paged, ""), (False, ring,
+                                                         " ring")):
+            key = "reflect_demo_100m" + tag + ("" if kv == "model"
+                                               else " int8")
+            runs[key], runs[key + " captured"] = serve_pair(
+                model, kv, rounds, max_new, seed, path, is_paged, profile)
     runs["reflect_demo_100m full-sequence"] = full_sequence(
         model, B=8, S=2048, lengths=np.linspace(1500, 2048, 8).astype(int),
         steps=16, forward=True, path=("flash_attention", "decode_attention"))
-    check_logits(cfg, {k: v.cpu() for k, v in model.state_dict().items()},
-                 dev, soften=0.125)
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    check_logits(cfg, state, dev, soften=0.125)
     del model
+    release()
+    check_engine(cut(cfg, 2), {k: v for k, v in state.items()
+                               if not k.startswith("blocks.")
+                               or int(k.split(".")[1]) < 2}, dev, 0.125)
+    del state
     release()
 
     # the recurrent families at full width and depth, one at a time; the
@@ -1034,18 +1215,12 @@ def phase_serve(dev):
                                    "paged_decode"), 3, 1 / 32)):
         cfg = get_config(arch)
         model = build_on_card(cfg, 0)
-        eng, convos, runs[arch] = serve(model, "model", rounds=3,
-                                        max_new=32, seed=3, path=path)
-        profile_round(eng, convos, max_new=8)
-        del eng
-        release()
+        runs[arch], runs[arch + " captured"] = serve_pair(
+            model, "model", 3, 32, 3, path, profile=8)
         if arch == "recurrentgemma_9b":
-            eng, convos, runs[arch + " ring"] = serve(
-                model, "model", rounds=3, max_new=32, seed=3,
-                path=("rglru_scan", "decode_attention"), paged=False)
-            profile_round(eng, convos, max_new=8)
-            del eng
-            release()
+            runs[arch + " ring"], runs[arch + " ring captured"] = serve_pair(
+                model, "model", 3, 32, 3, ("rglru_scan", "decode_attention"),
+                paged=False, profile=8)
             runs[arch + " full-sequence"] = full_sequence(
                 model, B=4, S=4096, lengths=None, steps=16, forward=False,
                 path=("flash_attention", "decode_attention", "rglru_scan"))

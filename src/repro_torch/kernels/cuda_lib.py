@@ -35,7 +35,9 @@ SOURCES = {"paged_decode": "paged_decode.cu",
 HEADERS = ("paged_common.cuh", "flash_tc.cuh")
 
 # Kernel launches per kernel since the last reset: each wrapper adds one
-# where it launches its kernel, and nowhere else.
+# where it launches its kernel, and nowhere else; a CUDA graph's replay adds
+# the launches its capture recorded (serving/step_graph.py), and the
+# capture itself, which runs nothing, adds none.
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int

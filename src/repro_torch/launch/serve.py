@@ -6,9 +6,12 @@ conversations, each round's prompt being the previous prompt plus its
 output plus the reflection suffix ``[99, 98]``; prints throughput and
 prefix-cache statistics.  It serves the reduced (smoke) config with
 seeded random weights, as the reference does, and runs on the CUDA
-device unless ``--device cpu`` is given.  ``--mesh``, ``--aot`` and
+device unless ``--device cpu`` is given.  ``--aot`` warms every serving
+step before the first request (``ServeConfig.aot_warmup``: CUDA graphs
+captured on a card, eager runs through the same buffers on the CPU) and
+prints the startup time and the recompile tripwire.  ``--mesh`` and
 ``--replicas`` are accepted as in the reference and raise
-``NotImplementedError``: meshes, AOT warmup and fleets are not ported.
+``NotImplementedError``: meshes and fleets are not ported.
 """
 import argparse
 import time
@@ -25,7 +28,8 @@ def main(argv=None):
     ap.add_argument("--mesh", default=None, metavar="DxM",
                     help="serve mesh (not ported: raises)")
     ap.add_argument("--aot", action="store_true",
-                    help="AOT warmup (not ported: raises)")
+                    help="warm every serving step at startup (CUDA "
+                    "graphs on a card)")
     ap.add_argument("--replicas", type=int, default=0, metavar="N",
                     help="fleet of N engines (not ported: raises)")
     ap.add_argument("--policy", default="affinity",
@@ -84,6 +88,10 @@ def main(argv=None):
           f"{st['resident_kv_bytes']} B "
           f"(pool {st['kv_pool_pages_used']}/{st['kv_pool_pages']} pages)")
     print(f"startup {startup:.2f}s")
+    if args.aot:
+        print(f"aot warmup: {st['aot_warmed']} step shapes in "
+              f"{st['startup_compile_s']:.2f}s; step_compiles "
+              f"{st['step_compiles']} {st['step_compiles_by_fn']}")
     if engine.prefix_cache:
         print(f"prefix cache: {engine.prefix_cache.stats_snapshot()}")
 

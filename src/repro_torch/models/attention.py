@@ -30,15 +30,19 @@ then reads the post-write cache, which is what lets a speculative verify
 step write drafted tokens before knowing whether they are accepted —
 every read masks by absolute position and every step rewrites positions
 from the committed frontier before attending.  Lanes whose page is
-unmapped, and pad lanes, are filtered out of the write (the reference
-routed them to ``phys >= P`` or a scratch slot and relied on
-``mode="drop"``, which torch lacks).
+unmapped, pad lanes, and ring lanes that a later lane of the same block
+overwrites go to a scratch slot that the storage of every K/V leaf holds
+behind the leaf (``empty_cache``), where the reference routed them to a
+scratch slot or past the pool and relied on ``mode="drop"``.  So no write
+reads a tensor on the host, and a serving step can be captured as a CUDA
+graph.
 
 The reads go through ``kernels/ops.py``: the hand-written CUDA kernels on
 a CUDA device, their plain PyTorch versions on the CPU.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -86,7 +90,7 @@ class AttnBlock(nn.Module):
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [B,S,d] @ w [d,N,hd] -> [B,S,N,hd] (einsum 'bsd,dhk->bshk')."""
     B, S, d = x.shape
-    return (x @ w.reshape(d, -1).to(x.dtype)).view(B, S, *w.shape[1:])
+    return (x @ L.cast(w, x.dtype).reshape(d, -1)).view(B, S, *w.shape[1:])
 
 
 def _qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor,
@@ -103,7 +107,8 @@ def _qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor,
 def _out_proj(p: Attention, out: torch.Tensor) -> torch.Tensor:
     """out [B,S,H,hd] @ wo [H,hd,d] -> [B,S,d] (einsum 'bshk,hkd->bsd')."""
     B, S, H, hd = out.shape
-    return out.reshape(B, S, H * hd) @ p.wo.reshape(H * hd, -1).to(out.dtype)
+    return (out.reshape(B, S, H * hd)
+            @ L.cast(p.wo, out.dtype).reshape(H * hd, -1))
 
 
 # ---------------------------------------------------------------------------
@@ -150,22 +155,35 @@ def resolve_kv_dtype(cfg: ModelConfig, kv_dtype: Optional[str]) -> str:
     return kvd
 
 
-def _put_kv(cache: Dict[str, torch.Tensor], names: Tuple[str, ...], idx,
-            k: torch.Tensor, v: torch.Tensor) -> None:
-    """Write K/V rows at ``idx`` in place into the leaves ``names`` (K, V
+def _slots(leaf: torch.Tensor) -> torch.Tensor:
+    """A K/V leaf [N0, N1, *row] (pool [P, ps], ring [B, C]) as its N0 * N1
+    slots followed by the scratch slot behind them: [N0 * N1 + 1, *row]."""
+    n, row = leaf.shape[0] * leaf.shape[1], leaf.shape[2:]
+    need = (leaf.storage_offset() + (n + 1) * math.prod(row)) \
+        * leaf.element_size()
+    if not leaf.is_contiguous() or leaf.untyped_storage().nbytes() < need:
+        raise ValueError("K/V leaves are written through the scratch slot "
+                         "behind them: make caches with empty_cache")
+    return leaf.as_strided((n + 1, *row), (leaf.stride(1),
+                                           *leaf.stride()[2:]))
+
+
+def _put_kv(cache: Dict[str, torch.Tensor], names: Tuple[str, ...],
+            idx: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Write K/V rows [n, K, hd] at slots ``idx`` [n] (``_slots``; the
+    last one is the scratch slot) in place into the leaves ``names`` (K, V
     and the K scale, K zero and V scale sidecars).  An int8 cache
-    quantizes here, at write time: the scales land at the same index as
+    quantizes here, at write time: the scales land at the same slot as
     their int8 rows."""
     kn, vn, ksn, kzn, vsn = names
     if ksn in cache:
         kq, ks, kz = Q.quantize_k(k)
         vq, vs = Q.quantize_v(v)
-        for name, val in ((kn, kq), (vn, vq), (ksn, ks), (kzn, kz),
-                          (vsn, vs)):
-            cache[name].index_put_(idx, val)
+        vals = ((kn, kq), (vn, vq), (ksn, ks), (kzn, kz), (vsn, vs))
     else:
-        cache[kn].index_put_(idx, k.to(cache[kn].dtype))
-        cache[vn].index_put_(idx, v.to(cache[vn].dtype))
+        vals = ((kn, k.to(cache[kn].dtype)), (vn, v.to(cache[vn].dtype)))
+    for name, val in vals:
+        _slots(cache[name]).index_put_((idx,), val)
 
 
 def _scales(cache: Dict[str, torch.Tensor], names: Tuple[str, ...]
@@ -201,14 +219,26 @@ def kv_cache_def(cfg: ModelConfig, batch: int, capacity: int,
     return d
 
 
+KV_LEAVES = POOL_LEAVES + RING_LEAVES + ("tok",)
+
+
 def empty_cache(defs: Dict[str, Tuple[Tuple[int, ...], torch.dtype]],
                 device: Optional[torch.device] = None
                 ) -> Dict[str, torch.Tensor]:
     """A cache dict in its EMPTY state: zeros, except ``tok`` leaves, which
-    hold -1 (no token cached)."""
-    return {name: torch.full(shape, -1 if name == "tok" else 0, dtype=dt,
-                             device=device)
-            for name, (shape, dt) in defs.items()}
+    hold -1 (no token cached).  The storage of a K/V leaf holds one slot
+    more than the leaf: the scratch slot of the writes (``_slots``)."""
+    out = {}
+    for name, (shape, dt) in defs.items():
+        fill = -1 if name == "tok" else 0
+        if name in KV_LEAVES:
+            n = shape[0] * shape[1]
+            full = torch.full((n + 1, *shape[2:]), fill, dtype=dt,
+                              device=device)
+            out[name] = full[:n].view(shape)
+        else:
+            out[name] = torch.full(shape, fill, dtype=dt, device=device)
+    return out
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, capacity: int,
@@ -219,14 +249,26 @@ def init_kv_cache(cfg: ModelConfig, batch: int, capacity: int,
 
 
 def _ring_write(cache: Ring, k: torch.Tensor, v: torch.Tensor,
-                b: torch.Tensor, slot: torch.Tensor,
-                positions: torch.Tensor) -> Ring:
-    """Write K/V rows [n, K, hd] of tokens ``positions`` [n] at ring
-    coordinates (b, slot) [n] in place; no two rows share a slot."""
-    idx = (b.long(), slot.long())
+                idx: torch.Tensor, positions: torch.Tensor) -> Ring:
+    """Write K/V rows [n, K, hd] of tokens ``positions`` [n] in place at
+    ring slots ``idx`` [n] (row * C + slot, or B * C, the scratch slot);
+    no two rows share a slot but the scratch slot."""
     _put_kv(cache, RING_LEAVES, idx, k, v)
-    cache["tok"].index_put_(idx, positions.to(torch.int32))
+    _slots(cache["tok"]).index_put_((idx,), positions.to(torch.int32))
     return cache
+
+
+def _ring_slots(positions: torch.Tensor, keep: Optional[torch.Tensor],
+                C: int) -> torch.Tensor:
+    """Ring slot of each lane of a [B, S] block, flattened: row * C +
+    position % C where ``keep`` (everywhere when None), else the scratch
+    slot B * C."""
+    B = positions.shape[0]
+    rows = torch.arange(B, device=positions.device)[:, None] * C
+    idx = rows + positions.long() % C
+    if keep is not None:
+        idx = torch.where(keep, idx, B * C)
+    return idx.flatten()
 
 
 def prefill_into_cache(cache: Ring, k: torch.Tensor, v: torch.Tensor,
@@ -235,12 +277,13 @@ def prefill_into_cache(cache: Ring, k: torch.Tensor, v: torch.Tensor,
     Tokens at or past a sequence's length stay unwritten (tok = -1); when
     S exceeds the capacity C only each sequence's last C tokens survive —
     exactly the sliding-window semantics."""
-    S, C = k.shape[1], cache["k"].shape[1]
-    t = torch.arange(S, device=k.device)[None, :]
+    B, S = k.shape[:2]
+    C = cache["k"].shape[1]
+    t = torch.arange(S, device=k.device)[None, :].expand(B, S)
     n = lengths.long()[:, None]
     keep = (t < n) & (t >= n - C)
-    b, tt = torch.nonzero(keep, as_tuple=True)
-    return _ring_write(cache, k[b, tt], v[b, tt], b, tt % C, tt)
+    return _ring_write(cache, k.flatten(0, 1), v.flatten(0, 1),
+                       _ring_slots(t, keep, C), t.flatten())
 
 
 def _masked_ring_write(cache: Ring, k: torch.Tensor, v: torch.Tensor,
@@ -248,7 +291,9 @@ def _masked_ring_write(cache: Ring, k: torch.Tensor, v: torch.Tensor,
                        valid: Optional[torch.Tensor]) -> Ring:
     """Write the valid lanes of a [B, Sx] block into the ring, in place.
     When Sx exceeds the capacity two lanes can alias one slot; the later
-    lane wins (the earlier token has already left the window).
+    lane wins (the earlier token has already left the window).  The engine
+    never runs a block wider than its rings, so only direct calls take
+    that branch.
 
     Speculative verify writes follow the write-then-mask rollback contract
     of the paged pool: rejected lanes leave ``tok`` entries past the
@@ -259,16 +304,17 @@ def _masked_ring_write(cache: Ring, k: torch.Tensor, v: torch.Tensor,
     whose capacity is max_seq."""
     B, Sx = positions.shape
     C = cache["k"].shape[1]
-    if valid is None:
-        valid = torch.ones_like(positions, dtype=torch.bool)
-    slot = positions % C
-    lane = torch.arange(Sx, device=positions.device)
-    same = slot[:, :, None] == slot[:, None, :]                 # [B,Sx,Sx]
-    later = lane[None, None, :] > lane[None, :, None]
-    dup = (same & later & valid[:, None, :]).any(dim=-1)
-    b, s = torch.nonzero(valid & ~dup, as_tuple=True)
-    return _ring_write(cache, k[b, s], v[b, s], b, slot[b, s],
-                       positions[b, s])
+    keep = valid
+    if Sx > C:
+        if keep is None:
+            keep = torch.ones_like(positions, dtype=torch.bool)
+        slot = positions % C
+        lane = torch.arange(Sx, device=positions.device)
+        same = slot[:, :, None] == slot[:, None, :]             # [B,Sx,Sx]
+        later = lane[None, None, :] > lane[None, :, None]
+        keep = keep & ~(same & later & keep[:, None, :]).any(dim=-1)
+    return _ring_write(cache, k.flatten(0, 1), v.flatten(0, 1),
+                       _ring_slots(positions, keep, C), positions.flatten())
 
 
 def attention_decode(cfg: ModelConfig, p: Attention, x: torch.Tensor,
@@ -281,8 +327,8 @@ def attention_decode(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     C = cache["k"].shape[1]
     q, k, v = _qkv(cfg, p, x, pos[:, None])
-    _ring_write(cache, k[:, 0], v[:, 0], torch.arange(B, device=x.device),
-                pos % C, pos)
+    _ring_write(cache, k[:, 0], v[:, 0], _ring_slots(pos[:, None], None, C),
+                pos)
     out = ops.decode_attention(
         q.reshape(B, K, H // K, hd).contiguous(), cache["k"], cache["v"],
         cache["tok"], pos, window=window, **_scales(cache, RING_LEAVES))
@@ -343,11 +389,13 @@ def paged_kv_cache_def(cfg: ModelConfig, num_pages: int, page_size: int,
 def _paged_write(pool: Pool, k: torch.Tensor, v: torch.Tensor,
                  phys: torch.Tensor, off: torch.Tensor) -> Pool:
     """Write K/V rows into pool pages in place.  k/v: [B, (Sx,) K, hd];
-    phys/off: [B] or [B, Sx] (phys < 0 drops the lane: pad lanes and
-    unmapped positions)."""
-    keep = torch.nonzero(phys >= 0, as_tuple=True)   # one host sync
-    _put_kv(pool, POOL_LEAVES, (phys[keep].long(), off[keep].long()),
-            k[keep], v[keep])
+    phys/off: [B] or [B, Sx] (phys < 0 sends the lane to the scratch slot:
+    pad lanes and unmapped positions)."""
+    P, ps = pool["kp"].shape[:2]
+    idx = torch.where(phys >= 0, phys.long() * ps + off.long(), P * ps)
+    K, hd = k.shape[-2:]
+    _put_kv(pool, POOL_LEAVES, idx.flatten(), k.reshape(-1, K, hd),
+            v.reshape(-1, K, hd))
     return pool
 
 

@@ -2,8 +2,10 @@
 ``repro/models/layers.py``).
 
 Parameters keep the reference's layouts and dtypes (``wq [d, H, hd]``,
-``wi [d, ff]``, ...; stored in ``ModelConfig.param_dtype``) and are cast to
-the activation dtype at each use, as the JAX package does.  Every
+``wi [d, ff]``, ...; stored in ``ModelConfig.param_dtype``) and are read in
+the dtype each use site asks for, as in the JAX package; :func:`cast`
+makes that copy once per parameter and dtype instead of at every use, so
+no serving step re-casts a weight and a captured step allocates none.  Every
 parameter carries its initialisation recipe (``normal`` scaled by
 ``fan_in ** -0.5``, ``zeros``, ``ones`` or ``const``), which
 :func:`init_params` applies from an explicit ``torch.Generator``.
@@ -48,6 +50,24 @@ def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
     return module
 
 
+def cast(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``w`` in ``dtype``: ``w`` itself when it already is; for a parameter,
+    a copy kept on it, one per dtype, made again when the parameter was
+    written (its version counter moved: ``copy_``, ``load_state_dict``) or
+    moved (its storage changed: ``Module.to``).  The copy holds the values
+    ``w.to(dtype)`` gives; other tensors are cast afresh."""
+    if w.dtype == dtype:
+        return w
+    if not isinstance(w, nn.Parameter):
+        return w.to(dtype)
+    casts = w.__dict__.setdefault("_casts", {})
+    key = (w._version, w.data_ptr())
+    hit = casts.get(dtype)
+    if hit is None or hit[0] != key:
+        hit = casts[dtype] = (key, w.to(dtype))
+    return hit[1]
+
+
 def conv_tail_at(hist: torch.Tensor, n_valid: torch.Tensor,
                  ck: int) -> torch.Tensor:
     """Gather the ck-1 causal-conv history entries ending at each row's
@@ -74,7 +94,8 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
     """RMS-normalise the last axis in float32; returns x's dtype."""
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+    return (xf * torch.rsqrt(var + eps)
+            * cast(scale, torch.float32)).to(x.dtype)
 
 
 def rmsnorm_heads(scale: torch.Tensor, x: torch.Tensor,
@@ -118,9 +139,9 @@ class MLP(nn.Module):
 
 def mlp(p: MLP, x: torch.Tensor, act: str) -> torch.Tensor:
     dt = x.dtype
-    h = x @ p.wi.to(dt)
+    h = x @ cast(p.wi, dt)
     if act == "swiglu":
-        h = F.silu(x @ p.wg.to(dt)) * h
+        h = F.silu(x @ cast(p.wg, dt)) * h
     elif act == "relu2":
         h = F.relu(h).square()
     elif act == "gelu":
@@ -128,7 +149,7 @@ def mlp(p: MLP, x: torch.Tensor, act: str) -> torch.Tensor:
         h = F.gelu(h, approximate="tanh")
     else:
         raise ValueError(f"unknown act {act}")
-    return h @ p.wo.to(dt)
+    return h @ cast(p.wo, dt)
 
 
 # ---------------------------------------------------------------------------
@@ -143,4 +164,4 @@ def embed(table: torch.Tensor, tokens: torch.Tensor,
 
 def unembed(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Logits ``x @ w`` for a [d, vocab] unembedding, in x's dtype."""
-    return x @ w.to(x.dtype)
+    return x @ cast(w, x.dtype)

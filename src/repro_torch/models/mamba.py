@@ -64,19 +64,19 @@ def _causal_conv(cfg: ModelConfig, p: MambaBlock, x: torch.Tensor,
     """Depthwise causal conv1d continuing ``init_state``.  x: [B, S, di]."""
     ck, S = cfg.ssm_conv, x.shape[1]
     xp = torch.cat([init_state.to(x.dtype), x], dim=1)     # [B, S+ck-1, di]
-    w = p.conv_w.to(x.dtype)                               # [ck, di]
+    w = L.cast(p.conv_w, x.dtype)                          # [ck, di]
     y = sum(xp[:, j:j + S] * w[j] for j in range(ck))
-    return F.silu(y + p.conv_b.to(x.dtype))
+    return F.silu(y + L.cast(p.conv_b, x.dtype))
 
 
 def _ssm_params(cfg: ModelConfig, p: MambaBlock, xc: torch.Tensor):
     """Input-dependent dt (float32, post-softplus) and B, C rows (in the
     activation dtype).  xc: [B, S, di] (post-conv)."""
     dtr, st = cfg.dt_rank, cfg.ssm_state
-    proj = xc @ p.x_proj.to(xc.dtype)
+    proj = xc @ L.cast(p.x_proj, xc.dtype)
     dt_raw, Bmat, Cmat = torch.split(proj, [dtr, st, st], dim=-1)
-    dt = dt_raw @ p.dt_proj.to(xc.dtype)
-    dt = F.softplus(dt.float() + p.dt_bias.float())
+    dt = dt_raw @ L.cast(p.dt_proj, xc.dtype)
+    dt = F.softplus(dt.float() + L.cast(p.dt_bias, torch.float32))
     return dt, Bmat, Cmat
 
 
@@ -86,10 +86,10 @@ def _scan(cfg: ModelConfig, p: MambaBlock, xc: torch.Tensor,
     dt, Bmat, Cmat = _ssm_params(cfg, p, xc)
     if valid is not None:
         dt = torch.where(valid[:, :, None], dt, 0.0)
-    A = -torch.exp(p.A_log.float())                        # [di, st]
+    A = -torch.exp(L.cast(p.A_log, torch.float32))         # [di, st]
     return ops.mamba_scan(dt.contiguous(), Bmat.float().contiguous(),
                           Cmat.float().contiguous(), xc.contiguous(), A,
-                          p.D.float(), h0)
+                          L.cast(p.D, torch.float32), h0)
 
 
 def _conv_tail(cfg: ModelConfig, hist: torch.Tensor,
@@ -109,12 +109,12 @@ def mamba_mixer(cfg: ModelConfig, p: MambaBlock, x: torch.Tensor,
     advanced in place over the valid lanes ([B, S] ``valid``; all lanes
     when None)."""
     dt_ = x.dtype
-    xb, z = (x @ p.in_proj.to(dt_)).chunk(2, dim=-1)       # [B,S,di] each
+    xb, z = (x @ L.cast(p.in_proj, dt_)).chunk(2, dim=-1)       # [B,S,di] each
     conv0 = state["conv"]
     xc = _causal_conv(cfg, p, xb, conv0)
     y, h_last = _scan(cfg, p, xc, state["h"], valid)
     y = y.to(dt_) * F.silu(z)
-    out = y @ p.out_proj.to(dt_)
+    out = y @ L.cast(p.out_proj, dt_)
     if cfg.ssm_conv > 1:
         hist = torch.cat([conv0.to(dt_), xb], dim=1)
         conv0.copy_(_conv_tail(cfg, hist, valid))
@@ -126,15 +126,15 @@ def mamba_mixer_decode(cfg: ModelConfig, p: MambaBlock, x: torch.Tensor,
                        state: State) -> torch.Tensor:
     """One-token step.  x: [B, 1, d]; ``state`` advanced in place."""
     dt_ = x.dtype
-    xb, z = (x @ p.in_proj.to(dt_)).chunk(2, dim=-1)       # [B,1,di]
+    xb, z = (x @ L.cast(p.in_proj, dt_)).chunk(2, dim=-1)       # [B,1,di]
     ck = cfg.ssm_conv
     conv_in = torch.cat([state["conv"].to(dt_), xb], dim=1)  # [B,ck,di]
-    w = p.conv_w.to(dt_)
+    w = L.cast(p.conv_w, dt_)
     yc = sum(conv_in[:, j] * w[j] for j in range(ck))      # [B,di]
-    xc = F.silu(yc + p.conv_b.to(dt_))[:, None]            # [B,1,di]
+    xc = F.silu(yc + L.cast(p.conv_b, dt_))[:, None]       # [B,1,di]
     y, h = _scan(cfg, p, xc, state["h"], None)
     y = y.to(dt_) * F.silu(z)
-    out = y @ p.out_proj.to(dt_)
+    out = y @ L.cast(p.out_proj, dt_)
     state["conv"].copy_(conv_in[:, 1:])
     state["h"].copy_(h)
     return out

@@ -63,17 +63,18 @@ def _conv(p: RGLRUBlock, x: torch.Tensor,
           init_state: torch.Tensor) -> torch.Tensor:
     S = x.shape[1]
     xp = torch.cat([init_state.to(x.dtype), x], dim=1)
-    w = p.conv_w.to(x.dtype)
+    w = L.cast(p.conv_w, x.dtype)
     return (sum(xp[:, j:j + S] * w[j] for j in range(CONV_K))
-            + p.conv_b.to(x.dtype))
+            + L.cast(p.conv_b, x.dtype))
 
 
 def _rg_gates(p: RGLRUBlock, xc: torch.Tensor):
     """Decay a_t and gated input b_t of the recurrence, float32."""
     xf = xc.float()
-    i_gate = torch.sigmoid(xf @ p.w_input_gate.float())
-    r_gate = torch.sigmoid(xf @ p.w_rec_gate.float())
-    log_a = -RG_C * F.softplus(p.lam.float()) * r_gate     # [B,S,w]
+    i_gate = torch.sigmoid(xf @ L.cast(p.w_input_gate, torch.float32))
+    r_gate = torch.sigmoid(xf @ L.cast(p.w_rec_gate, torch.float32))
+    lam = L.cast(p.lam, torch.float32)
+    log_a = -RG_C * F.softplus(lam) * r_gate               # [B,S,w]
     a = torch.exp(log_a)
     # sqrt(1 - a^2) computed stably via log
     b_scale = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a),
@@ -88,8 +89,8 @@ def rglru_mixer(cfg: ModelConfig, p: RGLRUBlock, x: torch.Tensor,
     advanced in place over the valid lanes ([B, S] ``valid``; all lanes
     when None)."""
     dt_ = x.dtype
-    xb = x @ p.in_x.to(dt_)
-    yb = x @ p.in_y.to(dt_)
+    xb = x @ L.cast(p.in_x, dt_)
+    yb = x @ L.cast(p.in_y, dt_)
     conv0 = state["conv"]
     a, b = _rg_gates(p, _conv(p, xb, conv0))
     if valid is not None:
@@ -98,7 +99,7 @@ def rglru_mixer(cfg: ModelConfig, p: RGLRUBlock, x: torch.Tensor,
         b = torch.where(m, b, 0.0)
     hs, h_last = ops.rglru_scan(a.contiguous(), b.contiguous(), state["h"])
     y = hs.to(dt_) * F.gelu(yb, approximate="tanh")
-    out = y @ p.out.to(dt_)
+    out = y @ L.cast(p.out, dt_)
     hist = torch.cat([conv0.to(dt_), xb], dim=1)
     if valid is not None:
         conv0.copy_(L.conv_tail_at(hist, valid.sum(dim=1), CONV_K))
@@ -112,16 +113,16 @@ def rglru_mixer_decode(cfg: ModelConfig, p: RGLRUBlock, x: torch.Tensor,
                        state: State) -> torch.Tensor:
     """One-token step.  x: [B, 1, d]; ``state`` advanced in place."""
     dt_ = x.dtype
-    xb = x @ p.in_x.to(dt_)                                # [B,1,w]
-    yb = x @ p.in_y.to(dt_)
+    xb = x @ L.cast(p.in_x, dt_)                                # [B,1,w]
+    yb = x @ L.cast(p.in_y, dt_)
     conv_in = torch.cat([state["conv"].to(dt_), xb], dim=1)
-    w = p.conv_w.to(dt_)
+    w = L.cast(p.conv_w, dt_)
     xc = (sum(conv_in[:, j] * w[j] for j in range(CONV_K))
-          + p.conv_b.to(dt_))                              # [B,w]
+          + L.cast(p.conv_b, dt_))                              # [B,w]
     a, b = _rg_gates(p, xc[:, None])
     hs, h = ops.rglru_scan(a, b, state["h"])
     y = hs.to(dt_) * F.gelu(yb, approximate="tanh")
-    out = y @ p.out.to(dt_)
+    out = y @ L.cast(p.out, dt_)
     state["conv"].copy_(conv_in[:, 1:])
     state["h"].copy_(h)
     return out

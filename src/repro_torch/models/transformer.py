@@ -143,8 +143,9 @@ class TransformerLM(nn.Module):
         return L.embed(self.embed, tokens, self.dtype)
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.embed.T if self.cfg.tie_embeddings else self.unembed
-        return L.unembed(w, x)
+        if self.cfg.tie_embeddings:
+            return x @ L.cast(self.embed, x.dtype).T
+        return L.unembed(self.unembed, x)
 
     # ---------------- full sequences -----------------------------------------
 

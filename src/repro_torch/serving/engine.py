@@ -29,25 +29,34 @@ by truncating page-table tails (paged) or are masked and overwritten
 speculate).  Only committed tokens are billed (``TokenUsage``).
 
 Differences from the reference:
-  * PyTorch runs eagerly: there is no ``jax.jit``, no per-shape
-    executable cache and no AOT warmup; ``stats()["step_compiles"]`` is 0.
+  * PyTorch runs eagerly: there is no ``jax.jit``.  With
+    ``ServeConfig.aot_warmup`` the constructor warms every step shape the
+    serve loop can reach — decode ``[B, 1]``, mixed ``[B, w]`` for each
+    bucket width, verify ``[B, 1 + spec_tokens]`` — as CUDA graphs
+    (serving/step_graph.py; on the CPU, eager runs through the same static
+    buffers), restores the cache to empty, and replays them from then on;
+    a step shape that was not warmed runs eagerly and counts in
+    ``stats()["step_compiles"]``, the reference's recompile tripwire.
+    Sampling and the COW page copies stay eager, outside the graphs.
+    Without it every step runs eagerly and ``step_compiles`` is 0.
   * The model runs on ``device`` (CUDA unless the caller asks for the
-    CPU); page pools and ring caches are updated in place, and COW copies
-    run as one indexed copy per pool leaf with only real (src, dst) pairs.
+    CPU); page pools and ring caches are updated in place (never rebound,
+    so a captured step keeps their addresses), and COW copies run as one
+    indexed copy per pool leaf with only real (src, dst) pairs.
   * Recurrent models (mamba, RG-LRU) keep dense per-slot state beside the
     page pool, as in the reference: zeroed at admission (so a preemption
     replay restarts from zero), copied into prefix snapshots and restored
     from them; speculative decoding is off for them.
   * Not ported yet — the constructor raises ``NotImplementedError`` when
     asked for them: fault injection, deadlines, NaN quarantine, the stall
-    detector, SLO pricing, meshes and AOT warmup; MoE, whisper and vlm
-    models fail when the model is built.
+    detector, SLO pricing and meshes; MoE, whisper and vlm models fail
+    when the model is built.
 """
 from __future__ import annotations
 
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -63,6 +72,7 @@ from repro_torch.serving.request import (BudgetTier, Request, Status,
                                          TokenUsage)
 from repro_torch.serving.speculator import (NGramSpeculator, draft_corpus,
                                             external_draft_proposal)
+from repro_torch.serving.step_graph import StepGraph
 
 
 def _unsupported(scfg: ServeConfig, faults, mesh) -> List[str]:
@@ -70,7 +80,6 @@ def _unsupported(scfg: ServeConfig, faults, mesh) -> List[str]:
     asked = {
         "faults": faults is not None,
         "mesh": mesh is not None or scfg.mesh is not None,
-        "aot_warmup": scfg.aot_warmup,
         "enforce_deadlines": scfg.enforce_deadlines,
         "nan_quarantine": scfg.nan_quarantine,
         "stall_limit": scfg.stall_limit > 0,
@@ -199,6 +208,21 @@ class Engine:
                             "spec_accepted": 0, "slo_rejections": 0,
                             "timeouts": 0, "stalls": 0, "errors": 0}
 
+        # The model call of each step kind, on int32 device tensors
+        # (tokens, positions[, n_valid][, page table]) -> logits; the cache
+        # is updated in place.  With aot_warmup each runs behind a
+        # StepGraph, warmed (captured on a card) before the first request.
+        model, cache = self.model, self.cache
+        self._fns: Dict[str, Callable[..., torch.Tensor]] = {
+            "decode": lambda *a: model.decode_step(cache, *a)[0],
+            "mixed": lambda *a: model.prefill_extend(cache, *a)[0],
+            "verify": lambda *a: model.prefill_extend(
+                cache, *a, all_logits=True)[0]}
+        self._steps: Dict[str, StepGraph] = {}
+        self._startup_s = 0.0           # seconds aot warm-up took
+        if scfg.aot_warmup:
+            self._aot_compile()
+
     # ------------------------------------------------------------------ API
 
     def submit(self, req: Request) -> int:
@@ -261,10 +285,15 @@ class Engine:
                 "kv_pool_pages": self.pool.num_pages}
 
     def stats(self) -> Dict[str, Any]:
-        """Serving counters.  PyTorch runs eagerly, so the reference's
-        recompile tripwire reads 0."""
+        """Serving counters and the recompile tripwire: after aot_warmup,
+        ``step_compiles`` (steps run at a shape that was not warmed) must
+        stay 0; without it every step runs eagerly and it reads 0."""
         out = dict(self.model_steps)
-        out["step_compiles"] = 0
+        out["step_compiles"] = sum(f.compiles for f in self._steps.values())
+        out["step_compiles_by_fn"] = {n: f.compiles
+                                      for n, f in self._steps.items()}
+        out["aot_warmed"] = sum(f.warmed for f in self._steps.values())
+        out["startup_compile_s"] = self._startup_s
         out["device"] = str(self.device)
         out["attn_impl"] = self.attn_impl
         out.update(self._kv_stats())
@@ -308,11 +337,48 @@ class Engine:
         self.finished.append(req)
         self.requests.pop(req.uid, None)
 
-    def _tensor(self, a: Optional[np.ndarray]) -> Optional[torch.Tensor]:
-        if a is None:
-            return None
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
             self.device)
+
+    # ------------------------------------------------------ model steps
+
+    def _aot_compile(self) -> None:
+        """Warm every step shape the serve loop can reach (the reference's
+        ``aot_compile``): decode [B, 1], mixed [B, w] at each bucket width,
+        verify [B, 1 + spec_tokens]; then empty the cache IN PLACE, since
+        the warm-up runs wrote into it (ring rows, recurrent state) and
+        the graphs hold the leaves' addresses."""
+        t0 = time.perf_counter()
+        B = self.scfg.max_batch
+        pool = (torch.cuda.graph_pool_handle()
+                if self.device.type == "cuda" else None)
+        kinds = ("decode", "mixed") + (("verify",) if self.spec else ())
+        self._steps = {k: StepGraph(self._fns[k], self.device, pool)
+                       for k in kinds}
+        pt = ((B, self.pages_per_seq),) if self.paged else ()
+        self._steps["decode"].warm((B, 1), (B,), *pt)
+        for w in self._mixed_buckets:
+            self._steps["mixed"].warm((B, w), (B,), (B,), *pt)
+        if self.spec:
+            self._steps["verify"].warm((B, 1 + self.spec_tokens), (B,),
+                                       (B,), *pt)
+        for layer in self.cache:
+            for name, leaf in layer.items():
+                leaf.fill_(-1 if name == "tok" else 0)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._startup_s = time.perf_counter() - t0
+
+    def _run(self, kind: str, *arrays: np.ndarray) -> torch.Tensor:
+        """One model step of ``kind`` on host integer arrays, the page
+        table appended when paged: a warmed step's replay, else an eager
+        call.  Returns the logits (read them before the next step)."""
+        if self.paged:
+            arrays += (self.page_tables,)
+        if self._steps:
+            return self._steps[kind](*arrays)
+        return self._fns[kind](*(self._tensor(a) for a in arrays))
 
     # -------------------------------------------------- page-pool plumbing
 
@@ -821,7 +887,6 @@ class Engine:
             if drafts else None)
         if self.paged:
             self._flush_copies()
-        pt = self._tensor(self.page_tables)
         decode_rows = [i for i, r in enumerate(self.slots)
                        if r is not None and r.status is Status.DECODING]
         drafts = {s: d for s, d in drafts.items()
@@ -836,15 +901,13 @@ class Engine:
             self.model_steps["starved_mixed_steps"] += 1
 
         if drafts:
-            return self._verify_step(plan, decode_rows, drafts, pt)
+            return self._verify_step(plan, decode_rows, drafts)
 
         if not plan and not starved:
             # decode fast path: taken only when NO row is PREFILLING (the
             # decode step has no validity mask, so a page-starved
             # prefilling row must ride the mixed step as an nv=0 no-op)
-            logits, self.cache = self.model.decode_step(
-                self.cache, self._tensor(self.next_token[:, None]),
-                self._tensor(self.pos), page_table=pt)
+            logits = self._run("decode", self.next_token[:, None], self.pos)
             self.model_steps["decode_batch_steps"] += 1
             self.model_steps["decode_steps"] += len(decode_rows)
             sampled = self._sample_rows(logits)
@@ -858,9 +921,7 @@ class Engine:
         need = max(plan.values()) if plan else 1
         W = next(w for w in self._mixed_buckets if w >= need)
         toks, pos0, nv = self._lanes(B, W, plan, decode_rows, {})
-        logits, self.cache = self.model.prefill_extend(
-            self.cache, self._tensor(toks), self._tensor(pos0),
-            self._tensor(nv), page_table=pt)
+        logits = self._run("mixed", toks, pos0, nv)
         self.model_steps["mixed_steps"] += 1
         self.model_steps["decode_steps"] += len(decode_rows)
         self.model_steps["max_step_prefill_tokens"] = max(
@@ -897,7 +958,7 @@ class Engine:
         return toks, pos0, nv
 
     def _verify_step(self, plan: Dict[int, int], decode_rows: List[int],
-                     drafts: Dict[int, List[int]], pt) -> bool:
+                     drafts: Dict[int, List[int]]) -> bool:
         """One speculative verify step: score every row's committed token
         + drafted continuation in a single [B, 1 + spec_tokens] model call
         with per-lane logits, then commit the longest accepted prefix per
@@ -907,18 +968,15 @@ class Engine:
         ndraft = np.zeros(B, np.int32)
         for slot in decode_rows:
             ndraft[slot] = len(drafts.get(slot, []))
-        toks_t = self._tensor(toks)
-        nv_t = self._tensor(nv)
-        logits_all, self.cache = self.model.prefill_extend(
-            self.cache, toks_t, self._tensor(pos0), nv_t, page_table=pt,
-            all_logits=True)
+        logits_all = self._run("verify", toks, pos0, nv)
         self.model_steps["verify_steps"] += 1
         self.model_steps["decode_steps"] += len(decode_rows)
         self.model_steps["max_step_prefill_tokens"] = max(
             self.model_steps["max_step_prefill_tokens"],
             int(sum(plan.values())))
         n_emit, emit = sampler.verify_batch(
-            logits_all, toks_t, nv_t, self._tensor(ndraft),
+            logits_all, self._tensor(toks), self._tensor(nv),
+            self._tensor(ndraft),
             self._temperatures(), self.generator)
         n_emit, emit = n_emit.cpu().numpy(), emit.cpu().numpy()
         # prefill rows: emit[:, 0] is the sample at their last valid lane

@@ -11,8 +11,13 @@ the RG-LRU scan bit for bit), the bf16 flash body and the split ring and
 page walks give bit-equal results from call to call (the paged kernels
 also at forced split counts at the split walk's edges), the wrappers
 refuse what the kernels do not take, and small engine and model runs on
-the card launch the kernels of their models' paths.
+the card launch the kernels of their models' paths.  Engines whose steps
+are captured as CUDA graphs give the eager engines' streams, bills and
+launches, and a replay reads the page table it is given.
 """
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 
@@ -660,3 +665,134 @@ def test_prefill_on_card_launches_flash_and_matches_cpu(dev, arch):
     want, _ = cpu.decode_step(cpu_cache, nxt, lengths)
     torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=1e-3)
     assert ops.LAUNCHES["decode_attention"] == n_attn
+
+
+# ------------------------------------------------ captured serving steps
+
+def _card_serve(m, scfg, rounds=2, max_new=12):
+    """Reflection rounds of three conversations on the card; returns the
+    engine, the streams, the bills and the launches of the rounds."""
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import Request, Status
+
+    eng = Engine(m, scfg, device="cuda")
+    ops.reset_launches()
+    convos = [[1] + list(range(10 + i, 22 + i)) * 3 for i in range(3)]
+    outs, usage = [], []
+    for _ in range(rounds):
+        reqs = [Request(prompt=list(c), max_new_tokens=max_new, eos_id=None)
+                for c in convos]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        assert all(r.status is Status.DONE for r in reqs)
+        outs += [r.output for r in reqs]
+        usage += [dataclasses.asdict(r.usage) for r in reqs]
+        for c, r in zip(convos, reqs):
+            c += r.output + [99, 98]
+    torch.cuda.synchronize()
+    return eng, outs, usage, dict(ops.LAUNCHES)
+
+
+@pytest.mark.parametrize("arch,kw", [
+    ("reflect_demo_100m", dict(kv_dtype="model")),
+    ("reflect_demo_100m", dict(kv_dtype="int8")),
+    ("reflect_demo_100m", dict(paged_kv=False)),
+    ("falcon_mamba_7b", {}),
+    ("recurrentgemma_9b", dict(paged_kv=False))])
+def test_captured_engine_equals_eager(dev, arch, kw):
+    """Full width at a cut depth (one unit of the pattern), speculation
+    asked for: the engine with every step captured as a CUDA graph gives
+    the eager engine's streams, bills and kernel launches (the graphs add
+    the launches their capture recorded on every replay), with no step
+    outside its captured shapes."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.models.registry import build_model, get_config
+
+    cfg = get_config(arch)
+    n = 3 if arch == "recurrentgemma_9b" else 2
+    cfg = cfg.replace(num_layers=n, block_pattern=cfg.block_pattern[:n])
+    with torch.device(dev):
+        m = build_model(cfg)
+    m.init(torch.Generator(device=dev).manual_seed(0))
+    scfg = ServeConfig(max_batch=3, max_seq=256, page_size=16,
+                       spec_decode=True, spec_tokens=4, **kw)
+    _, outs, usage, launches = _card_serve(m, scfg)
+    eng, c_outs, c_usage, c_launches = _card_serve(
+        m, dataclasses.replace(scfg, aot_warmup=True))
+    st = eng.stats()
+    assert st["step_compiles"] == 0, st["step_compiles_by_fn"]
+    assert st["aot_warmed"] >= 2
+    assert c_outs == outs and c_usage == usage
+    assert c_launches == launches and sum(launches.values()) > 0
+
+
+def test_replay_reads_the_page_table_it_is_given(dev):
+    """One captured decode signature replayed with two page tables (the
+    rows' pages swapped, then a table with an unmapped tail) gives the
+    eager step's logits on a copy of the same cache, bit for bit."""
+    from repro_torch.models.registry import build_model, get_smoke_config
+    from repro_torch.serving.step_graph import StepGraph
+
+    m = build_model(get_smoke_config("reflect_demo_100m")).init(
+        torch.Generator().manual_seed(0)).to(dev)
+    B, P, ps, NP = 2, 8, 16, 4
+    cache = m.init_cache_paged(P, ps, device=dev)
+    step = StepGraph(lambda *a: m.decode_step(cache, *a)[0], dev)
+    step.warm((B, 1), (B,), (B, NP))
+    assert step.warmed == 1
+    i32 = dict(dtype=torch.int32, device=dev)
+    toks = torch.randint(3, m.cfg.vocab_size, (B, 40),
+                         generator=torch.Generator().manual_seed(1))
+    pt = torch.arange(B * NP, **i32).view(B, NP)
+    m.prefill_extend(cache, toks.to(dev), torch.zeros(B, **i32),
+                     torch.full((B,), 40, **i32), page_table=pt)
+    twin = m.init_cache_paged(P, ps, device=dev)
+    for a, b in zip(twin, cache):
+        for name in a:
+            a[name].copy_(b[name])
+    swapped = pt.flip(0)
+    tail = pt.clone()
+    tail[:, 3:] = -1
+    nxt = torch.tensor([[5], [7]], dtype=torch.int32)
+    for i, table in enumerate((swapped, tail, pt)):
+        pos = torch.full((B,), 40 + i, dtype=torch.int32)
+        got = step(nxt.numpy(), pos.numpy(), table.cpu().numpy()).clone()
+        want, _ = m.decode_step(twin, nxt.to(dev), pos.to(dev),
+                                page_table=table)
+        assert torch.equal(got, want), i
+    assert step.compiles == 0
+
+
+def test_nothing_is_captured_after_warmup(dev):
+    """After warm-up a serve adds no graph; a width that was not warmed
+    runs eagerly and counts as a compile without capturing; and a step
+    that cannot be captured (a host read) fails its warm-up."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.models.registry import build_model, get_smoke_config
+    from repro_torch.serving.step_graph import StepGraph
+
+    m = build_model(get_smoke_config("reflect_demo_100m")).init(
+        torch.Generator().manual_seed(0))
+    eng, *_ = _card_serve(m, ServeConfig(max_batch=3, max_seq=256,
+                                         page_size=16, spec_decode=True,
+                                         aot_warmup=True))
+
+    def graphs():
+        return {n: len(f._sigs) for n, f in eng._steps.items()}
+
+    before, warmed = graphs(), eng.stats()["aot_warmed"]
+    assert sum(before.values()) == warmed >= 3
+    B = eng.scfg.max_batch
+    z = np.zeros
+    logits = eng._steps["mixed"](z((B, 3), np.int32), z(B, np.int32),
+                                 z(B, np.int32), eng.page_tables)
+    assert logits.shape == (B, m.cfg.vocab_size)
+    st = eng.stats()
+    assert st["step_compiles_by_fn"] == {"decode": 0, "mixed": 1,
+                                         "verify": 0}
+    assert graphs() == before and st["aot_warmed"] == warmed
+
+    bad = StepGraph(lambda t: t * int(t.sum().item()), dev)
+    with pytest.raises(RuntimeError):
+        bad.warm((4,))

@@ -121,7 +121,7 @@ def test_engine_preemption_matches_jax(fitted):
 @pytest.mark.parametrize("option", [
     {"enforce_deadlines": True}, {"nan_quarantine": True},
     {"stall_limit": 3}, {"slo_price_model": "claude-3.5-sonnet"},
-    {"mesh": "1x1"}, {"aot_warmup": True},
+    {"mesh": "1x1"},
     {"paged_kv": False, "nan_quarantine": True}])
 def test_unported_options_raise(fitted, option):
     """Options the port lacks raise, in the ring mode too."""

@@ -27,7 +27,7 @@ def test_port_imports_no_jax_and_no_repro():
         assert len(names) >= 20, names
         for name in ("kernels.flash_attention", "kernels.decode_attention",
                      "models.attention", "models.transformer",
-                     "serving.engine"):
+                     "serving.engine", "serving.step_graph"):
             assert "repro_torch." + name in names, name
         print(len(names))
     """)
@@ -80,8 +80,9 @@ def test_engine_on_cuda_raises_without_a_card():
 
 def test_serve_launcher(capsys):
     """``launch/serve.py`` serves two reflection rounds on the CPU when
-    asked, refuses the card by default when there is none, and raises for
-    the options the port lacks."""
+    asked, also with ``--aot`` (no step outside the warmed shapes),
+    refuses the card by default when there is none, and raises for the
+    options the port lacks."""
     from repro_torch.launch import serve
 
     serve.main(["--device", "cpu", "--requests", "2", "--rounds", "2",
@@ -89,9 +90,13 @@ def test_serve_launcher(capsys):
     out = capsys.readouterr().out
     assert "2 requests x 2 rounds" in out and "on cpu" in out
     assert "'hits': 2" in out                   # round 2 hit both prefixes
+    serve.main(["--device", "cpu", "--requests", "2", "--rounds", "1",
+                "--max-new", "4", "--aot"])
+    out = capsys.readouterr().out
+    assert "aot warmup: 2 step shapes" in out and "step_compiles 0" in out
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve.main(["--requests", "1", "--rounds", "1"])
-    for flag in (["--mesh", "1x1"], ["--aot"], ["--replicas", "2"]):
+    for flag in (["--mesh", "1x1"], ["--replicas", "2"]):
         with pytest.raises(NotImplementedError):
             serve.main(["--device", "cpu", "--requests", "1", *flag])

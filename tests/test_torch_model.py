@@ -46,6 +46,16 @@ def _pool(rng, P, ps, K, hd, quant):
             (("kp", kq), ("vp", vq), ("ksp", ks), ("kzp", kz), ("vsp", vs))}
 
 
+def _cache(arrays):
+    """The port's pool holding ``arrays``, made by ``empty_cache`` (whose
+    K/V leaves keep the writes' scratch slot behind them)."""
+    cache = A.empty_cache({n: (a.shape, torch.tensor(a).dtype)
+                           for n, a in arrays.items()})
+    for n, a in arrays.items():
+        cache[n].copy_(torch.tensor(a))
+    return cache
+
+
 def _attn_setup(arch, quant, seed):
     jcfg = jsmoke(arch).replace(dtype="float32")
     cfg = get_smoke_config(arch).replace(dtype="float32")
@@ -72,7 +82,7 @@ def test_attention_decode_paged_matches_jax(quant, window):
         jcfg, {k: jnp.asarray(v) for k, v in jp.items()}, jnp.asarray(x),
         {k: jnp.asarray(v) for k, v in pool.items()}, jnp.asarray(pos),
         jnp.asarray(pt), window)
-    tpool = {k: torch.tensor(v) for k, v in pool.items()}
+    tpool = _cache(pool)
     got, tpool = A.attention_decode_paged(
         cfg, p, torch.tensor(x), tpool, torch.tensor(pos), torch.tensor(pt),
         window)
@@ -97,7 +107,7 @@ def test_attention_extend_paged_matches_jax(quant, window):
         jcfg, {k: jnp.asarray(v) for k, v in jp.items()}, jnp.asarray(x),
         {k: jnp.asarray(v) for k, v in pool.items()}, jnp.asarray(pos0),
         window, jnp.asarray(pt), jnp.asarray(valid))
-    tpool = {k: torch.tensor(v) for k, v in pool.items()}
+    tpool = _cache(pool)
     got, tpool = A.attention_extend_paged(
         cfg, p, torch.tensor(x), tpool, torch.tensor(pos0), window,
         torch.tensor(pt), torch.tensor(valid))

@@ -202,8 +202,17 @@ def _ring(rng, B, C, K, hd, quant, fill):
         vq, vs = JQ.quantize_v(jnp.asarray(v))
         ring.update(k=np.asarray(kq), v=np.asarray(vq), ks=np.asarray(ks),
                     kz=np.asarray(kz), vs=np.asarray(vs))
-    return ({n: jnp.asarray(a) for n, a in ring.items()},
-            {n: _t(a) for n, a in ring.items()})
+    return ({n: jnp.asarray(a) for n, a in ring.items()}, _cache(ring))
+
+
+def _cache(arrays):
+    """The port's cache holding ``arrays``, made by ``empty_cache`` (whose
+    K/V leaves keep the writes' scratch slot behind them)."""
+    cache = A.empty_cache({n: (a.shape, _t(a).dtype)
+                           for n, a in arrays.items()})
+    for n, a in arrays.items():
+        cache[n].copy_(_t(a))
+    return cache
 
 
 def _assert_ring_equal(got, want):
