@@ -77,16 +77,29 @@ Phases, each of which stops the run with a non-zero exit on any error:
    a profiler summary of device time by kernel gives the idle share, and
    a check holds the model's logits on the card against the plain path on
    the CPU, through chunked paged prefill and through ``prefill`` and
-   ring ``decode_step`` (the recurrent models at a cut depth).  A last
-   check serves reflect_demo_100m at two layers in float32 (q/k softened)
-   on the card with captured steps and on the CPU through the port's
-   engine: token streams and bills must be identical, and the smallest
+   ring ``decode_step`` (the recurrent models at a cut depth).
+   ``[reflect]``: on the full-width demo model, the paper's reflection
+   loop through ``repro_torch/core`` — the strategy grid of
+   ``examples/torch_reflection_serving.py`` (0, 1 and 3 rounds x no or
+   execution feedback, 4 SQL tasks, a fresh engine with captured steps
+   each, 24 new tokens a round), then the routed loop (default
+   ``ControllerConfig``, the last two tasks under a latency SLO), then
+   reflect3/exec eagerly, which must give the captured run's responses,
+   bills, step counters and launches; every reflection round must read
+   the conversation from the cache, and each strategy prints its bill
+   under the paper's price book, the paper's modeled API latency beside
+   the card's wall a round, ms a step, speculation and prefix hits.  A
+   last check serves reflect_demo_100m at two layers in float32 (q/k
+   softened) on the card with captured steps and on the CPU through the
+   port's engine, token rounds and then reflect1/exec and the routed
+   loop over 2 SQL tasks: token streams, bills, the loop's responses,
+   decision traces and stop reasons must be identical, and the smallest
    top-1/top-2 logit gap sampled is printed.
 5. result  — a JSON line of kernel records, the card line, and last the
    JSON status line.
 
 Exits non-zero without a result when no CUDA device is present, or when
-the port's sources are not next to this script.
+the port's sources (``src/``, ``examples/``) are not next to this script.
 """
 import dataclasses
 import gc
@@ -116,6 +129,10 @@ REPLACES = {"paged_decode": "src/repro/kernels/paged_attention.py:102",
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu"
            for name in REPLACES}
 STEP_KINDS = ("mixed_steps", "decode_batch_steps", "verify_steps")
+STEP_KEYS = ("prefill_tokens", "extend_tokens", "decode_tokens",
+             "decode_batch_steps", "mixed_steps", "verify_steps",
+             "spec_drafted", "spec_accepted", "preemptions",
+             "prefill_chunks")
 # engine step kind -> its counter in Engine.stats()
 STEP_COUNTERS = {"mixed": "mixed_steps", "decode": "decode_batch_steps",
                  "verify": "verify_steps"}
@@ -798,11 +815,16 @@ def check_engine(cfg, state, dev, soften):
     """The engine on the card, every step captured, against the port's
     engine on the CPU (which the CPU tests hold to the JAX engine): float32
     activations and parameters, q/k scaled by ``soften`` as in
-    ``check_logits``, 8 seeded conversations, 2 reflection rounds.
-    Greedy streams and bills must be identical; prints the smallest
-    top-1/top-2 logit gap that either engine sampled from, so that a
-    near-tie can be told from a fault."""
+    ``check_logits``, 8 seeded conversations, 2 reflection rounds; then,
+    on the same engines, the paper's reflection loop over 2 SQL tasks:
+    reflect1 with execution feedback, and the routed loop
+    (``reflect_router``).  Greedy streams and bills must be identical, and
+    the loop's responses, per-round bills, decision traces and stop
+    reasons; prints the smallest top-1/top-2 logit gap that either engine
+    sampled from, so that a near-tie can be told from a fault."""
+    import torch_reflection_serving as example
     from repro_torch.configs.base import ServeConfig
+    from repro_torch.data.tasks import make_sql_tasks
     from repro_torch.models.registry import build_model
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.request import Request
@@ -838,6 +860,7 @@ def check_engine(cfg, state, dev, soften):
     rng = np.random.default_rng(4)
     prompts = [[1] + rng.integers(3, cfg.vocab_size, n).tolist()
                for n in rng.integers(200, 400, 8)]
+    tasks = make_sql_tasks(2, seed=0)
     runs = []
     for d, aot in ((torch.device("cpu"), False), (dev, True)):
         m = build_model(cfg32)
@@ -855,21 +878,152 @@ def check_engine(cfg, state, dev, soften):
             usage += [dataclasses.asdict(r.usage) for r in reqs]
             for c, r in zip(convos, reqs):
                 c += r.output + [99, 98]
+        loop = (reflection_records(example.serve_strategy(eng, 1, "exec",
+                                                          tasks))
+                + reflection_records(example.serve_strategy(
+                    eng, 3, "exec", tasks, router=reflect_router())))
         st = eng.stats()
-        runs.append((outs, usage, eng.margin, st))
+        runs.append((outs, usage, loop, eng.margin, st))
         del eng, m
-    (c_out, c_use, c_gap, c_st), (g_out, g_use, g_gap, g_st) = runs
+    (c_out, c_use, c_loop, c_gap, c_st), (g_out, g_use, g_loop, g_gap,
+                                          g_st) = runs
     same = sum(a == b for a, b in zip(c_out, g_out))
     log(f"[check] {cfg.name}, {cfg.num_layers} layers, engine fp32 q/k x "
         f"{soften}: cuda captured vs cpu eager: {same}/{len(c_out)} "
         f"identical token streams, bills identical {c_use == g_use}; "
+        f"reflection loop (reflect1/exec and routed, 2 SQL tasks, "
+        f"{sum(len(r['rounds']) for r in g_loop)} rounds): responses, "
+        f"bills, decision traces and stop reasons identical "
+        f"{c_loop == g_loop}, traces "
+        f"{[[k[:2] for k in r['trace']] for r in g_loop[2:]]}; "
         f"{g_st['verify_steps']} verify, {g_st['mixed_steps']} mixed and "
         f"{g_st['decode_batch_steps']} decode steps; smallest top-1/top-2 "
         f"logit gap sampled: cpu {c_gap:.3e}, cuda {g_gap:.3e}; cuda "
         f"step_compiles {g_st['step_compiles']}")
-    if c_out != g_out or c_use != g_use or g_st["step_compiles"] != 0:
+    if (c_out != g_out or c_use != g_use or c_loop != g_loop
+            or g_st["step_compiles"] != 0):
         raise AssertionError("the engine on the card disagrees with the "
                              "port's engine on the CPU")
+
+
+# ------------------------------------------------------------- [reflect]
+
+def reflect_router():
+    """The routed loop's controller: the paper's nova_micro price and
+    latency books, the default ``ControllerConfig`` (3 rounds at most).
+    The port's engine prices no SLO, so the controller enforces them."""
+    from repro_torch.core.accounting import CostModel, LatencyModel
+    from repro_torch.core.controller import (ControllerConfig,
+                                             SweetSpotController)
+    return SweetSpotController(CostModel.for_model("nova_micro"),
+                               LatencyModel.for_model("nova_micro"),
+                               ControllerConfig(max_rounds=3))
+
+
+def reflection_records(served):
+    """Each task's rounds (response, ``TokenUsage``, correct), decision
+    trace (``Decision.key()``) and stop reason, as plain values."""
+    return [{"rounds": [(r.response, dataclasses.asdict(r.usage), r.correct)
+                        for r in res.rounds],
+             "trace": [d.key() for d in res.trace],
+             "stop_reason": res.stop_reason} for res in served.results]
+
+
+def reflect_strategy(model, dev, rounds, feedback, tasks, aot, router=None,
+                     slos=None):
+    """One strategy of the reflection loop on a fresh engine, eagerly or
+    with captured steps; launch counters are reset after the engine is
+    built and read after the strategy.  Fails unless every reflection
+    round read the conversation from the cache, a third round's fresh
+    input is below its cache reads, and (captured) no step ran outside
+    the captured shapes.  Returns (what it served, launches)."""
+    import torch_reflection_serving as example
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import Engine
+    eng = Engine(model, ServeConfig(**example.SERVE, aot_warmup=aot),
+                 device=dev)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    served = example.serve_strategy(eng, rounds, feedback, tasks, router,
+                                    slos)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    eng.pool.check()
+    st = served.stats
+    for t, res in enumerate(served.results):
+        for i, r in enumerate(res.rounds):
+            u = r.usage
+            if i >= 1 and u.cache_read_tokens <= 0:
+                raise AssertionError(f"{served.name}: task {t} round {i} "
+                                     "read nothing from the cache")
+            if i == 3 and not u.input_tokens < u.cache_read_tokens:
+                raise AssertionError(f"{served.name}: task {t} round 3 "
+                                     f"billed {u}")
+    if aot and (st["step_compiles"] != 0 or st["aot_warmed"] < 2):
+        raise AssertionError(f"{served.name}: a step ran outside the "
+                             f"captured shapes: {st['step_compiles_by_fn']}")
+    return served, launches
+
+
+def phase_reflect(model, dev):
+    """The paper's reflection loop on ``model``: the strategy grid of
+    ``examples/torch_reflection_serving.py`` (reflect0, reflect1 and
+    reflect3 with no feedback or execution feedback, 4 SQL tasks, a fresh
+    engine each, 24 new tokens a round) with captured steps, the routed
+    loop on the same tasks (the last two under a 0.5 s latency SLO of the
+    paper's model), and reflect3/exec again eagerly, which must give the
+    captured run's responses, bills, step counters and launches.  Prints
+    each strategy's bill, the paper's modeled API latency beside the
+    card's wall a round, ms a step, speculation and prefix hits; returns
+    the launches of the captured runs and of the eager one."""
+    import torch_reflection_serving as example
+    from repro_torch.core.accounting import CostModel, LatencyModel
+    from repro_torch.core.controller import SLO
+    from repro_torch.data.tasks import make_sql_tasks
+    tasks = make_sql_tasks(4, seed=0)
+    cost = CostModel.for_model("nova_micro")
+    lat = LatencyModel.for_model("nova_micro")
+    card = torch.cuda.get_device_name(0)
+    t0 = time.perf_counter()
+    captured, served = {}, {}
+    slos = [None, None, SLO(max_latency_s=0.5), SLO(max_latency_s=0.5)]
+    for rounds, fb, router in [(r, f, None) for r, f in example.GRID] + [
+            (3, "exec", reflect_router())]:
+        s, launches = reflect_strategy(model, dev, rounds, fb, tasks, True,
+                                       router, slos if router else None)
+        served[s.name] = s, launches
+        for k, v in launches.items():
+            captured[k] = captured.get(k, 0) + v
+        for line in example.report(s, cost, lat, card):
+            log(f"[reflect] {line}")
+        log(f"[reflect] {s.name}: launches {launches}; step capture "
+            f"{s.stats['startup_compile_s']:.3f}s, step_compiles "
+            f"{s.stats['step_compiles']}")
+    for t, res in enumerate(served["routed/exec"][0].results):
+        log(f"[reflect] routed task {t} (SLO {slos[t]}): "
+            f"{[f'{d.action}:{d.reason}' for d in res.trace]}, stop "
+            f"{res.stop_reason}")
+    eager, eager_launches = reflect_strategy(model, dev, 3, "exec", tasks,
+                                             False)
+    twin, twin_launches = served["reflect3/exec"]
+    steps = [{k: s.stats[k] for k in STEP_KEYS} for s in (eager, twin)]
+    log(f"[reflect] reflect3/exec eager: "
+        f"{sum(map(sum, eager.walls)):.3f}s of rounds against captured "
+        f"{sum(map(sum, twin.walls)):.3f}s; launches {eager_launches}")
+    if (reflection_records(eager) != reflection_records(twin)
+            or steps[0] != steps[1] or eager_launches != twin_launches):
+        raise AssertionError("the eager reflection loop differs from the "
+                             "captured one")
+    for name, launches in (("captured", captured), ("eager", eager_launches)):
+        if min(launches[k] for k in ("paged_decode", "paged_extend")) <= 0:
+            raise AssertionError(f"the {name} reflection loop did not launch "
+                                 f"both paged kernels: {launches}")
+    log(f"[reflect] captured = eager in {len(eager.results)} tasks' "
+        f"responses, bills, step counters and launches; phase "
+        f"{time.perf_counter() - t0:.1f}s")
+    return {"reflect_demo_100m reflection": eager_launches,
+            "reflect_demo_100m reflection captured": captured}
 
 
 def profile_round(eng, convos, max_new=16):
@@ -1196,6 +1350,7 @@ def phase_serve(dev):
     runs["reflect_demo_100m full-sequence"] = full_sequence(
         model, B=8, S=2048, lengths=np.linspace(1500, 2048, 8).astype(int),
         steps=16, forward=True, path=("flash_attention", "decode_attention"))
+    runs.update(phase_reflect(model, dev))
     state = {k: v.cpu() for k, v in model.state_dict().items()}
     check_logits(cfg, state, dev, soften=0.125)
     del model
@@ -1241,6 +1396,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT / "examples"))
     import repro_torch  # noqa: F401  (fails outside a checkout)
 
     dev = torch.device("cuda")

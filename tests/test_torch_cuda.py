@@ -13,7 +13,9 @@ also at forced split counts at the split walk's edges), the wrappers
 refuse what the kernels do not take, and small engine and model runs on
 the card launch the kernels of their models' paths.  Engines whose steps
 are captured as CUDA graphs give the eager engines' streams, bills and
-launches, and a replay reads the page table it is given.
+launches, and a replay reads the page table it is given; so does the
+paper's reflection loop (fixed and routed) over a captured engine, and
+the loop's backend refuses a fault plan.
 """
 import dataclasses
 
@@ -796,3 +798,82 @@ def test_nothing_is_captured_after_warmup(dev):
     bad = StepGraph(lambda t: t * int(t.sum().item()), dev)
     with pytest.raises(RuntimeError):
         bad.warm((4,))
+
+
+def _card_reflect(m, aot):
+    """The paper's reflection loop on the card: reflect3 with execution
+    feedback, then the routed loop, over 2 SQL tasks on one engine;
+    returns each task's rounds, traces and stop reasons, the step
+    counters and the launches."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.core.accounting import CostModel, LatencyModel
+    from repro_torch.core.budget import InferenceStrategy
+    from repro_torch.core.controller import (ControllerConfig,
+                                             SweetSpotController)
+    from repro_torch.core.feedback import ExecutionFeedback
+    from repro_torch.core.reflection import (EngineBackend,
+                                             ReflectionController)
+    from repro_torch.data.tasks import make_sql_tasks
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.serving.engine import Engine
+
+    eng = Engine(m, ServeConfig(max_batch=2, max_seq=1536, page_size=32,
+                                spec_decode=True, aot_warmup=aot),
+                 device="cuda")
+    ops.reset_launches()
+    backend = EngineBackend(eng, ByteTokenizer(), max_new_tokens=16)
+    router = SweetSpotController(CostModel.for_model("nova_micro"),
+                                 LatencyModel.for_model("nova_micro"),
+                                 ControllerConfig(max_rounds=3))
+    tasks = make_sql_tasks(2, seed=0)
+    out = []
+    for rt in (None, router):
+        ctrl = ReflectionController(InferenceStrategy(3, feedback="exec"),
+                                    feedback=ExecutionFeedback(), router=rt)
+        for task in tasks:
+            res = ctrl.run_task(backend, task)
+            out.append(([(r.response, dataclasses.asdict(r.usage),
+                          r.correct) for r in res.rounds],
+                        [d.key() for d in res.trace], res.stop_reason))
+    torch.cuda.synchronize()
+    st = eng.stats()
+    return eng, out, {k: st[k] for k in ("mixed_steps", "decode_batch_steps",
+                                         "verify_steps", "decode_tokens",
+                                         "spec_drafted", "spec_accepted")}, \
+        dict(ops.LAUNCHES)
+
+
+def test_captured_reflection_loop_equals_eager(dev):
+    """reflect_demo_100m at full width and two layers: the reflection
+    loop (fixed and routed) with every step captured gives the eager
+    loop's responses, per-round bills, decision traces, stop reasons,
+    step counters and launches, and bills cache reads in every reflection
+    round."""
+    from repro_torch.models.registry import build_model, get_config
+
+    cfg = get_config("reflect_demo_100m")
+    cfg = cfg.replace(num_layers=2, block_pattern=cfg.block_pattern[:2])
+    with torch.device(dev):
+        m = build_model(cfg)
+    m.init(torch.Generator(device=dev).manual_seed(0))
+    _, out, steps, launches = _card_reflect(m, aot=False)
+    eng, c_out, c_steps, c_launches = _card_reflect(m, aot=True)
+    assert eng.stats()["step_compiles"] == 0
+    assert c_out == out and c_steps == steps and c_launches == launches
+    assert launches["paged_decode"] > 0 and launches["paged_extend"] > 0
+    for rounds, _, _ in out:
+        assert all(u["cache_read_tokens"] > 0 for _, u, _ in rounds[1:])
+
+
+def test_engine_backend_refuses_a_fault_plan_on_card(dev):
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.core.reflection import EngineBackend
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.models.registry import build_model, get_smoke_config
+    from repro_torch.serving.engine import Engine
+
+    m = build_model(get_smoke_config("reflect_demo_100m"))
+    eng = Engine(m, ServeConfig(max_batch=1, max_seq=128, page_size=16),
+                 device=dev)
+    with pytest.raises(NotImplementedError, match="faults"):
+        EngineBackend(eng, ByteTokenizer(), faults=object())

@@ -27,7 +27,13 @@ def test_port_imports_no_jax_and_no_repro():
         assert len(names) >= 20, names
         for name in ("kernels.flash_attention", "kernels.decode_attention",
                      "models.attention", "models.transformer",
-                     "serving.engine", "serving.step_graph"):
+                     "serving.engine", "serving.step_graph",
+                     "core", "core.accounting", "core.budget",
+                     "core.controller", "core.feedback",
+                     "core.parallel_sampling", "core.pareto",
+                     "core.quality_sim", "core.reflection", "core.stats",
+                     "core.textmetrics", "data", "data.tasks",
+                     "data.tokenizer"):
             assert "repro_torch." + name in names, name
         print(len(names))
     """)
@@ -37,15 +43,28 @@ def test_port_imports_no_jax_and_no_repro():
     assert out.returncode == 0, out.stderr
 
 
-def test_chip_smoke_imports_no_jax_and_no_repro():
-    """chip_smoke.py drives the port alone: no import of JAX or of the
-    reference package anywhere in it."""
+def _imported(script):
+    """Every module name that ``script`` imports, anywhere in it."""
     import ast
-    tree = ast.parse((SRC.parent / "chip_smoke.py").read_text())
+    tree = ast.parse((SRC.parent / script).read_text())
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
              for a in n.names]
     names += [n.module for n in ast.walk(tree)
               if isinstance(n, ast.ImportFrom) and n.module]
+    return names
+
+
+def test_chip_smoke_imports_no_jax_and_no_repro():
+    """chip_smoke.py drives the port alone: no import of JAX or of the
+    reference package anywhere in it."""
+    names = _imported("chip_smoke.py")
+    assert any(n.startswith("repro_torch") for n in names), names
+    bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, bad
+
+
+def test_reflection_example_imports_no_jax_and_no_repro():
+    names = _imported("examples/torch_reflection_serving.py")
     assert any(n.startswith("repro_torch") for n in names), names
     bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad
@@ -100,3 +119,48 @@ def test_serve_launcher(capsys):
     for flag in (["--mesh", "1x1"], ["--replicas", "2"]):
         with pytest.raises(NotImplementedError):
             serve.main(["--device", "cpu", "--requests", "1", *flag])
+
+
+def _reflection_example():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_reflection_serving",
+        SRC.parent / "examples" / "torch_reflection_serving.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_reflection_example(capsys):
+    """``examples/torch_reflection_serving.py --device cpu`` serves the
+    strategy grid on the smoke config: a bill per strategy, every
+    reflection round reading the conversation from the cache, the paper's
+    modeled latency beside the wall on the CPU, per round index."""
+    _reflection_example().main(["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "serving on cpu" in out
+    rows = [ln.split() for ln in out.splitlines()
+            if ln.startswith(("reflect", "routed")) and "fresh_in" in ln]
+    assert [r[0] for r in rows] == ["reflect0/none", "reflect1/none",
+                                    "reflect1/exec", "reflect3/none",
+                                    "reflect3/exec"]
+    fresh = [int(r[2]) for r in rows]
+    cached = [int(r[4]) for r in rows]
+    outs = [int(r[6]) for r in rows]
+    assert outs == [96, 192, 192, 384, 384]     # 4 tasks x 24 x rounds
+    assert cached[3] > fresh[3] and cached[4] > fresh[4]
+    assert all(float(r[7].lstrip("$")) > 0 for r in rows)
+    rounds = [ln for ln in out.splitlines() if "round 3: modeled" in ln]
+    assert len(rounds) == 2 and all("(cpu)" in ln for ln in rounds)
+    later = [float(ln.split("cache-read share ")[1].split(";")[0])
+             for ln in out.splitlines()
+             if "modeled median" in ln and "round 0:" not in ln]
+    assert len(later) == 2 + 2 * 3 and min(later) > 0
+    assert "random weights: noise" in out
+
+
+def test_reflection_example_needs_a_card_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _reflection_example().main([])
