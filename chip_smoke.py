@@ -15,12 +15,16 @@ Phases, each of which stops the run with a non-zero exit on any error:
    over HBM rate against operations over peak rate):
    * paged decode and extend at reflect_demo_100m's shapes (q [8,4,3,64];
      extend Sx = 32 and 5; page size 16; scattered page tables with
-     unmapped tails, positions mid-page, an empty batch slot; window None
-     and 48) in float32, bfloat16 and int8 KV;
+     unmapped tails, positions mid-page, an empty batch slot, which gets
+     the reference's mean of page 0's V; window None and 48) in float32,
+     bfloat16 and int8 KV;
    * the same at recurrentgemma-9b's local attention (K 1, G 16, hd 256;
-     decode and extend Sx = 32; window None, 48 and 2048);
-     each paged case logs its route (bf16 extend on the tensor cores),
-     its tile and its split count (``cuda_lib.paged_splits``);
+     decode and extend Sx = 32; window None, 48 and 2048), at
+     granite-moe-1b-a400m's (K 8, G 2, hd 64; decode, extend Sx = 32 and
+     5), and, checked only, at yi-6b's (K 4, G 8) and minitron-4b's (K 8,
+     G 3) hd 128; each paged case logs its route (bf16 extend on the
+     tensor cores), its tile and its split count
+     (``cuda_lib.paged_splits``);
    * the mamba scan at falcon-mamba-7b's shapes ([8, 32 or 1, 8192],
      state 16, a per-(d, n) A and a per-d skip) with float32 and bfloat16
      x, and the RG-LRU scan at recurrentgemma-9b's ([8, 32 or 1, 4096],
@@ -30,9 +34,11 @@ Phases, each of which stops the run with a non-zero exit on any error:
    * ring decode at reflect_demo_100m's shape (B 8, K 4, G 3, hd 64, C
      2048; rings wrapped past C, empty slots, slots ahead of pos, an
      empty row; window None and 48; float32, bfloat16, int8 and int8 with
-     bfloat16 q) and recurrentgemma-9b's (K 1, G 16, hd 256, window 2048);
+     bfloat16 q), granite-moe-1b-a400m's (K 8, G 2) and
+     recurrentgemma-9b's (K 1, G 16, hd 256, window 2048);
    * flash attention at reflect_demo_100m's prefill (B 8, H 12, K 4, hd
      64, S 2048; window None and 48; float32 and bfloat16), at
+     granite-moe-1b-a400m's (B 8, H 16, K 8, S 2048, bfloat16), at
      recurrentgemma-9b's (B 4, H 16, K 1, hd 256, S 4096, window 2048,
      bfloat16) and at a ragged S 1000 with per-row lengths.
    The two attention kernels are also timed against one PyTorch call
@@ -44,7 +50,7 @@ Phases, each of which stops the run with a non-zero exit on any error:
    the build prints the tensor-core instructions (HGMMA, HMMA) that
    ``cuobjdump -sass`` finds in the flash and paged-extend libraries,
    each of which must hold HGMMA.
-4. serve   — three models through the port's ``Engine``, one after the
+4. serve   — four models through the port's ``Engine``, one after the
    other, each freed before the next: 8 conversations of a few hundred
    tokens, 3 reflection rounds with the suffix [99, 98], paged KV or ring
    caches, chunked prefill and the prefix cache; and the full-sequence
@@ -65,6 +71,19 @@ Phases, each of which stops the run with a non-zero exit on any error:
      ``prefill`` of 8 prompts of 1500-2048 tokens (ragged lengths), 16
      greedy ``decode_step``s on the primed rings, and ``forward`` on
      [8, 2048]: flash attention and ring decode;
+   * granite-moe-1b-a400m at full width and depth (24 MoE layers, 32
+     experts top-8, d_model 1024, 16 q / 8 KV heads, 1.38 B fp32
+     parameters, bf16 activations), paged with speculation: paged decode
+     and extend at G 2; its profiled rounds give the MoE FFN's share of
+     device time (eager: the ``moe_ffn`` calls' operators, split into
+     expert ``bmm``, sorts, gathers and scatters, the rest); then
+     ``prefill`` of [8, 2048] (rows of 2048 tokens route one group per
+     row), 16 ``decode_step``s and ``forward``, whose aux loss must be
+     finite and positive: flash attention and ring decode; then the
+     logits check and a 2-layer engine check against the CPU (below),
+     the routers scaled by 8 so that a flipped expert is not a near tie,
+     printing the smallest gap between the k-th and (k+1)-th router
+     probability seen;
    * falcon-mamba-7b at full width and depth (64 mamba layers, d_model
      4096, fp32 parameters): the mamba scan;
    * recurrentgemma-9b at full width and depth (38 layers, 26 RG-LRU and
@@ -101,6 +120,7 @@ Phases, each of which stops the run with a non-zero exit on any error:
 Exits non-zero without a result when no CUDA device is present, or when
 the port's sources (``src/``, ``examples/``) are not next to this script.
 """
+import contextlib
 import dataclasses
 import gc
 import json
@@ -220,15 +240,19 @@ def work(q, kp, pt, pos0, sc, window):
     """Bytes the function must move and operations it must do on this
     data: every valid K/V slot read once (with its int8 sidecars), q read,
     out written, table and positions read; 4 * hd operations per (query
-    row, valid slot) for QK^T and PV."""
+    row, valid slot) for QK^T and PV.  A request with a lane that has no
+    valid slot (the empty batch slot) also reads the V of every page its
+    table gathers (page 0 for unmapped entries) once, and adds them up."""
     B, Sx, K, G, hd = q.shape
     ps = kp.shape[1]
     pt_h, pos_h = pt.cpu().numpy(), pos0.cpu().numpy()
-    t = np.arange(pt_h.shape[1] * ps)
-    union = pairs = 0
+    NP = pt_h.shape[1]
+    t = np.arange(NP * ps)
+    union = pairs = mean_pages = mean_adds = 0
     for b in range(B):
         mapped = np.repeat(pt_h[b] >= 0, ps)
         seen = np.zeros_like(mapped)
+        empty = False
         for lane in range(Sx):
             p = pos_h[b] + lane
             v = mapped & (t <= p)
@@ -236,11 +260,17 @@ def work(q, kp, pt, pos0, sc, window):
                 v &= t > p - window
             pairs += int(v.sum())
             seen |= v
+            empty |= not v.any()
         union += int(seen.sum())
+        if empty:
+            mean_pages += len(set(np.maximum(pt_h[b], 0).tolist()))
+            mean_adds += NP * ps * K * hd
     slot_bytes = 2 * K * hd * kp.element_size() + (3 * K * 4 if sc else 0)
-    nbytes = (union * slot_bytes + 2 * q.numel() * q.element_size()
+    v_page_bytes = ps * K * (hd * kp.element_size() + (4 if sc else 0))
+    nbytes = (union * slot_bytes + mean_pages * v_page_bytes
+              + 2 * q.numel() * q.element_size()
               + pt.numel() * 4 + pos0.numel() * 4)
-    ops = 4 * hd * G * K * pairs
+    ops = 4 * hd * G * K * pairs + mean_adds
     return nbytes, ops
 
 
@@ -352,10 +382,11 @@ def check_record(label, got, want, tol, bf16):
 
 
 def paged_cases(records, tag, shape, cases, modes, windows, timed_window,
-                check_np, dev, flush, seed):
+                check_np, dev, flush, seed, timed=True):
     """Paged kernels at one model's attention shape: every (case, mode,
     window) against the plain version on a table of ``check_np`` pages,
-    then times at ``shape`` (the serve's table) with ``timed_window``."""
+    then (``timed``) times at ``shape`` (the serve's table) with
+    ``timed_window``, also checked."""
     from repro_torch.kernels import cuda_lib, ops, ref
     kernels = {"paged_decode": ops.paged_decode_attention,
                "paged_extend": ops.paged_extend_attention}
@@ -378,13 +409,13 @@ def paged_cases(records, tag, shape, cases, modes, windows, timed_window,
             log(f"[kernels] {tag} {name} Sx={Sx} {mode}: {route}, tiles of "
                 f"{rows} rows x {tiles}, {splits} splits a tile, "
                 f"{B * K * tiles * splits} blocks")
-            for window in windows + ("timed",):
+            for window in windows + (("timed",) if timed else ()):
                 seed += 1
-                timed = window == "timed"
-                win = timed_window if timed else window
+                at_shape = window == "timed"
+                win = timed_window if at_shape else window
                 q, kp, vp, pt, pos0, sc = make_inputs(
-                    seed, B, Sx, K, G, hd, ps, NP if timed else check_np,
-                    dtype, quant, dev)
+                    seed, B, Sx, K, G, hd, ps,
+                    NP if at_shape else check_np, dtype, quant, dev)
                 if name == "paged_decode":
                     q = q[:, 0].contiguous()
                 kern = lambda: kernels[name](q, kp, vp, pt, pos0,
@@ -398,7 +429,7 @@ def paged_cases(records, tag, shape, cases, modes, windows, timed_window,
                     f"{tag} {name} Sx={Sx} K={K} G={G} hd={hd} "
                     f"NP={pt.shape[1]} {mode} window={win}", got, want, tol,
                     dtype == torch.bfloat16)
-                if not timed:
+                if not at_shape:
                     continue
                 plain = lambda: plains[name](q, kp, vp, pt, pos0,
                                              window=win, **sc)
@@ -536,10 +567,11 @@ def ring_valid(tok, pos, window):
 
 
 def ring_cases(records, dev, flush):
-    """Ring decode at reflect_demo_100m's and recurrentgemma-9b's decode
-    shapes, every mode and window against the plain version; timed at
-    window None (demo) and 2048 (recurrentgemma), with SDPA on a boolean
-    mask built from the tokens as the library yardstick."""
+    """Ring decode at reflect_demo_100m's, granite-moe-1b-a400m's and
+    recurrentgemma-9b's decode shapes, every mode and window against the
+    plain version; timed at window None (demo, granite) and 2048
+    (recurrentgemma), with SDPA on a boolean mask built from the tokens
+    as the library yardstick."""
     from repro_torch.kernels import cuda_lib, ops, ref
     F = torch.nn.functional
     fp = (lambda t: t.float() if t.is_floating_point() else t)
@@ -550,6 +582,7 @@ def ring_cases(records, dev, flush):
     seed = 100
     for tag, (B, K, G, hd, C), windows, timed, mds in (
             ("demo", (8, 4, 3, 64, 2048), (None, 48), None, modes),
+            ("granite", (8, 8, 2, 64, 2048), (None,), None, modes),
             ("rg", (8, 1, 16, 256, 2048), (None, 48, 2048), 2048,
              modes[:3])):
         splits = cuda_lib.ring_splits(B, K, C, hd)
@@ -620,6 +653,7 @@ def flash_cases(records, dev, flush):
             ("demo", (8, 12, 4, 2048, 64), None, torch.bfloat16, False),
             ("demo", (8, 12, 4, 2048, 64), 48, torch.float32, False),
             ("demo", (8, 12, 4, 2048, 64), 48, torch.bfloat16, False),
+            ("granite", (8, 16, 8, 2048, 64), None, torch.bfloat16, False),
             ("rg", (4, 16, 1, 4096, 256), 2048, torch.bfloat16, False),
             ("ragged", (8, 12, 4, 1000, 64), None, torch.bfloat16, True)):
         q = torch.randn(B, H, S, hd, generator=g).to(dev, dtype)
@@ -684,9 +718,23 @@ def phase_kernels(dev):
     # the 2048-slot window binds; timed on the serve's 128 pages with the
     # window its rg_attn layers pass
     rg = dict(B=8, K=1, G=16, hd=256, ps=16, NP=128)
-    paged_cases(records, "rg", rg, [("paged_decode", 1), ("paged_extend",
-                                                          32)],
-                modes[:3], (None, 48, 2048), 2048, 160, dev, flush, seed)
+    seed = paged_cases(records, "rg", rg, [("paged_decode", 1),
+                                           ("paged_extend", 32)],
+                       modes[:3], (None, 48, 2048), 2048, 160, dev, flush,
+                       seed)
+    # granite-moe-1b-a400m (K 8, G 2, hd 64; the serve's table), checked
+    # and timed; then the dense archs' hd-128 shapes, checked only:
+    # yi-6b (K 4, G 8) and minitron-4b (K 8, G 3)
+    serve_cases = [("paged_decode", 1), ("paged_extend", 32),
+                   ("paged_extend", 5)]
+    granite = dict(B=8, K=8, G=2, hd=64, ps=16, NP=128)
+    seed = paged_cases(records, "granite", granite, serve_cases, modes,
+                       (None,), None, 128, dev, flush, seed)
+    for tag, K, G in (("yi", 4, 8), ("minitron", 8, 3)):
+        seed = paged_cases(records, tag, dict(B=8, K=K, G=G, hd=128, ps=16,
+                                              NP=128),
+                           serve_cases, modes, (None, 48), None, 64, dev,
+                           flush, seed, timed=False)
     scan_cases(records, dev, flush)
     ring_cases(records, dev, flush)
     flash_cases(records, dev, flush)
@@ -811,23 +859,23 @@ def serve_pair(model, kv_dtype, rounds, max_new, seed, path, paged=True,
     return eager["launches"], captured["launches"]
 
 
-def check_engine(cfg, state, dev, soften):
+def check_engine(cfg, state, dev, soften, sharpen=None):
     """The engine on the card, every step captured, against the port's
     engine on the CPU (which the CPU tests hold to the JAX engine): float32
-    activations and parameters, q/k scaled by ``soften`` as in
-    ``check_logits``, 8 seeded conversations, 2 reflection rounds; then,
-    on the same engines, the paper's reflection loop over 2 SQL tasks:
-    reflect1 with execution feedback, and the routed loop
+    activations and parameters, q/k scaled by ``soften`` and MoE routers
+    by ``sharpen`` as in ``check_logits``, 8 seeded conversations, 2
+    reflection rounds; then, on the same engines, the paper's reflection
+    loop over 2 SQL tasks: reflect1 with execution feedback, and the
+    routed loop
     (``reflect_router``).  Greedy streams and bills must be identical, and
     the loop's responses, per-round bills, decision traces and stop
     reasons; prints the smallest top-1/top-2 logit gap that either engine
-    sampled from, so that a near-tie can be told from a fault."""
-    import torch_reflection_serving as example
-    from repro_torch.configs.base import ServeConfig
+    sampled from, and for MoE the smallest gap between the k-th and
+    (k+1)-th router probability the CPU engine routed by, so that a
+    near-tie can be told from a fault."""
     from repro_torch.data.tasks import make_sql_tasks
     from repro_torch.models.registry import build_model
     from repro_torch.serving.engine import Engine
-    from repro_torch.serving.request import Request
 
     class MarginEngine(Engine):
         """Records the smallest top-1/top-2 gap over the rows (verify:
@@ -853,8 +901,7 @@ def check_engine(cfg, state, dev, soften):
             return logits
 
     cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
-    state = {k: v * (soften if k.endswith((".wq", ".wk")) else 1.0)
-             for k, v in state.items()}
+    state = scaled(state, soften, sharpen)
     kw = dict(max_batch=8, max_seq=2048, page_size=16, spec_decode=True,
               spec_tokens=4)
     rng = np.random.default_rng(4)
@@ -865,31 +912,20 @@ def check_engine(cfg, state, dev, soften):
     for d, aot in ((torch.device("cpu"), False), (dev, True)):
         m = build_model(cfg32)
         m.load_state_dict(state)
-        eng = MarginEngine(m, ServeConfig(**kw, aot_warmup=aot), device=d)
-        convos = [list(p) for p in prompts]
-        outs, usage = [], []
-        for _ in range(2):
-            reqs = [Request(prompt=list(c), max_new_tokens=16, eos_id=None)
-                    for c in convos]
-            for r in reqs:
-                eng.submit(r)
-            eng.run()
-            outs += [list(r.output) for r in reqs]
-            usage += [dataclasses.asdict(r.usage) for r in reqs]
-            for c, r in zip(convos, reqs):
-                c += r.output + [99, 98]
-        loop = (reflection_records(example.serve_strategy(eng, 1, "exec",
-                                                          tasks))
-                + reflection_records(example.serve_strategy(
-                    eng, 3, "exec", tasks, router=reflect_router())))
-        st = eng.stats()
-        runs.append((outs, usage, loop, eng.margin, st))
-        del eng, m
-    (c_out, c_use, c_loop, c_gap, c_st), (g_out, g_use, g_loop, g_gap,
-                                          g_st) = runs
+        # routing gaps on the CPU, whose every step runs eagerly
+        gaps = router_gaps() if not aot else contextlib.nullcontext([])
+        with gaps as seen:
+            runs.append(engine_run(MarginEngine, m, kw, aot, d, prompts,
+                                   tasks) + (seen,))
+        del m
+    (c_out, c_use, c_loop, c_gap, c_st, r_gaps), (g_out, g_use, g_loop,
+                                                  g_gap, g_st, _) = runs
+    if "moe" in cfg.block_pattern and not r_gaps:
+        raise AssertionError("no MoE routing was recorded on the CPU")
     same = sum(a == b for a, b in zip(c_out, g_out))
     log(f"[check] {cfg.name}, {cfg.num_layers} layers, engine fp32 q/k x "
-        f"{soften}: cuda captured vs cpu eager: {same}/{len(c_out)} "
+        f"{soften}{'' if sharpen is None else f', router x {sharpen}'}: "
+        f"cuda captured vs cpu eager: {same}/{len(c_out)} "
         f"identical token streams, bills identical {c_use == g_use}; "
         f"reflection loop (reflect1/exec and routed, 2 SQL tasks, "
         f"{sum(len(r['rounds']) for r in g_loop)} rounds): responses, "
@@ -898,12 +934,40 @@ def check_engine(cfg, state, dev, soften):
         f"{[[k[:2] for k in r['trace']] for r in g_loop[2:]]}; "
         f"{g_st['verify_steps']} verify, {g_st['mixed_steps']} mixed and "
         f"{g_st['decode_batch_steps']} decode steps; smallest top-1/top-2 "
-        f"logit gap sampled: cpu {c_gap:.3e}, cuda {g_gap:.3e}; cuda "
-        f"step_compiles {g_st['step_compiles']}")
+        f"logit gap sampled: cpu {c_gap:.3e}, cuda {g_gap:.3e}; "
+        + (f"smallest k-th/(k+1)-th router probability gap (cpu) "
+           f"{min(r_gaps):.3e}; " if r_gaps else "")
+        + f"cuda step_compiles {g_st['step_compiles']}")
     if (c_out != g_out or c_use != g_use or c_loop != g_loop
             or g_st["step_compiles"] != 0):
         raise AssertionError("the engine on the card disagrees with the "
                              "port's engine on the CPU")
+
+
+def engine_run(engine_cls, m, kw, aot, d, prompts, tasks):
+    """``check_engine``'s runs on one engine: 2 token rounds of the
+    prompts, then reflect1/exec and the routed loop over ``tasks``.
+    Returns (streams, bills, loop records, smallest gap, stats)."""
+    import torch_reflection_serving as example
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.serving.request import Request
+    eng = engine_cls(m, ServeConfig(**kw, aot_warmup=aot), device=d)
+    convos = [list(p) for p in prompts]
+    outs, usage = [], []
+    for _ in range(2):
+        reqs = [Request(prompt=list(c), max_new_tokens=16, eos_id=None)
+                for c in convos]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        outs += [list(r.output) for r in reqs]
+        usage += [dataclasses.asdict(r.usage) for r in reqs]
+        for c, r in zip(convos, reqs):
+            c += r.output + [99, 98]
+    loop = (reflection_records(example.serve_strategy(eng, 1, "exec", tasks))
+            + reflection_records(example.serve_strategy(
+                eng, 3, "exec", tasks, router=reflect_router())))
+    return outs, usage, loop, eng.margin, eng.stats()
 
 
 # ------------------------------------------------------------- [reflect]
@@ -1051,22 +1115,23 @@ def profile_round(eng, convos, max_new=16):
         return ({k: after[k] - before[k] for k in STEP_KINDS},
                 time.perf_counter() - t0)
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    mode = "captured" if eng.stats().get("aot_warmed") else "eager"
+    # an eager MoE round also records operators (and each moe_ffn call as
+    # a range), so that its device time can be split by operator
+    moe = "moe" in eng.cfg.block_pattern and mode == "eager"
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if moe else [])
+    with profile(activities=acts) as prof, (
+            moe_spans() if moe else contextlib.nullcontext()):
         steps, traced_s = one_round()
     kinds, wall_s = one_round()
     steps, steps2 = sum(steps.values()), sum(kinds.values())
 
-    def dev_us(e):
-        return getattr(e, "device_time_total",
-                       getattr(e, "cuda_time_total", 0.0))
-
     # kernel rows only: CPU-side operator rows repeat their kernels' time
     rows = sorted((e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA),
-                  key=dev_us, reverse=True)
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.key != MOE_SPAN), key=dev_us, reverse=True)
     busy = sum(dev_us(e) for e in rows)
     busy_ms, wall_ms = busy / steps / 1e3, wall_s / steps2 * 1e3
-    mode = "captured" if eng.stats().get("aot_warmed") else "eager"
     log(f"[profile] {eng.cfg.name} {mode}: {len(convos)} requests x "
         f"{max_new} new tokens: {len(rows)} kernel rows, {steps} engine "
         f"steps, device busy {busy:.0f} us ({busy_ms:.3f} ms per step; "
@@ -1087,8 +1152,93 @@ def profile_round(eng, convos, max_new=16):
     if busy <= 0:
         log("[profile] the profiler saw no device time; kernel times come "
             "from the CUDA events of the kernels phase")
+    if "moe" in eng.cfg.block_pattern:
+        moe_share(prof, rows, busy, f"{eng.cfg.name} {mode}", spans=moe)
     if mode == "captured":
         replay_split(eng, kinds, wall_s)
+
+
+def dev_us(e):
+    """A profiler row's or event's device time, microseconds (named
+    ``cuda_time_total`` by older PyTorch)."""
+    t = getattr(e, "device_time_total", None)
+    return t if t is not None else getattr(e, "cuda_time_total", 0.0)
+
+
+MOE_SPAN = "moe_ffn"
+
+
+@contextlib.contextmanager
+def moe_spans():
+    """Run every ``moe_ffn`` call inside a profiler range named
+    ``MOE_SPAN``: the profiler then gives the range the device time of the
+    operators it ran (eager steps; a replayed graph has no operators)."""
+    from repro_torch.models import moe
+    ffn = moe.moe_ffn
+
+    def spanned(*a, **kw):
+        with torch.profiler.record_function(MOE_SPAN):
+            return ffn(*a, **kw)
+
+    moe.moe_ffn = spanned
+    try:
+        yield
+    finally:
+        moe.moe_ffn = ffn
+
+
+def _moe_part(name):
+    """The MoE phase an operator or kernel name belongs to, or None."""
+    n = name.lower()
+    if "bmm" in n:
+        return "expert bmm"
+    if "sort" in n:
+        return "sort"
+    if any(w in n for w in ("index", "scatter", "gather", "repeat_inter")):
+        return "gather/scatter"
+    return None
+
+
+def moe_share(prof, rows, busy, label, spans):
+    """The MoE FFN's share of a profiled round's device time.  Eager
+    (``spans``: the round ran under ``moe_spans``): the ``MOE_SPAN``
+    ranges' device time, split by the operators they ran (expert ``bmm``,
+    the routing sorts, the dispatch and combine's gathers and scatters,
+    the rest: router product, softmax, elementwise); a round that recorded
+    no such range fails.  Captured: kernel rows only, so the sort and
+    gather/scatter kernel rows by name (the K/V writes' and page-table
+    gathers' among them); the expert products are cuBLAS kernels that
+    share their names with the dense projections'."""
+    if busy <= 0:
+        return
+    if spans:
+        if not any(e.key == MOE_SPAN for e in prof.key_averages()):
+            raise AssertionError(f"{label}: the round recorded no "
+                                 f"{MOE_SPAN!r} range: moe_ffn was not "
+                                 "called through repro_torch.models.moe")
+        parts, total = {}, 0.0
+        for e in prof.events():
+            if e.name != MOE_SPAN or e.device_type != \
+                    torch.autograd.DeviceType.CPU:
+                continue
+            total += dev_us(e)
+            for ch in e.cpu_children:
+                part = _moe_part(ch.name) or "other"
+                parts[part] = parts.get(part, 0.0) + dev_us(ch)
+        log(f"[profile] {label}: MoE FFN {total:.0f} us of {busy:.0f} us "
+            f"device time, share {total / busy:.3f}; "
+            + ", ".join(f"{k} {v:.0f} us ({v / busy:.3f})"
+                        for k, v in sorted(parts.items())))
+        return
+    parts = {}
+    for e in rows:
+        part = _moe_part(e.key)
+        if part in ("sort", "gather/scatter"):
+            parts[part] = parts.get(part, 0.0) + dev_us(e)
+    log(f"[profile] {label}: kernel rows by name, of {busy:.0f} us: "
+        + ", ".join(f"{k} {v:.0f} us ({v / busy:.3f})"
+                    for k, v in sorted(parts.items()))
+        + "; the expert products' share is the eager round's")
 
 
 def replay_split(eng, kinds, wall_s):
@@ -1127,12 +1277,14 @@ def full_sequence(model, B, S, lengths, steps, forward, path):
     padded to S (valid up to ``lengths``), ``steps`` greedy
     ``decode_step``s on the primed rings, then (``forward``) teacher
     forcing on all [B, S] tokens.  Every kernel of ``path`` must launch;
-    flash once per attention layer and call, ring decode once per
-    attention layer and step.  Returns the launch counts."""
+    flash once per attention (or MoE) layer and call, ring decode once
+    per such layer and step.  With MoE blocks, ``forward``'s aux loss
+    must be finite and positive.  Returns the launch counts."""
     from repro_torch.kernels import ops
+    from repro_torch.models.transformer import KV_KINDS
     cfg = model.cfg
     dev = model.embed.device
-    n_attn = sum(k in ("attn", "rg_attn") for k in cfg.block_pattern)
+    n_attn = sum(k in KV_KINDS for k in cfg.block_pattern)
     g = torch.Generator(device=dev).manual_seed(5)
     tokens = torch.randint(3, cfg.vocab_size, (B, S), generator=g,
                            device=dev)
@@ -1156,15 +1308,19 @@ def full_sequence(model, B, S, lengths, steps, forward, path):
         pos += 1
     torch.cuda.synchronize()
     t_decode = time.perf_counter() - t0
-    t_fwd = None
+    t_fwd = aux = None
     if forward:
         t0 = time.perf_counter()
-        lf, _ = model.forward({"tokens": tokens})
+        lf, aux = model.forward({"tokens": tokens})
         torch.cuda.synchronize()
         t_fwd = time.perf_counter() - t0
         if lf.shape != (B, S, cfg.vocab_size) or not bool(
                 torch.isfinite(lf).all()):
             raise AssertionError("forward logits are not finite [B, S, V]")
+        aux = float(aux)
+        if "moe" in cfg.block_pattern and not (np.isfinite(aux)
+                                               and aux > 0):
+            raise AssertionError(f"forward's MoE aux loss is {aux}")
         del lf
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
@@ -1175,8 +1331,9 @@ def full_sequence(model, B, S, lengths, steps, forward, path):
     log(f"[full] {cfg.name}: prefill [{B}, {S}] (lengths "
         f"{lens.min().item()}-{lens.max().item()}) {t_prefill:.3f}s; "
         f"{steps} decode steps {t_decode / steps * 1e3:.2f} ms each; "
-        f"forward {'not run' if t_fwd is None else f'{t_fwd:.3f}s'}; "
-        f"rings of {rings} slots; launches {launches}; peak memory {peak} B")
+        f"forward {'not run' if t_fwd is None else f'{t_fwd:.3f}s'} (aux "
+        f"loss {aux}); rings of {rings} slots; launches {launches}; peak "
+        f"memory {peak} B")
     want_flash = n_attn * (1 + bool(forward))
     if launches["flash_attention"] != want_flash:
         raise AssertionError(f"flash launched {launches['flash_attention']} "
@@ -1237,7 +1394,51 @@ def _walk_prefill(m, prompt, feed):
     return torch.cat(logits)
 
 
-def check_logits(cfg, state, dev, soften=None):
+def scaled(state, soften=None, sharpen=None):
+    """``state`` with the q/k projections scaled by ``soften`` and MoE
+    routers by ``sharpen`` (None: unchanged)."""
+    def factor(k):
+        if soften is not None and k.endswith((".wq", ".wk")):
+            return soften
+        if sharpen is not None and k.endswith(".router"):
+            return sharpen
+        return 1.0
+    return {k: v * factor(k) for k, v in state.items()}
+
+
+@contextlib.contextmanager
+def router_gaps():
+    """Yield a list that gets, for every MoE routing made while active
+    (outside a CUDA graph capture), the smallest gap between the k-th and
+    (k+1)-th router probability of the lanes it routed: how near a tie
+    the top-k was."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe
+    route = moe.route
+    gaps = []
+
+    def recording(cfg, p, x3, valid3=None):
+        out = route(cfg, p, x3, valid3)
+        if not (x3.is_cuda and torch.cuda.is_current_stream_capturing()):
+            k = cfg.experts_per_token
+            probs = torch.softmax((x3 @ L.cast(p.router, x3.dtype)).float(),
+                                  dim=-1)
+            top = probs.topk(k + 1, dim=-1).values
+            gap = top[..., k - 1] - top[..., k]
+            if valid3 is not None:
+                gap = gap[valid3]
+            if gap.numel():
+                gaps.append(float(gap.min()))
+        return out
+
+    moe.route = recording
+    try:
+        yield gaps
+    finally:
+        moe.route = route
+
+
+def check_logits(cfg, state, dev, soften=None, sharpen=None):
     """The model's entry points on the card against the plain path on the
     CPU, on a small input (chunked paged prefill, and full-sequence
     ``prefill``, each followed by greedy decode steps fed the CPU's
@@ -1250,7 +1451,10 @@ def check_logits(cfg, state, dev, soften=None):
     prints that sensitivity on the card, for the served weights and, for
     a model with attention, for the weights with wq and wk scaled by
     ``soften`` (scores O(1)), and compares implementations on the scaled
-    ones."""
+    ones.  An MoE router's init (scale 0.1) leaves the gaps between the
+    k-th and (k+1)-th expert small, so that a flipped expert is a near tie,
+    not a fault: ``sharpen`` scales the routers too, and the smallest such
+    gap the walks saw is printed."""
     from repro_torch.models.registry import build_model
     # float32 activations and parameters (bf16-stored weights upcast
     # exactly), so that a 1e-6 change of the weights is not rounded away
@@ -1258,10 +1462,11 @@ def check_logits(cfg, state, dev, soften=None):
     g = torch.Generator().manual_seed(7)
     prompt = torch.randint(3, cfg.vocab_size, (1, 45), generator=g)
     variants = [("served", state)]
-    if soften is not None:
-        state = {k: v * (soften if k.endswith((".wq", ".wk")) else 1.0)
-                 for k, v in state.items()}
-        variants.append((f"q/k x {soften}", state))
+    if soften is not None or sharpen is not None:
+        state = scaled(state, soften, sharpen)
+        variants.append((", ".join(
+            f"{w} x {f}" for w, f in (("q/k", soften), ("router", sharpen))
+            if f is not None), state))
     label = variants[-1][0]
 
     def run(c, st, d, feed, walk=_walk):
@@ -1284,9 +1489,12 @@ def check_logits(cfg, state, dev, soften=None):
     for path, walk in (("chunked paged prefill + paged decode", _walk),
                        ("prefill + ring decode", _walk_prefill)):
         feed = []
-        ref = run(cfg32, state, torch.device("cpu"), feed, walk)
-        out32 = run(cfg32, state, dev, feed, walk)
+        with router_gaps() as gaps:          # fp32: bf16 logits tie often
+            ref = run(cfg32, state, torch.device("cpu"), feed, walk)
+            out32 = run(cfg32, state, dev, feed, walk)
         out16 = run(cfg, state, dev, feed, walk)
+        if "moe" in cfg.block_pattern and not gaps:
+            raise AssertionError("no MoE routing was recorded")
         if not all(torch.isfinite(v).all() for v in (ref, out32, out16)):
             raise AssertionError("non-finite logits")
         err32 = float((out32 - ref).abs().max())
@@ -1297,7 +1505,9 @@ def check_logits(cfg, state, dev, soften=None):
             f"[{ref.shape[0]}, {ref.shape[-1]}], {label} weights: cuda fp32 "
             f"vs cpu fp32 max abs err {err32:.3e} (tol 1e-3); cuda "
             f"{cfg.dtype} vs cpu fp32 max abs err {err16:.3e} (tol 0.1), "
-            f"min cosine {cos:.6f} (tol 0.999)")
+            f"min cosine {cos:.6f} (tol 0.999)"
+            + (f"; smallest k-th/(k+1)-th router probability gap (fp32) "
+               f"{min(gaps):.3e}" if gaps else ""))
         if err32 > 1e-3 or err16 > 0.1 or cos < 0.999:
             raise AssertionError("logits on the card disagree with the CPU")
 
@@ -1322,10 +1532,57 @@ def cut(cfg, n_layers):
                        block_pattern=cfg.block_pattern[:n_layers])
 
 
+def first_layers(state, n_layers):
+    """A state dict without the blocks past the first ``n_layers``."""
+    return {k: v for k, v in state.items() if not k.startswith("blocks.")
+            or int(k.split(".")[1]) < n_layers}
+
+
 def release():
     """Return the freed models' memory to the card before the next one."""
     gc.collect()
     torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def timed(label):
+    """Log the seconds the block took."""
+    t0 = time.perf_counter()
+    yield
+    log(f"[time] {label}: {time.perf_counter() - t0:.1f}s")
+
+
+def phase_granite(dev):
+    """granite-moe-1b-a400m at full width and depth: MoE blocks (32
+    experts top-8) over the paged kernels at K 8 / G 2, eager and
+    captured; then the full-sequence entry points, whose rows of 2048
+    tokens are routed one group per row; then the checks against the CPU
+    on the first 2 layers, q/k softened and the routers sharpened.
+    Returns the launch counts of its runs."""
+    from repro_torch.models.registry import get_config
+    runs = {}
+    cfg = get_config("granite_moe_1b_a400m")
+    with timed("granite serves"):
+        model = build_on_card(cfg, 0)
+        runs["granite_moe_1b_a400m"], runs["granite_moe_1b_a400m captured"] \
+            = serve_pair(model, "model", 3, 32, 3,
+                         ("paged_decode", "paged_extend"), profile=4)
+    with timed("granite full-sequence"):
+        runs["granite_moe_1b_a400m full-sequence"] = full_sequence(
+            model, B=8, S=2048,
+            lengths=np.linspace(1500, 2048, 8).astype(int), steps=16,
+            forward=True, path=("flash_attention", "decode_attention"))
+    state = {k: v.cpu()
+             for k, v in first_layers(model.state_dict(), 2).items()}
+    del model
+    release()
+    with timed("granite logits check"):
+        check_logits(cut(cfg, 2), state, dev, soften=0.125, sharpen=8.0)
+    with timed("granite engine check"):
+        check_engine(cut(cfg, 2), state, dev, 0.125, sharpen=8.0)
+    del state
+    release()
+    return runs
 
 
 def phase_serve(dev):
@@ -1337,6 +1594,7 @@ def phase_serve(dev):
     runs = {}
     paged = ("paged_decode", "paged_extend")
     ring = ("decode_attention",)
+    t0 = time.perf_counter()
     cfg = get_config("reflect_demo_100m")
     model = build_on_card(cfg, 0)
     for kv, rounds, max_new, seed, profile in (("model", 3, 64, 1, 16),
@@ -1355,11 +1613,13 @@ def phase_serve(dev):
     check_logits(cfg, state, dev, soften=0.125)
     del model
     release()
-    check_engine(cut(cfg, 2), {k: v for k, v in state.items()
-                               if not k.startswith("blocks.")
-                               or int(k.split(".")[1]) < 2}, dev, 0.125)
+    check_engine(cut(cfg, 2), first_layers(state, 2), dev, 0.125)
     del state
     release()
+    log(f"[time] reflect_demo_100m: {time.perf_counter() - t0:.1f}s")
+
+    runs.update(phase_granite(dev))
+    t0 = time.perf_counter()
 
     # the recurrent families at full width and depth, one at a time; the
     # logits check at a cut depth (one unit of the pattern), whose weights
@@ -1385,6 +1645,8 @@ def phase_serve(dev):
             torch.Generator().manual_seed(0))
         check_logits(small.cfg, small.state_dict(), dev, soften)
         del small
+        log(f"[time] {arch}: {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
     ops.reset_launches()
     return runs
 
@@ -1401,9 +1663,12 @@ def main() -> int:
 
     dev = torch.device("cuda")
     smi = phase_device()
-    phase_build()
-    records = phase_kernels(dev)
-    runs = phase_serve(dev)
+    with timed("build"):
+        phase_build()
+    with timed("kernels"):
+        records = phase_kernels(dev)
+    with timed("serve"):
+        runs = phase_serve(dev)
     kernels = []
     # each kernel's record at one shape its model's runs give it: paged
     # extend at Sx = 5 (the demo's verify steps make most of its

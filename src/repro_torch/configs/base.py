@@ -2,7 +2,8 @@
 
 A copy of the reference package's ``configs/base.py`` restricted to what
 the port serves: ``ModelConfig``, ``ServeConfig`` and the block patterns
-``dense_pattern``, ``mamba_pattern`` and ``recurrentgemma_pattern``.
+``dense_pattern``, ``moe_pattern``, ``mamba_pattern`` and
+``recurrentgemma_pattern``.
 Field names, defaults and meanings are unchanged, so a config built for
 one package reads the same in the other.  ``ServeConfig`` options that the
 port's engine does not implement yet (``mesh``, ``enforce_deadlines``,
@@ -101,6 +102,10 @@ class ModelConfig:
 
 def dense_pattern(n: int) -> Tuple[str, ...]:
     return ("attn",) * n
+
+
+def moe_pattern(n: int) -> Tuple[str, ...]:
+    return ("moe",) * n
 
 
 def mamba_pattern(n: int) -> Tuple[str, ...]:

@@ -43,8 +43,10 @@
 // set).  Ring: the walk first lists the slots of its segment whose token
 // the block's single query position may attend (tok >= 0, tok <= pos, tok
 // > pos - window) and walks that list.  Slots no row of the tile can
-// attend are never read.  A row with no valid slot ends with l == 0 and is
-// written as zeros (Partial: m = -inf, l = 0).
+// attend are never read.  A row with no valid slot ends with l == 0
+// (Partial: m = -inf, l = 0); combine() then writes what its Empty policy
+// says: the mean of V over the row's page table for the paged kernels, as
+// their TPU kernels give it (PageMean), zeros otherwise.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -633,22 +635,108 @@ __device__ void attend_rows(const Args& a, Walk w, int b, int h, int row0,
   }
 }
 
+// ----------------------------------------------------------- empty rows
+// What combine() writes for a row that no split attended (l = 0 in all),
+// columns d and d + 1 of row (b, h).  Every thread of the block calls it.
+
+// ZeroRow: zeros (ring decode).
+struct ZeroRow {
+  template <int HD>
+  __device__ float2 fill(const Args&, int, int, int) const {
+    return make_float2(0.f, 0.f);
+  }
+};
+
+// Columns d, d + 1 of V row ``row`` of a [*, HD] pool of TKV, as floats
+// (int8: times the row's scale).
+template <typename TKV, int HD>
+__device__ __forceinline__ float2 v_pair(const Args& a, long long row,
+                                         int d) {
+  const TKV* v = static_cast<const TKV*>(a.kv_v) + row * HD + d;
+  if constexpr (std::is_same<TKV, float>::value) {
+    return *reinterpret_cast<const float2*>(v);
+  } else if constexpr (std::is_same<TKV, __nv_bfloat16>::value) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(v));
+  } else {
+    const char2 c = *reinterpret_cast<const char2*>(v);
+    const float s = a.vs[row];
+    return make_float2(c.x * s, c.y * s);
+  }
+}
+
+// PageMean: the paged kernels.  Their TPU kernels (paged_attention.py,
+// paged_extend.py) DMA physical page 0 for an unmapped table entry and
+// mask every score of a row with no valid slot alike, so such a row
+// attends all NP * ps slots of its table uniformly: it gets the mean of
+// their V, page 0's for each unmapped entry.  An idle batch slot (a table
+// with no page) gets page 0's mean, and an MoE decode step routes it
+// beside the live rows.  The block counts the unmapped entries together
+// (__syncthreads_count); each thread then adds its two columns over the
+// mapped pages, if any, and page 0 once for all unmapped ones.
+template <typename TKV>
+struct PageMean {
+  const int32_t* page_table;  // [B, NP], -1 = unmapped
+  int ps, NP;
+
+  template <int HD>
+  __device__ float2 page_sum(const Args& a, int phys, int h, int d) const {
+    float2 s = make_float2(0.f, 0.f);
+    for (int i = 0; i < ps; ++i) {
+      const float2 v = v_pair<TKV, HD>(
+          a, (static_cast<long long>(phys) * ps + i) * a.K + h, d);
+      s.x += v.x;
+      s.y += v.y;
+    }
+    return s;
+  }
+
+  template <int HD>
+  __device__ float2 fill(const Args& a, int b, int h, int d) const {
+    const int32_t* tbl = page_table + static_cast<size_t>(b) * NP;
+    int unmapped = 0;
+    for (int j0 = 0; j0 < NP; j0 += blockDim.x) {
+      const int j = j0 + threadIdx.x;
+      unmapped += __syncthreads_count(j < NP && tbl[j] < 0);
+    }
+    float2 s = make_float2(0.f, 0.f);
+    if (d < HD) {
+      if (unmapped < NP)
+        for (int j = 0; j < NP; ++j) {
+          const int phys = tbl[j];
+          if (phys >= 0) {
+            const float2 p = page_sum<HD>(a, phys, h, d);
+            s.x += p.x;
+            s.y += p.y;
+          }
+        }
+      if (unmapped > 0) {
+        const float2 p = page_sum<HD>(a, 0, h, d);
+        s.x += unmapped * p.x;
+        s.y += unmapped * p.y;
+      }
+    }
+    const float inv = 1.f / (static_cast<float>(NP) * ps);
+    return make_float2(s.x * inv, s.y * inv);
+  }
+};
+
 // One block per output row (b, h, r) of the R = Sx * G rows of each (b,
 // h): the splits' partials [B, K, splits, R, HD + 2] added up in split
 // order,
 //
 //   out = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s,  M = max m_s,
 //
-// skipping splits with no slot (l = 0); a row with none is zeros.  A
+// skipping splits with no slot (l = 0); a row with none gets the Empty
+// policy's fill (its l is the same in every thread of the block).  A
 // thread a split reads (m_s, l_s) into shared memory and turns them into
 // the weight e^(m_s - M) and its weighted l; then thread t sums dims 2t,
 // 2t + 1 of the weighted acc over the splits, its loads independent of
 // one another, and writes the row where row_offset() puts it.  The order
 // is fixed, so results are bit-identical from run to run, and one split
 // gives acc / l exactly.
-template <typename TQ, int HD>
+template <typename TQ, int HD, typename Empty>
 __global__ void __launch_bounds__(HD / 2 > 32 ? HD / 2 : 32)
-    combine_kernel(const float* part, Args a, int splits) {
+    combine_kernel(const float* part, Args a, int splits, Empty empty) {
   extern __shared__ float w_s[];  // [splits] m_s, then weights
   float* wl_s = w_s + splits;     // [splits] l_s, then weighted
   const int R = a.Sx * a.G;
@@ -674,6 +762,16 @@ __global__ void __launch_bounds__(HD / 2 > 32 ? HD / 2 : 32)
   float l = 0.f;
   for (int s = 0; s < splits; ++s) l += wl_s[s];
   const int d = 2 * threadIdx.x;
+  const int b = bh / a.K, h = bh % a.K;
+  if (!(l > 0.f)) {                 // no split attended a slot
+    const float2 e = empty.template fill<HD>(a, b, h, d);
+    if (d < HD) {
+      TQ* dst = static_cast<TQ*>(a.out) + row_offset<HD>(a, b, h, r) + d;
+      store(dst, e.x);
+      store(dst + 1, e.y);
+    }
+    return;
+  }
   if (d < HD) {
     float2 o = make_float2(0.f, 0.f);
 #pragma unroll 8
@@ -686,21 +784,21 @@ __global__ void __launch_bounds__(HD / 2 > 32 ? HD / 2 : 32)
         o.y += w * x.y;
       }
     }
-    TQ* dst = static_cast<TQ*>(a.out) +
-              row_offset<HD>(a, bh / a.K, bh % a.K, r) + d;
-    store(dst, l > 0.f ? o.x / l : 0.f);
-    store(dst + 1, l > 0.f ? o.y / l : 0.f);
+    TQ* dst = static_cast<TQ*>(a.out) + row_offset<HD>(a, b, h, r) + d;
+    store(dst, o.x / l);
+    store(dst + 1, o.y / l);
   }
 }
 
-// Launch combine_kernel over the B * K * Sx * G rows of ``a``.
-template <typename TQ, int HD>
+// Launch combine_kernel over the B * K * Sx * G rows of ``a``; a row no
+// split attended gets ``empty``'s fill.
+template <typename TQ, int HD, typename Empty = ZeroRow>
 cudaError_t combine(const Args& a, const float* part, int splits,
-                    cudaStream_t stream) {
-  combine_kernel<TQ, HD><<<a.B * a.K * a.Sx * a.G,
-                           HD / 2 > 32 ? HD / 2 : 32,
-                           2 * sizeof(float) * splits, stream>>>(part, a,
-                                                                 splits);
+                    cudaStream_t stream, Empty empty = Empty()) {
+  combine_kernel<TQ, HD, Empty><<<a.B * a.K * a.Sx * a.G,
+                                  HD / 2 > 32 ? HD / 2 : 32,
+                                  2 * sizeof(float) * splits, stream>>>(
+      part, a, splits, empty);
   return cudaGetLastError();
 }
 

@@ -42,6 +42,9 @@
 // one.  Each block writes its G rows' unnormalized (acc, m, l) to
 // ``part``, and paged::combine, launched from the same entry point, adds
 // the splits of each row in split order: bit-identical from run to run.
+// A row with no valid slot (an idle batch slot: its table maps no page)
+// gets what the TPU kernel gives it, the mean of V over its table with
+// page 0 for each unmapped entry (paged::PageMean, in the combine).
 //
 // recurrentgemma-9b's local-attention blocks are MQA at HD = 256 with
 // G = 16 query heads per KV head: blocks of 16 rows, stages of 32 slots,
@@ -76,7 +79,9 @@ cudaError_t launch(const paged::Args& a, paged::Pages w, float* part,
                                                                    part);
   const cudaError_t split_err = cudaGetLastError();
   if (split_err != cudaSuccess) return split_err;
-  return paged::combine<TQ, HD>(a, part, w.splits, stream);
+  return paged::combine<TQ, HD>(
+      a, part, w.splits, stream,
+      paged::PageMean<TKV>{w.page_table, w.ps, w.NP});
 }
 
 template <typename TQ, typename TKV, int HD>

@@ -53,6 +53,8 @@
 //   page-table entries and writes its rows' unnormalized (acc, m, l) to
 //   ``part``, and paged::combine adds the splits in split order (the same
 //   arithmetic as ring and paged decode): bit-identical from run to run.
+//   A row with no valid slot gets the TPU kernel's value, the mean of V
+//   over its table (paged::PageMean, as in paged decode).
 #include "paged_common.cuh"
 #include "flash_tc.cuh"
 
@@ -95,7 +97,9 @@ cudaError_t launch_walk(const paged::Args& a, paged::Pages w, float* part,
           a, w, part, tiles);
   const cudaError_t split_err = cudaGetLastError();
   if (split_err != cudaSuccess) return split_err;
-  return paged::combine<float, HD>(a, part, w.splits, stream);
+  return paged::combine<float, HD>(
+      a, part, w.splits, stream,
+      paged::PageMean<TKV>{w.page_table, w.ps, w.NP});
 }
 
 // ------------------------------------------- bf16 q: the tensor cores
@@ -321,7 +325,9 @@ cudaError_t launch_tc(const paged::Args& a, paged::Pages w, float* part,
           a, w, part, tiles);
   const cudaError_t split_err = cudaGetLastError();
   if (split_err != cudaSuccess) return split_err;
-  return paged::combine<__nv_bfloat16, HD>(a, part, w.splits, stream);
+  return paged::combine<__nv_bfloat16, HD>(
+      a, part, w.splits, stream,
+      paged::PageMean<TKV>{w.page_table, w.ps, w.NP});
 }
 
 // One warpgroup for verify widths (Sx * G <= 64 rows), two for chunks.

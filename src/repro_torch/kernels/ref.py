@@ -11,13 +11,13 @@ sequential float32 loops over time.  They are the CPU path of the port
 (``kernels/ops.py``) and the oracles ``chip_smoke.py`` holds the CUDA
 kernels against.
 
-One rule differs from the JAX oracle, on purpose: a query row with NO
-valid slot (an empty batch slot, a pad lane) comes out as zeros.  The JAX
-oracle softmaxes an all ``-1e30`` row into a uniform average of whatever
-slots the row sees; the CUDA kernels never read slots no row may attend,
-so they cannot reproduce that average, and a zero row is finite where an
-empty softmax would be NaN.  Rows with at least one valid slot are
-unchanged.
+A query row with NO valid slot (an idle batch slot, a pad lane) follows
+the JAX oracle in the paged versions: it softmaxes an all ``-1e30`` row
+into the uniform average of the V rows it gathered, page 0's for each
+unmapped table entry, which is what the TPU kernels give it and what an
+MoE decode step routes for an idle slot.  The ring and full-sequence
+versions give such a row zeros instead, on purpose: their CUDA kernels
+never read slots no row may attend, and no caller reads those rows.
 """
 from __future__ import annotations
 
@@ -39,16 +39,20 @@ def _gather(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
 
 
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     valid: torch.Tensor) -> torch.Tensor:
+                     valid: torch.Tensor, empty_mean: bool = False
+                     ) -> torch.Tensor:
     """Softmax attention in float32 with an explicit mask.  q:
     [B,Sx,K,G,hd]; k/v: [B,T,K,hd] (float); valid: [B,Sx,T], may lane s
     attend slot t.  Returns [B,Sx,K,G,hd] in q's dtype; a lane with no
-    valid slot is zeros."""
+    valid slot is zeros, or (``empty_mean``) the mean of all T rows of v,
+    as the JAX oracle's softmax of an all ``-1e30`` row gives it."""
     hd = q.shape[-1]
     s = torch.einsum("bskgd,btkd->bskgt", q.float(), k.float()) * hd ** -0.5
     valid = valid[:, :, None, None, :]                       # [B,Sx,1,1,T]
     s = s.masked_fill(~valid, NEG_INF)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * valid
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    if not empty_mean:          # else masked slots of a live row give 0
+        p = p * valid
     l = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bskgt,btkd->bskgd", p / l.clamp_min(1e-30), v.float())
     return o.to(q.dtype)
@@ -110,7 +114,7 @@ def _paged_attend(q, k_pool, v_pool, page_table, pos_lane, k_scale, k_zero,
     t = torch.arange(NP * ps, device=q.device)[None, None, :]
     mapped = torch.repeat_interleave(page_table >= 0, ps, dim=1)[:, None, :]
     valid = mapped & _in_window(t, pos_lane.long()[..., None], window)
-    return masked_attention(q, kg, vg, valid)
+    return masked_attention(q, kg, vg, valid, empty_mean=True)
 
 
 def paged_decode_attention_ref(q, k_pool, v_pool, page_table, pos, *,
@@ -118,8 +122,9 @@ def paged_decode_attention_ref(q, k_pool, v_pool, page_table, pos, *,
                                window: Optional[int] = None) -> torch.Tensor:
     """q: [B,K,G,hd]; k/v_pool: [P,ps,K,hd]; page_table: [B,NP]; pos: [B].
     Slot ``t`` is valid iff its page is mapped, ``t <= pos`` and (with a
-    window) ``t > pos - window``.  Scale sidecar pools ([P,ps,K] f32) mark
-    an int8 pool, dequantized here."""
+    window) ``t > pos - window``; a row with none gets the mean of its
+    gathered V (an idle slot: page 0's).  Scale sidecar pools ([P,ps,K]
+    f32) mark an int8 pool, dequantized here."""
     return _paged_attend(q[:, None], k_pool, v_pool, page_table, pos[:, None],
                          k_scale, k_zero, v_scale, window)[:, 0]
 

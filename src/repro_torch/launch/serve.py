@@ -4,7 +4,9 @@ The port of ``repro/launch/serve.py``'s single-engine path: one
 ``Engine``, ``--rounds`` reflection rounds over ``--requests``
 conversations, each round's prompt being the previous prompt plus its
 output plus the reflection suffix ``[99, 98]``; prints throughput and
-prefix-cache statistics.  It serves the reduced (smoke) config with
+prefix-cache statistics.  It serves the reduced (smoke) config of any
+architecture in the port's registry (``models/registry.py``: dense,
+MoE such as ``granite_moe_1b_a400m``, mamba and RG-LRU hybrids) with
 seeded random weights, as the reference does, and runs on the CUDA
 device unless ``--device cpu`` is given.  ``--aot`` warms every serving
 step before the first request (``ServeConfig.aot_warmup``: CUDA graphs
@@ -16,10 +18,15 @@ prints the startup time and the recompile tripwire.  ``--mesh`` and
 import argparse
 import time
 
+from repro_torch.models.registry import ARCH_IDS, EXTRA_ARCH_IDS
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="reflect_demo_100m")
+    ap.add_argument("--arch", default="reflect_demo_100m",
+                    help="an architecture id of models/registry.py "
+                    f"({', '.join(ARCH_IDS + EXTRA_ARCH_IDS)}) or its "
+                    "public alias")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--rounds", type=int, default=2)

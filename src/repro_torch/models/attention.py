@@ -415,7 +415,9 @@ def attention_decode_paged(cfg: ModelConfig, p: Attention, x: torch.Tensor,
                            ) -> Tuple[torch.Tensor, Pool]:
     """One-token decode over the page pool.  x: [B,1,d]; pos: [B] int32;
     page_table: [B, NP] int32.  Writes this token's K/V, then reads the
-    post-write pool through the paged decode kernel."""
+    post-write pool through the paged decode kernel, which gives a row
+    whose table maps no page (an idle slot) the reference's value, the
+    mean of physical page 0's V."""
     B = x.shape[0]
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     ps = pool["kp"].shape[1]

@@ -3,13 +3,15 @@
 
 ``TransformerLM`` is an ``nn.Module`` with one block per layer of
 ``cfg.block_pattern``: ``attn`` and ``rg_attn`` (attention blocks; the
-latter with RecurrentGemma's ``local_window``), ``mamba`` and ``rglru``.
+latter with RecurrentGemma's ``local_window``), ``moe`` (attention and a
+mixture-of-experts FFN, models/moe.py), ``mamba`` and ``rglru``.
 The reference's ``lax.scan`` over a stacked repeating unit becomes a loop
 over ``self.blocks``.  Entry points, all without gradients:
 
-* ``forward`` (teacher forcing: logits at every position) and
-  ``prefill`` (logits at each sequence's last valid token and the primed
-  decode cache), whose attention layers run ``ops.flash_attention``;
+* ``forward`` (teacher forcing: logits at every position, and the MoE
+  load-balancing aux loss) and ``prefill`` (logits at each sequence's
+  last valid token and the primed decode cache), whose attention layers
+  run ``ops.flash_attention``;
 * ``prefill_extend`` (chunked prefill, mixed steps and speculative
   verify) and ``decode_step``, which take the cache — a list with one
   dict per layer: the ring cache or shared page pools of an attention
@@ -17,7 +19,7 @@ over ``self.blocks``.  Entry points, all without gradients:
   and, for paged caches, the ``[B, NP]`` int32 page table; they update
   the cache in place and return ``(logits, cache)``.
 
-Not ported yet: MoE blocks and the whisper and vlm models.
+Not ported yet: the whisper and vlm models.
 """
 from __future__ import annotations
 
@@ -30,26 +32,31 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
+from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
 
 Cache = List[Dict[str, torch.Tensor]]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 ATTN_KINDS = ("attn", "rg_attn")
+# the kinds whose layers hold K/V (a ring or a page pool)
+KV_KINDS = ATTN_KINDS + ("moe",)
 STATE_KINDS = ("mamba", "rglru")
-UNPORTED = "MoE blocks, whisper and vlm models"
+UNPORTED = "whisper and vlm models"
 
 
 def _block(cfg: ModelConfig, kind: str, dtype: torch.dtype) -> nn.Module:
     if kind in ATTN_KINDS:
         return A.AttnBlock(cfg, dtype)
+    if kind == "moe":
+        return MOE.MoEBlock(cfg, dtype)
     if kind == "mamba":
         return M.MambaBlock(cfg, dtype)
     if kind == "rglru":
         return RG.RGLRUBlock(cfg, dtype)
     raise NotImplementedError(
         f"block kind {kind!r} is not ported yet; the port serves "
-        f"{ATTN_KINDS + STATE_KINDS}; still to port: {UNPORTED}")
+        f"{KV_KINDS + STATE_KINDS}; still to port: {UNPORTED}")
 
 
 class TransformerLM(nn.Module):
@@ -81,13 +88,13 @@ class TransformerLM(nn.Module):
 
     def cache_defs(self, batch: int, max_seq: int,
                    kv_dtype: Optional[str] = None) -> List[Dict]:
-        """Per-layer ring-cache shapes and dtypes: attention layers get a
-        [batch, capacity] ring (``rg_attn`` layers capped at
+        """Per-layer ring-cache shapes and dtypes: attention and MoE layers
+        get a [batch, capacity] ring (``rg_attn`` layers capped at
         ``local_window``), recurrent layers their dense state."""
         cap = self.attn_capacity(max_seq)
         defs = []
         for kind in self.cfg.block_pattern:
-            if kind in ATTN_KINDS:
+            if kind in KV_KINDS:
                 c = min(cap, self.cfg.local_window) if kind == "rg_attn" \
                     else cap
                 defs.append(A.kv_cache_def(self.cfg, batch, c, self.dtype,
@@ -110,14 +117,14 @@ class TransformerLM(nn.Module):
     def cache_defs_paged(self, num_pages: int, page_size: int,
                          kv_dtype: Optional[str] = None, batch: int = 1
                          ) -> List[Dict]:
-        """Per-layer cache shapes and dtypes: attention layers get a shared
-        page pool (attention.paged_kv_cache_def; ``kv_dtype`` "int8" adds
-        the scale sidecar pools), recurrent layers their dense ``batch``-row
-        state — paging only pays off where the cache grows with the
-        sequence."""
+        """Per-layer cache shapes and dtypes: attention and MoE layers get
+        a shared page pool (attention.paged_kv_cache_def; ``kv_dtype``
+        "int8" adds the scale sidecar pools), recurrent layers their dense
+        ``batch``-row state — paging only pays off where the cache grows
+        with the sequence."""
         defs = []
         for kind in self.cfg.block_pattern:
-            if kind in ATTN_KINDS:
+            if kind in KV_KINDS:
                 defs.append(A.paged_kv_cache_def(self.cfg, num_pages,
                                                  page_size, self.dtype,
                                                  kv_dtype))
@@ -154,23 +161,30 @@ class TransformerLM(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Teacher forcing: ``batch["tokens"]`` [B, S] (and optional
         ``batch["lengths"]`` [B]) -> (logits [B, S, V], aux loss).  The aux
-        loss is MoE load balancing, 0 without MoE blocks.  There is no
-        backward: the flash kernel has none, as the TPU kernel had none."""
+        loss is MoE load balancing summed over the MoE layers and divided
+        by ``cfg.num_layers``, as in the reference: 0 without MoE blocks.
+        There is no backward: the flash kernel has none, as the TPU kernel
+        had none."""
         tokens = batch["tokens"]
         lengths = batch.get("lengths")
         x = self.embed_tokens(tokens)
         positions = torch.arange(tokens.shape[1], device=tokens.device,
                                  dtype=torch.int32)[None, :]
+        aux = torch.zeros((), device=x.device)
         for kind, blk in zip(self.cfg.block_pattern, self.blocks):
             if kind in ATTN_KINDS:
                 x = A.attn_block_forward(self.cfg, blk, x, positions, kind,
                                          lengths)
+            elif kind == "moe":
+                x, a = MOE.moe_block_forward(self.cfg, blk, x, positions,
+                                             lengths)
+                aux = aux + a
             elif kind == "mamba":
                 x = M.mamba_block_forward(self.cfg, blk, x)
             else:
                 x = RG.rglru_block_forward(self.cfg, blk, x)
         x = L.rmsnorm(self.ln_f.scale, x, self.cfg.norm_eps)
-        return self.logits(x), torch.zeros((), device=x.device)
+        return self.logits(x), aux / max(self.cfg.num_layers, 1)
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor,
@@ -197,6 +211,9 @@ class TransformerLM(nn.Module):
                        if kind == "rg_attn" else capacity)
                 x, c = A.attn_block_prefill(self.cfg, blk, x, positions,
                                             lengths, cap, kind)
+            elif kind == "moe":
+                x, c, _ = MOE.moe_block_prefill(self.cfg, blk, x, positions,
+                                                lengths, capacity)
             elif kind == "mamba":
                 x, c = M.mamba_block_prefill(self.cfg, blk, x)
             else:
@@ -235,6 +252,9 @@ class TransformerLM(nn.Module):
             if kind in ATTN_KINDS:
                 x, _ = A.attn_block_extend(self.cfg, blk, x, c, pos0, kind,
                                            valid, page_table)
+            elif kind == "moe":
+                x, _ = MOE.moe_block_extend(self.cfg, blk, x, c, pos0, valid,
+                                            page_table)
             elif kind == "mamba":
                 x, _ = M.mamba_block_extend(self.cfg, blk, x, c, valid)
             else:
@@ -261,6 +281,9 @@ class TransformerLM(nn.Module):
             if kind in ATTN_KINDS:
                 x, _ = A.attn_block_decode(self.cfg, blk, x, c, pos, kind,
                                            page_table)
+            elif kind == "moe":
+                x, _ = MOE.moe_block_decode(self.cfg, blk, x, c, pos,
+                                            page_table)
             elif kind == "mamba":
                 x, _ = M.mamba_block_decode(self.cfg, blk, x, c)
             else:

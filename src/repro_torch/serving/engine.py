@@ -47,10 +47,14 @@ Differences from the reference:
     page pool, as in the reference: zeroed at admission (so a preemption
     replay restarts from zero), copied into prefix snapshots and restored
     from them; speculative decoding is off for them.
+  * MoE models serve as attention models (pool layers, speculation on).
+    Their decode step routes every batch slot, idle ones included, so the
+    engine keeps an idle slot's ``next_token`` and ``pos`` as the
+    reference does: through expert capacity they reach the live rows.
   * Not ported yet — the constructor raises ``NotImplementedError`` when
     asked for them: fault injection, deadlines, NaN quarantine, the stall
-    detector, SLO pricing and meshes; MoE, whisper and vlm models fail
-    when the model is built.
+    detector, SLO pricing and meshes; whisper and vlm models fail when
+    the model is built.
 """
 from __future__ import annotations
 
@@ -64,7 +68,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, ServeConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.models.transformer import ATTN_KINDS, STATE_KINDS
+from repro_torch.models.transformer import KV_KINDS, STATE_KINDS
 from repro_torch.serving import sampler
 from repro_torch.serving.page_pool import PagePool, PagedSnapshot
 from repro_torch.serving.prefix_cache import PrefixCache
@@ -114,7 +118,7 @@ class Engine:
         self.paged = bool(scfg.paged_kv)
         if self.paged:
             self._pool_layers = [i for i, k in enumerate(kinds)
-                                 if k in ATTN_KINDS]
+                                 if k in KV_KINDS]
             # per-slot (batch-axis) layers: what a slot reset, a snapshot
             # copy and adoption touch; the pools are shared
             self._slot_layers = self._state_layers
@@ -138,12 +142,12 @@ class Engine:
             # With EVERY attention layer windowed, pages that slid out of
             # the window can never be attended again and are freed as a
             # request advances (every layer shares one table: the widest
-            # window rules).  rg_attn layers attend within local_window; a
-            # model without attention layers frees nothing (its pages
-            # hold no KV).
+            # window rules).  rg_attn layers attend within local_window,
+            # attn and moe layers within sliding_window; a model without
+            # K/V layers frees nothing (its pages hold no KV).
             wins = [self.cfg.local_window if k == "rg_attn"
                     else self.cfg.sliding_window for k in set(kinds)
-                    if k in ATTN_KINDS]
+                    if k in KV_KINDS]
             self._window_free = (max(wins) if wins and None not in wins
                                  else None)
             # bytes of one physical page across every layer's pools

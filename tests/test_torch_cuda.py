@@ -15,7 +15,8 @@ the card launch the kernels of their models' paths.  Engines whose steps
 are captured as CUDA graphs give the eager engines' streams, bills and
 launches, and a replay reads the page table it is given; so does the
 paper's reflection loop (fixed and routed) over a captured engine, and
-the loop's backend refuses a fault plan.
+the loop's backend refuses a fault plan.  The MoE FFN gives the CPU's
+expert ids and outputs on the card, and the same bits on every call.
 """
 import dataclasses
 
@@ -164,7 +165,7 @@ def test_split_paged_kernels(dev, monkeypatch, mode, B, Sx, K, G, hd, NP,
     edges (bf16 extend on the tensor cores, float32 on the staged walk),
     against the plain version (float32 1e-4, bfloat16 2e-2, int8 1e-4,
     int8 + bf16 2e-2) and the one-split call, bit-equal across two calls;
-    the empty last row is zeros."""
+    the empty last row is page 0's mean V, as in the TPU kernels."""
     from repro_torch.kernels import cuda_lib
     act = torch.bfloat16 if "bf" in mode else torch.float32
     tol = 2e-2 if act == torch.bfloat16 else 1e-4
@@ -188,7 +189,48 @@ def test_split_paged_kernels(dev, monkeypatch, mode, B, Sx, K, G, hd, NP,
         torch.testing.assert_close(got.float(), one.float(), atol=tol,
                                    rtol=0)
         assert torch.equal(got, again)
-        assert not got[B - 1].any()
+        v0 = ref._dequant(fkp[0], fvp[0], *(sc_cpu[n][0] if n in sc_cpu
+                                            else None for n in (
+                                                "k_scale", "k_zero",
+                                                "v_scale")))[1]
+        torch.testing.assert_close(
+            got[B - 1].float().cpu(),
+            v0.float().mean(0)[:, None].expand_as(got[B - 1]), atol=tol,
+            rtol=0)
+
+
+@pytest.mark.parametrize("mode", ["float32", "bfloat16", "int8",
+                                  "int8+bf16"])
+@pytest.mark.parametrize("window", [None, 4])
+def test_paged_rows_without_valid_slot(dev, mode, window):
+    """Rows with no valid slot get the TPU kernels' value, the mean of the
+    V rows their table gathers (page 0's for unmapped entries), in both
+    paged kernels: an idle batch slot (no page mapped) and, with window 4,
+    lanes whose window holds only an unmapped page while other pages of
+    the table are mapped."""
+    act = torch.bfloat16 if "bf" in mode else torch.float32
+    tol = 2e-2 if act == torch.bfloat16 else 1e-4
+    quant = mode.startswith("int8")
+    cuda, sc, f32, sc_cpu = _inputs(dev, act, quant, B=3, Sx=6)
+    if window is not None:
+        # row 0's lanes 0..2 (positions 45..47) see only page 2, unmapped;
+        # lanes 3..5 reach into page 3, mapped to a free page
+        free = min(set(range(f32[1].shape[0]))
+                   - set(f32[3].flatten().tolist()))
+        for t in (cuda, f32):
+            t[4][0] = 45
+            t[3][0, 2] = -1
+            t[3][0, 3] = free
+    q, kp, vp, pt, pos0 = cuda
+    fq, fkp, fvp, fpt, fpos = f32
+    for fn, plain, qq, fqq in (
+            (ops.paged_extend_attention, ref.paged_extend_attention_ref, q,
+             fq),
+            (ops.paged_decode_attention, ref.paged_decode_attention_ref,
+             q[:, 0].contiguous(), fq[:, 0])):
+        got = fn(qq, kp, vp, pt, pos0, window=window, **sc)
+        want = plain(fqq, fkp, fvp, fpt, fpos, window=window, **sc_cpu)
+        torch.testing.assert_close(got.float().cpu(), want, atol=tol, rtol=0)
 
 
 def test_paged_splits_in_use(dev, monkeypatch):
@@ -669,6 +711,70 @@ def test_prefill_on_card_launches_flash_and_matches_cpu(dev, arch):
     assert ops.LAUNCHES["decode_attention"] == n_attn
 
 
+# ------------------------------------------------------------------ MoE
+
+def _moe(dev, dtype, seed=0, sharpen=8.0):
+    """granite-moe-1b-a400m's MoE FFN at full width (32 experts top-8,
+    d 1024, ff 512), seeded on the CPU and copied to the card; the router
+    sharpened by ``sharpen`` so that no top-k gap of the test's tokens is
+    a near tie that float rounding could flip."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.registry import get_config
+
+    cfg = get_config("granite_moe_1b_a400m").replace(dtype=dtype)
+    cpu = L.init_params(MOE.MoE(cfg), torch.Generator().manual_seed(seed))
+    cpu.router.data.mul_(sharpen)
+    card = MOE.MoE(cfg)
+    card.load_state_dict(cpu.state_dict())
+    return cfg, cpu, card.to(dev)
+
+
+@pytest.mark.parametrize("B,S", [(8, 1), (8, 32), (2, 256)],
+                         ids=["decode", "mixed", "per-row"])
+def test_moe_ffn_on_card_matches_cpu(dev, B, S):
+    """fp32, TF32 off: the card routes every lane to the CPU's experts
+    (ids and kept slots equal) and its outputs agree to 1e-4."""
+    from repro_torch.models import moe as MOE
+
+    cfg, cpu, card = _moe(dev, "float32")
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(B, S, cfg.d_model, generator=g)
+    valid = torch.arange(S)[None, :] < torch.tensor(
+        [S - 3 * b for b in range(B)]).clamp_min(0)[:, None]
+    v = valid if S > 1 else None
+    want, want_aux = MOE.moe_ffn(cfg, cpu, x, v)
+    got, aux = MOE.moe_ffn(cfg, card, x.to(dev),
+                           None if v is None else v.to(dev))
+    x3 = x if S >= 256 else x.reshape(1, -1, cfg.d_model)
+    v3 = None if v is None else (v if S >= 256 else v.reshape(1, -1))
+    ids, _, _, slot, _ = MOE.route(cfg, cpu, x3, v3)
+    c_ids, _, _, c_slot, _ = MOE.route(
+        cfg, card, x3.to(dev), None if v3 is None else v3.to(dev))
+    assert torch.equal(c_ids.cpu(), ids) and torch.equal(c_slot.cpu(), slot)
+    rows = valid if v is not None else torch.ones(B, S, dtype=torch.bool)
+    torch.testing.assert_close(got.cpu()[rows], want[rows], atol=1e-4,
+                               rtol=1e-4)
+    torch.testing.assert_close(aux.cpu(), want_aux, atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_ffn_on_card_is_deterministic(dev, dtype):
+    """The combine gathers and sums in a fixed order (no atomic adds), so
+    two calls on the same inputs give the same bits: decode, mixed and
+    per-row group shapes."""
+    from repro_torch.models import moe as MOE
+
+    cfg, _, card = _moe(dev, dtype, sharpen=1.0)
+    g = torch.Generator(device=dev).manual_seed(2)
+    for B, S in ((8, 1), (8, 32), (2, 512)):
+        x = torch.randn(B, S, cfg.d_model, generator=g, device=dev).to(
+            getattr(torch, dtype))
+        a, aux_a = MOE.moe_ffn(cfg, card, x)
+        b, aux_b = MOE.moe_ffn(cfg, card, x)
+        assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+
+
 # ------------------------------------------------ captured serving steps
 
 def _card_serve(m, scfg, rounds=2, max_new=12):
@@ -700,6 +806,7 @@ def _card_serve(m, scfg, rounds=2, max_new=12):
     ("reflect_demo_100m", dict(kv_dtype="model")),
     ("reflect_demo_100m", dict(kv_dtype="int8")),
     ("reflect_demo_100m", dict(paged_kv=False)),
+    ("granite_moe_1b_a400m", {}),
     ("falcon_mamba_7b", {}),
     ("recurrentgemma_9b", dict(paged_kv=False))])
 def test_captured_engine_equals_eager(dev, arch, kw):

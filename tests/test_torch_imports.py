@@ -26,14 +26,17 @@ def test_port_imports_no_jax_and_no_repro():
         assert not bad, bad
         assert len(names) >= 20, names
         for name in ("kernels.flash_attention", "kernels.decode_attention",
-                     "models.attention", "models.transformer",
+                     "models.attention", "models.moe", "models.transformer",
                      "serving.engine", "serving.step_graph",
                      "core", "core.accounting", "core.budget",
                      "core.controller", "core.feedback",
                      "core.parallel_sampling", "core.pareto",
                      "core.quality_sim", "core.reflection", "core.stats",
                      "core.textmetrics", "data", "data.tasks",
-                     "data.tokenizer"):
+                     "data.tokenizer", "configs.granite_moe_1b_a400m",
+                     "configs.mixtral_8x7b", "configs.kimi_k2_1t_a32b",
+                     "configs.llama3_70b", "configs.minitron_4b",
+                     "configs.yi_6b", "configs.nemotron_4_340b"):
             assert "repro_torch." + name in names, name
         print(len(names))
     """)
@@ -119,6 +122,43 @@ def test_serve_launcher(capsys):
     for flag in (["--mesh", "1x1"], ["--replicas", "2"]):
         with pytest.raises(NotImplementedError):
             serve.main(["--device", "cpu", "--requests", "1", *flag])
+
+
+REGISTRY_ARCHS = ("granite_moe_1b_a400m", "qwen3_0_6b", "recurrentgemma_9b",
+                  "nemotron_4_340b", "minitron_4b", "kimi_k2_1t_a32b",
+                  "yi_6b", "falcon_mamba_7b", "reflect_demo_100m",
+                  "mixtral_8x7b", "llama3_70b")
+
+
+def test_registry_serves_all_but_whisper_and_vlm():
+    """The port's registry has the reference's 13 architectures but
+    whisper and the VLM, under the reference's ids and aliases."""
+    from repro.models import registry as J
+    from repro_torch.models import registry as R
+    assert set(R.ARCH_IDS + R.EXTRA_ARCH_IDS) == set(REGISTRY_ARCHS)
+    assert R.EXTRA_ARCH_IDS == J.EXTRA_ARCH_IDS
+    assert set(J.ARCH_IDS + J.EXTRA_ARCH_IDS) - set(REGISTRY_ARCHS) == {
+        "whisper_tiny", "internvl2_76b"}
+    for alias, arch in J.ALIASES.items():
+        if arch in REGISTRY_ARCHS:
+            assert R.get_config(alias) == R.get_config(arch)
+    for arch in ("whisper_tiny", "internvl2_76b", "whisper-tiny"):
+        with pytest.raises(NotImplementedError, match="still to port"):
+            R.get_smoke_config(arch)
+
+
+@pytest.mark.parametrize("arch", REGISTRY_ARCHS)
+def test_serve_launcher_serves_every_registry_arch(arch, capsys):
+    """``--arch`` takes every id of the registry: two rounds of the smoke
+    config with warmed steps on the CPU, round 2 hitting the prefix
+    cache, no step outside the warmed shapes."""
+    from repro_torch.launch import serve
+
+    serve.main(["--device", "cpu", "--arch", arch, "--requests", "2",
+                "--rounds", "2", "--max-new", "4", "--aot"])
+    out = capsys.readouterr().out
+    assert "2 requests x 2 rounds" in out and "step_compiles 0" in out
+    assert "'hits': 2" in out
 
 
 def _reflection_example():

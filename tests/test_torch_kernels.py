@@ -2,9 +2,10 @@
 
 On the CPU each kernel wrapper runs its plain PyTorch version; it is held
 against ``repro.kernels.ref`` and the Pallas kernels in interpret mode on
-the same numpy inputs, in fp and int8 modes, with and without a window.
-Rows with no valid slot are compared for the port's own rule (finite
-zeros) instead.  The CUDA kernels themselves run only on a card:
+the same numpy inputs, in fp and int8 modes, with and without a window,
+rows with no valid slot included (the mean of the V rows their table
+gathers, page 0's for unmapped entries, as the TPU kernels give them).
+The CUDA kernels themselves run only on a card:
 tests/test_torch_cuda.py holds them against the plain versions there.
 """
 import jax.numpy as jnp
@@ -109,8 +110,10 @@ def test_extend_single_lane_equals_decode(quant):
 
 @pytest.mark.parametrize("window", [None, 4])
 def test_rows_without_valid_slot_are_zero(window):
-    """An unmapped row, and lanes whose window holds no mapped slot, come
-    out as finite zeros; every other row still matches the JAX oracle."""
+    """An unmapped row (an idle batch slot) reads the mean of physical page
+    0's V, and lanes whose window holds no mapped slot the mean of every
+    V row their table gathers, as the JAX oracle and the Pallas kernels
+    give them (no longer the port's former zeros); every row matches."""
     q, kp, vp, pt, pos0 = _inputs(B=3, Sx=6)
     pt[1, :] = -1                                   # an empty batch slot
     if window is not None:
@@ -119,20 +122,33 @@ def test_rows_without_valid_slot_are_zero(window):
         pos0[0] = 45
         pt[0, 2] = -1
         pt[0, 3] = min(set(range(kp.shape[0])) - set(pt.ravel().tolist()))
-    got = ops.paged_extend_attention(_t(q), _t(kp), _t(vp), _t(pt),
-                                     _t(pos0), window=window).numpy()
-    assert np.isfinite(got).all()
-    np.testing.assert_array_equal(got[1], 0.0)
-    want = np.asarray(jref.paged_extend_attention_ref(
-        _j(q), _j(kp), _j(vp), _j(pt), _j(pos0), window=window))
-    if window is None:
-        np.testing.assert_allclose(got[[0, 2]], want[[0, 2]], atol=TOL,
+    for quant in (False, True):
+        kq, vq, sc = _pools(kp, vp, quant)
+        got = ops.paged_extend_attention(
+            _t(q), _t(kq), _t(vq), _t(pt), _t(pos0), window=window,
+            **{k: _t(v) for k, v in sc.items()}).numpy()
+        dec = ops.paged_decode_attention(
+            _t(q[:, 0]), _t(kq), _t(vq), _t(pt), _t(pos0), window=window,
+            **{k: _t(v) for k, v in sc.items()}).numpy()
+        assert np.isfinite(got).all()
+        jsc = {k: _j(v) for k, v in sc.items()}
+        for want in (jref.paged_extend_attention_ref(
+                         _j(q), _j(kq), _j(vq), _j(pt), _j(pos0),
+                         window=window, **jsc),
+                     jops.paged_extend_attention(
+                         _j(q), _j(kq), _j(vq), _j(pt), _j(pos0),
+                         window=window, interpret=True, **jsc)):
+            np.testing.assert_allclose(got, np.asarray(want), atol=TOL,
+                                       rtol=TOL)
+        jdec = jops.paged_decode_attention(
+            _j(q[:, 0]), _j(kq), _j(vq), _j(pt), _j(pos0), window=window,
+            interpret=True, **jsc)
+        np.testing.assert_allclose(dec, np.asarray(jdec), atol=TOL,
                                    rtol=TOL)
-    else:
-        np.testing.assert_array_equal(got[0, :3], 0.0)
-        np.testing.assert_allclose(got[0, 3:], want[0, 3:], atol=TOL,
-                                   rtol=TOL)
-        np.testing.assert_allclose(got[2], want[2], atol=TOL, rtol=TOL)
+        v0 = vq[0] if not quant else vq[0] * sc["v_scale"][0][..., None]
+        np.testing.assert_allclose(                 # page 0's mean V
+            dec[1], np.broadcast_to(v0.mean(0)[:, None], dec[1].shape),
+            atol=TOL, rtol=TOL)
 
 
 def test_cpu_dispatch_launches_no_kernel():

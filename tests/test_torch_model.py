@@ -128,7 +128,10 @@ def test_bridge_is_a_copy():
                                   np.asarray(params["unembed"]))
 
 
-@pytest.mark.parametrize("arch", ["reflect_demo_100m", "qwen3_0_6b"])
+@pytest.mark.parametrize("arch", [
+    "reflect_demo_100m", "qwen3_0_6b", "granite_moe_1b_a400m",
+    "mixtral_8x7b", "kimi_k2_1t_a32b", "llama3_70b", "minitron_4b",
+    "yi_6b", "nemotron_4_340b"])
 def test_transformer_paged_logits_match_jax(arch):
     """Chunked paged prefill (uneven chunks per row, nv masking) then
     paged decode steps: logits of both packages agree to 1e-4."""

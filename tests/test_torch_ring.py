@@ -10,7 +10,8 @@ version:
 * the ring layer (``prefill_into_cache``, ``_masked_ring_write``,
   ``attention_decode``, ``attention_extend``) and ``attention_full_qkv``;
 * ``TransformerLM.forward``, ``prefill`` + ring ``decode_step`` and ring
-  ``prefill_extend`` logits of four smoke models on bridged weights.
+  ``prefill_extend`` logits of five smoke models on bridged weights
+  (granite-moe also with forward's MoE aux loss).
 
 Tolerances: the kernels' plain versions 1e-5 in float32 (sums in another
 order) and 2e-2 on bfloat16 inputs (the output is rounded to bfloat16,
@@ -347,7 +348,7 @@ def test_prefix_len_is_not_ported():
 # ------------------------------------------------------------ the model
 
 ARCHS = ("reflect_demo_100m", "qwen3_0_6b", "falcon_mamba_7b",
-         "recurrentgemma_9b")
+         "recurrentgemma_9b", "granite_moe_1b_a400m")
 
 
 def _pair(arch):
@@ -379,10 +380,12 @@ def test_forward_prefill_decode_and_verify_match_jax(arch):
     rng = np.random.default_rng(7)
     tokens = rng.integers(3, m.cfg.vocab_size, (B, S)).astype(np.int32)
     lengths = np.asarray([S, 27], np.int32)
-    want, _ = jm.forward(params, {"tokens": jnp.asarray(tokens)})
+    want, jaux = jm.forward(params, {"tokens": jnp.asarray(tokens)})
     got, aux = m.forward({"tokens": _t(tokens)})
     _close(got, want)
-    assert float(aux) == 0.0
+    # MoE load balancing (granite); exactly 0 without MoE blocks
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-6)
+    assert (float(aux) > 0) == ("moe" in m.cfg.block_pattern)
     want, jcache = jm.prefill(params, jnp.asarray(tokens),
                               jnp.asarray(lengths), max_seq=64)
     got, cache = m.prefill(_t(tokens), _t(lengths), max_seq=64)

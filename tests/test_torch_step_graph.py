@@ -6,8 +6,9 @@ on the CPU, where a warmed step runs eagerly through its static buffers.
   bridged into the port): identical greedy streams, ``TokenUsage`` bills,
   step counters and preemptions, with no step outside the warmed shapes
   (``step_compiles == 0``) — the reflect_demo_100m smoke config paged in
-  fp and int8 KV with speculation and on rings, and the falcon-mamba and
-  recurrentgemma smoke configs paged.
+  fp and int8 KV with speculation and on rings, the granite-moe smoke
+  config paged with speculation, and the falcon-mamba and recurrentgemma
+  smoke configs paged.
 * The cache after warm-up equals a fresh cache bit for bit.
 * The K/V writes through the scratch slot leave pools, rings and ``tok``
   bit-identical to a write that selects its lanes with ``torch.nonzero``.
@@ -66,6 +67,7 @@ def fitted():
     """Fitted weights (greedy streams of fitted models have real top-2
     gaps, so token-for-token parity across frameworks means something)."""
     return {"reflect_demo_100m": _fit("reflect_demo_100m", 60),
+            "granite_moe_1b_a400m": _fit("granite_moe_1b_a400m", 40),
             "falcon_mamba_7b": _fit("falcon_mamba_7b", 40),
             "recurrentgemma_9b": _fit("recurrentgemma_9b", 40)}
 
@@ -91,10 +93,11 @@ def _serve(engine, request_cls, prompts, rounds, max_new):
     ("reflect_demo_100m", dict(DEMO, kv_dtype="model")),
     ("reflect_demo_100m", dict(DEMO, kv_dtype="int8")),
     ("reflect_demo_100m", dict(DEMO, paged_kv=False)),
+    ("granite_moe_1b_a400m", DEMO),
     ("falcon_mamba_7b", RECURRENT),
     ("recurrentgemma_9b", RECURRENT)],
-    ids=["demo-paged-fp", "demo-paged-int8", "demo-ring", "falcon-paged",
-         "recurrentgemma-paged"])
+    ids=["demo-paged-fp", "demo-paged-int8", "demo-ring", "granite-paged",
+         "falcon-paged", "recurrentgemma-paged"])
 def test_warmed_engine_matches_jax(fitted, arch, kw):
     jm, params, m = fitted[arch]
     kw = dict(kw, aot_warmup=True)
@@ -117,7 +120,7 @@ def test_warmed_engine_matches_jax(fitted, arch, kw):
     assert jst["step_compiles"] == 0, jst["step_compiles_by_fn"]
     assert st["prefix_cache"]["hits"] > 0
     assert ((st["verify_steps"] > 0) == eng.spec
-            == (arch == "reflect_demo_100m"))
+            == (arch in ("reflect_demo_100m", "granite_moe_1b_a400m")))
     if eng.paged:
         eng.pool.check()
 
@@ -319,12 +322,13 @@ def test_cast_keeps_one_copy_per_parameter_and_dtype():
 
 
 @pytest.mark.parametrize("arch", ["reflect_demo_100m", "falcon_mamba_7b",
-                                  "recurrentgemma_9b", "qwen3_0_6b"])
+                                  "recurrentgemma_9b", "qwen3_0_6b",
+                                  "granite_moe_1b_a400m"])
 def test_cast_leaves_logits_bit_identical(arch, monkeypatch):
     """bf16 activations (recurrentgemma: bf16 parameters, its gates read
-    in fp32; qwen3: tied embeddings): chunked paged prefill and a decode
-    step give the same bits with the kept copies as with a cast at every
-    use."""
+    in fp32; qwen3: tied embeddings; granite: the router and expert
+    weights): chunked paged prefill and a decode step give the same bits
+    with the kept copies as with a cast at every use."""
     cfg = get_smoke_config(arch).replace(dtype="bfloat16")
     m = build_model(cfg).init(torch.Generator().manual_seed(0))
     toks = torch.randint(3, cfg.vocab_size, (2, 8),
