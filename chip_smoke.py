@@ -107,13 +107,32 @@ Phases, each of which stops the run with a non-zero exit on any error:
    bills, step counters and launches; every reflection round must read
    the conversation from the cache, and each strategy prints its bill
    under the paper's price book, the paper's modeled API latency beside
-   the card's wall a round, ms a step, speculation and prefix hits.  A
-   last check serves reflect_demo_100m at two layers in float32 (q/k
+   the card's wall a round, ms a step, speculation and prefix hits; the
+   routed loop's engine prices SLOs with its router's book
+   (``slo_price_model``) and prints its SLO rejections.
+   ``[chaos]``: the demo serve's workload (3 rounds of 32 tokens) on a
+   captured engine under a hostile fault plan on a virtual clock (NaN
+   and inf logits, a stuck row, a crash, latency spikes; deadlines, the
+   stall detector, NaN quarantine; two rows at temperature 0.7): every
+   request must end with a known stop reason, no page may be left once
+   the cache is released, an engine on ``plan.clone()`` must replay it
+   exactly, and a rate-0 plan must give what no plan gives (streams,
+   bills, launches), in turns, each serve's wall a step printed.
+   ``[fleet]``: live fleets of captured demo replicas on the card
+   replaying a 64-request trace (2 and 4 replicas, affinity and round
+   robin, then 4 with deadlines and SLO pricing): 64 completions and no
+   leaked page each; TTFT p50/p99, goodput, hit rate, wall, tok/s,
+   assignments, startup, peak memory and launches printed.  A last
+   check serves reflect_demo_100m at two layers in float32 (q/k
    softened) on the card with captured steps and on the CPU through the
    port's engine, token rounds and then reflect1/exec and the routed
    loop over 2 SQL tasks: token streams, bills, the loop's responses,
    decision traces and stop reasons must be identical, and the smallest
-   top-1/top-2 logit gap sampled is printed.
+   top-1/top-2 logit gap sampled is printed; then both engines under
+   clones of the hostile plan (streams, stop reasons, bills, traces,
+   fault counters and fires identical), and the fleet trace through 2
+   replicas of those two layers on the card and on the CPU (identical
+   assignments, and completions apart from their times).
 5. result  — a JSON line of kernel records, the card line, and last the
    JSON status line.
 
@@ -859,7 +878,7 @@ def serve_pair(model, kv_dtype, rounds, max_new, seed, path, paged=True,
     return eager["launches"], captured["launches"]
 
 
-def check_engine(cfg, state, dev, soften, sharpen=None):
+def check_engine(cfg, state, dev, soften, sharpen=None, chaos=False):
     """The engine on the card, every step captured, against the port's
     engine on the CPU (which the CPU tests hold to the JAX engine): float32
     activations and parameters, q/k scaled by ``soften`` and MoE routers
@@ -872,7 +891,10 @@ def check_engine(cfg, state, dev, soften, sharpen=None):
     reasons; prints the smallest top-1/top-2 logit gap that either engine
     sampled from, and for MoE the smallest gap between the k-th and
     (k+1)-th router probability the CPU engine routed by, so that a
-    near-tie can be told from a fault."""
+    near-tie can be told from a fault.  With ``chaos``, both engines then
+    serve 2 greedy rounds under clones of ``[chaos]``'s hostile plan
+    (``fault_run``): streams, stop reasons, bills, decision traces, fault
+    counters and the plan's fires must be identical."""
     from repro_torch.data.tasks import make_sql_tasks
     from repro_torch.models.registry import build_model
     from repro_torch.serving.engine import Engine
@@ -942,6 +964,22 @@ def check_engine(cfg, state, dev, soften, sharpen=None):
             or g_st["step_compiles"] != 0):
         raise AssertionError("the engine on the card disagrees with the "
                              "port's engine on the CPU")
+    if not chaos:
+        return
+    recs = []
+    for d, aot in ((torch.device("cpu"), False), (dev, True)):
+        m = build_model(cfg32)
+        m.load_state_dict(state)
+        recs.append(fault_run(MarginEngine, m, kw, aot, d, prompts))
+        del m
+    same = {k: recs[0][k] == recs[1][k] for k in recs[0]}
+    log(f"[check] {cfg.name}, {cfg.num_layers} layers, under clones of the "
+        f"hostile plan: cuda captured vs cpu eager identical {same}; fires "
+        f"{recs[1]['plan']}, stop reasons "
+        f"{sorted(set(recs[1]['stops']))}, {recs[1]['steps']}")
+    if not all(same.values()):
+        raise AssertionError("under one fault plan the engine on the card "
+                             "disagrees with the port's engine on the CPU")
 
 
 def engine_run(engine_cls, m, kw, aot, d, prompts, tasks):
@@ -972,15 +1010,19 @@ def engine_run(engine_cls, m, kw, aot, d, prompts, tasks):
 
 # ------------------------------------------------------------- [reflect]
 
+ROUTER_BOOK = "nova_micro"
+
+
 def reflect_router():
     """The routed loop's controller: the paper's nova_micro price and
     latency books, the default ``ControllerConfig`` (3 rounds at most).
-    The port's engine prices no SLO, so the controller enforces them."""
+    In ``[reflect]`` its engine prices SLOs with the same books
+    (``slo_price_model``), the engine's backstop to the controller."""
     from repro_torch.core.accounting import CostModel, LatencyModel
     from repro_torch.core.controller import (ControllerConfig,
                                              SweetSpotController)
-    return SweetSpotController(CostModel.for_model("nova_micro"),
-                               LatencyModel.for_model("nova_micro"),
+    return SweetSpotController(CostModel.for_model(ROUTER_BOOK),
+                               LatencyModel.for_model(ROUTER_BOOK),
                                ControllerConfig(max_rounds=3))
 
 
@@ -1005,8 +1047,11 @@ def reflect_strategy(model, dev, rounds, feedback, tasks, aot, router=None,
     from repro_torch.configs.base import ServeConfig
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import Engine
-    eng = Engine(model, ServeConfig(**example.SERVE, aot_warmup=aot),
-                 device=dev)
+    # the routed loop's engine prices SLOs with its router's book: the
+    # engine backstop that the loop checks against the controller's
+    eng = Engine(model, ServeConfig(
+        **example.SERVE, aot_warmup=aot,
+        slo_price_model=ROUTER_BOOK if router else None), device=dev)
     torch.cuda.synchronize()
     ops.reset_launches()
     served = example.serve_strategy(eng, rounds, feedback, tasks, router,
@@ -1063,7 +1108,10 @@ def phase_reflect(model, dev):
             log(f"[reflect] {line}")
         log(f"[reflect] {s.name}: launches {launches}; step capture "
             f"{s.stats['startup_compile_s']:.3f}s, step_compiles "
-            f"{s.stats['step_compiles']}")
+            f"{s.stats['step_compiles']}"
+            + (f"; engine slo_price_model {ROUTER_BOOK}: "
+               f"{s.stats['slo_rejections']} SLO rejections"
+               if router else ""))
     for t, res in enumerate(served["routed/exec"][0].results):
         log(f"[reflect] routed task {t} (SLO {slos[t]}): "
             f"{[f'{d.action}:{d.reason}' for d in res.trace]}, stop "
@@ -1088,6 +1136,310 @@ def phase_reflect(model, dev):
         f"{time.perf_counter() - t0:.1f}s")
     return {"reflect_demo_100m reflection": eager_launches,
             "reflect_demo_100m reflection captured": captured}
+
+
+# --------------------------------------------------------------- [chaos]
+
+CHAOS_STOPS = {"max_tokens", "eos", "budget", "timeout", "stalled", "error"}
+ENGINE_SITES = ("engine.crash", "engine.latency", "engine.logits",
+                "engine.stuck")
+HARDENED = dict(enforce_deadlines=True, stall_limit=8, nan_quarantine=True,
+                nan_retry_limit=2)
+
+
+def chaos_plan(rate=True):
+    """The ``[chaos]`` fault plan on a virtual clock (0.02 s a step):
+    non-finite logits at rate 0.05 (NaN and inf payloads at 0.025 each),
+    one stuck row, one crash mid-run and latency spikes of 0.5 s at rate
+    0.05; ``rate=False``: every site at rate 0."""
+    from repro_torch.serving.faults import FaultPlan, FaultSpec, VirtualClock
+    specs = ([FaultSpec("engine.logits", "nan", rate=0.025),
+              FaultSpec("engine.logits", "inf", rate=0.025,
+                        payload={"value": "inf"}),
+              FaultSpec("engine.stuck", "stuck", rate=1.0, start=40,
+                        max_fires=1),
+              FaultSpec("engine.crash", "crash", rate=1.0, start=70,
+                        max_fires=1),
+              FaultSpec("engine.latency", "spike", rate=0.05,
+                        payload={"delay_s": 0.5})]
+             if rate else [FaultSpec(site) for site in ENGINE_SITES])
+    return FaultPlan(specs, seed=20, clock=VirtualClock(tick_s=0.02))
+
+
+def fault_records(eng, reqs, plan):
+    """What two runs under clones of one plan must share, as plain
+    values: streams, stop reasons, bills, decision traces, the fault
+    counters and the plan's fires."""
+    return {"outputs": [list(r.output) for r in reqs],
+            "stops": [r.stop_reason for r in reqs],
+            "usage": [dataclasses.asdict(r.usage) for r in reqs],
+            "traces": [list(r.decision_trace) for r in reqs],
+            "steps": {k: eng.model_steps[k] for k in (
+                "nan_quarantines", "crash_recoveries", "stuck_rows",
+                "stalls", "timeouts", "errors", "preemptions",
+                "decode_tokens", "mixed_steps", "decode_batch_steps",
+                "verify_steps")},
+            "plan": None if plan is None else dict(plan.stats)}
+
+
+def chaos_serve(model, plan, hardened, label, rounds=3, max_new=32):
+    """``serve()``'s workload (8 conversations of 200-400 tokens, 3
+    reflection rounds, speculation on) on a captured engine under
+    ``plan``; ``hardened`` turns on deadlines, the stall detector (8
+    steps) and NaN quarantine (2 retries).  Rows 2 and 5 sample at
+    temperature 0.7 and rows 0-3 carry a 2.5 s latency SLO.  Launch
+    counters are reset just before the serve and read just after.  Fails
+    unless every request ends with a stop reason of ``CHAOS_STOPS``, the
+    pool checks and no page is left once the cache is released, and both
+    paged kernels launched.  Returns (records, launches, wall ms a
+    step)."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import Request, Status
+    scfg = ServeConfig(max_batch=8, max_seq=2048, page_size=16,
+                       spec_decode=True, spec_tokens=4, aot_warmup=True,
+                       **(HARDENED if hardened else {}))
+    eng = Engine(model, scfg, device="cuda", faults=plan)
+    rng = np.random.default_rng(1)
+    convos = [[1] + rng.integers(3, model.cfg.vocab_size, n).tolist()
+              for n in rng.integers(200, 400, 8)]
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    reqs_all = []
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        reqs = [Request(prompt=list(c), max_new_tokens=max_new, eos_id=None,
+                        temperature=0.7 if i in (2, 5) else 0.0,
+                        max_latency_s=2.5 if i < 4 else None)
+                for i, c in enumerate(convos)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        for c, r in zip(convos, reqs):
+            c += r.output + [99, 98]
+        reqs_all += reqs
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    st = eng.stats()
+    n_steps = sum(st[k] for k in STEP_KINDS)
+    eng.pool.check()
+    while eng.prefix_cache.evict_lru():
+        pass
+    eng.pool.check()
+    rec = fault_records(eng, reqs_all, plan)
+    stops = {s: rec["stops"].count(s) for s in sorted(set(rec["stops"]))}
+    log(f"[chaos] {label}: {len(reqs_all)} requests, {n_steps} engine "
+        f"steps in {dt:.3f}s ({dt / n_steps * 1e3:.2f} ms a step); stop "
+        f"reasons {stops}; fires {rec['plan']}; {rec['steps']}; pages "
+        f"left after the cache is released {eng.pool.used_pages}; "
+        f"launches {launches}; step_compiles {st['step_compiles']}")
+    if not all(r.status is Status.DONE and r.stop_reason in CHAOS_STOPS
+               for r in reqs_all):
+        raise AssertionError(f"{label}: a request did not terminate with "
+                             f"a known stop reason: {stops}")
+    if eng.pool.used_pages != 0 or st["step_compiles"] != 0:
+        raise AssertionError(f"{label}: pages leaked or a step ran outside "
+                             "the captured shapes")
+    if min(launches[k] for k in ("paged_decode", "paged_extend")) <= 0:
+        raise AssertionError(f"{label}: a paged kernel was not launched: "
+                             f"{launches}")
+    return rec, launches, dt / n_steps * 1e3
+
+
+def phase_chaos(model):
+    """``[chaos]``: the full-width demo engine, captured, under the
+    hostile plan (``chaos_plan``) with deadlines, the stall detector and
+    quarantine, then again on ``plan.clone()`` — identical streams, stop
+    reasons, bills, decision traces and fires — then under a rate-0 plan
+    and under none, in turns (rate-0, none, none, rate-0): identical
+    streams, bills and launches, and two readings of each one's wall a
+    step (the reliability layer's host cost).  The serves after the
+    hostile ones show that the context survived its hot NaN rows.
+    Returns the launches of the hostile, clone, first rate-0 and first
+    no-plan serves."""
+    t0 = time.perf_counter()
+    plan = chaos_plan()
+    twin = plan.clone()
+    hostile, h_launch, h_ms = chaos_serve(model, plan, True, "hostile plan")
+    clone, c_launch, _ = chaos_serve(model, twin, True, "plan.clone()")
+    if clone != hostile or c_launch != h_launch:
+        raise AssertionError("two engines under clones of one plan differ")
+    turns = []
+    for rate_0 in (True, False, False, True):
+        turns.append((rate_0,) + chaos_serve(
+            model, chaos_plan(rate=False) if rate_0 else None, rate_0,
+            "rate-0 plan" if rate_0 else "no plan"))
+    (_, zero, z_launch, _), (_, none, n_launch, _) = turns[:2]
+    for _, rec, launches, _ in turns:
+        same = {k: rec[k] == none[k] for k in ("outputs", "stops", "usage")}
+        if not all(same.values()) or launches != n_launch:
+            raise AssertionError(f"the rate-0 plan differs from no plan: "
+                                 f"{same}, launches {launches} / "
+                                 f"{n_launch}")
+    if hostile["plan"].get("engine.logits", 0) <= 0 or \
+            hostile["steps"]["crash_recoveries"] != 1:
+        raise AssertionError(f"the hostile plan did not fire as planned: "
+                             f"{hostile['plan']}")
+    ms = {r: [f"{t[3]:.2f}" for t in turns if t[0] is r]
+          for r in (True, False)}
+    log(f"[chaos] plan.clone() = hostile plan in {len(hostile['outputs'])} "
+        f"streams, stop reasons, bills, decision traces, fires and "
+        f"launches; rate-0 plan = no plan in streams, bills and launches; "
+        f"the context served on after {hostile['plan']['engine.logits']} "
+        f"non-finite logit rows ({hostile['steps']['nan_quarantines']} "
+        f"quarantines); wall ms a step: hostile {h_ms:.2f}, rate-0 "
+        f"{' / '.join(ms[True])}, no plan {' / '.join(ms[False])} (in "
+        f"turns: rate-0, none, none, rate-0); phase "
+        f"{time.perf_counter() - t0:.1f}s")
+    return {"reflect_demo_100m chaos": h_launch,
+            "reflect_demo_100m chaos clone": c_launch,
+            "reflect_demo_100m chaos rate-0": z_launch,
+            "reflect_demo_100m chaos no plan": n_launch}
+
+
+def fault_run(engine_cls, m, kw, aot, d, prompts):
+    """``check_engine``'s run under a clone of the hostile plan with
+    deadlines, the stall detector and quarantine: 2 greedy rounds of the
+    prompts, rows 0-3 under a 2.5 s latency SLO.  Returns its records."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.serving.request import Request
+    plan = chaos_plan()
+    eng = engine_cls(m, ServeConfig(**kw, **HARDENED, aot_warmup=aot),
+                     device=d, faults=plan)
+    convos = [list(p) for p in prompts]
+    reqs_all = []
+    for _ in range(2):
+        reqs = [Request(prompt=list(c), max_new_tokens=16, eos_id=None,
+                        max_latency_s=2.5 if i < 4 else None)
+                for i, c in enumerate(convos)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        for c, r in zip(convos, reqs):
+            c += r.output + [99, 98]
+        reqs_all += reqs
+    eng.pool.check()
+    return fault_records(eng, reqs_all, plan)
+
+
+# --------------------------------------------------------------- [fleet]
+
+def fleet_trace():
+    """The ``[fleet]`` trace: 64 arrivals at a mean 40/s, 6-page group
+    prefixes, tokens under 512."""
+    from repro_torch.serving.trace import TraceConfig, generate_trace
+    return generate_trace(TraceConfig(n_requests=64, seed=3, mean_rate=40.0,
+                                      vocab=512, page_size=16))
+
+
+def fleet_run(model, n, policy, device, label, aot=True, **scfg_kw):
+    """A live fleet of ``n`` engines on ``device`` (captured steps when
+    ``aot``) behind the router, replaying ``fleet_trace()``.  Fails unless
+    all 64 requests complete and no page is left once the caches are
+    released.  Returns (report, launches, what it measured)."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.fleet import EngineReplica, Router, RouterConfig
+    cuda = device.type == "cuda"
+    scfg = ServeConfig(max_batch=8, max_seq=2048, page_size=16,
+                       aot_warmup=aot, **scfg_kw)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    replicas = [EngineReplica(i, Engine(model, scfg, device=device))
+                for i in range(n)]
+    startup = time.perf_counter() - t0
+    router = Router(replicas, RouterConfig(policy=policy, page_size=16))
+    trace = fleet_trace()
+    if cuda:
+        torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    report = router.run_trace(trace)
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    out_tok = sum(r.engine.model_steps["decode_tokens"] for r in replicas)
+    per = [sum(rid == r.rid for _, rid in report.assignments)
+           for r in replicas]
+    leaked = router.shutdown_check()
+    got = {"startup_s": startup, "wall_s": wall,
+           "out_tok_s": out_tok / wall,
+           "peak_bytes": torch.cuda.max_memory_allocated() if cuda else 0}
+    if cuda:
+        log(f"[fleet] {label}: {report.summary()}; wall {wall:.3f}s, "
+            f"{out_tok} output tokens ({got['out_tok_s']:.1f} tok/s); "
+            f"assignments per replica {per}; startup {startup:.3f}s; peak "
+            f"memory {got['peak_bytes']} B (from before the replicas were "
+            f"built); paged launches {launches}; leaked pages {leaked}")
+    if len(report.completions) != len(trace) or leaked != 0:
+        raise AssertionError(f"{label}: {len(report.completions)} of "
+                             f"{len(trace)} completions, {leaked} pages "
+                             "leaked")
+    if cuda and min(launches[k] for k in ("paged_decode",
+                                          "paged_extend")) <= 0:
+        raise AssertionError(f"{label}: a paged kernel was not launched: "
+                             f"{launches}")
+    return report, launches, got
+
+
+def phase_fleet(model, dev):
+    """``[fleet]``: live fleets of captured full-width demo replicas on
+    the one card (pumped in turn on one stream: routing, affinity and
+    TTFT under queueing, not parallel replicas): 2 and 4 replicas under
+    ``affinity`` and ``round_robin``, then 4 under ``affinity`` with
+    deadlines and SLO pricing.  Returns their launches."""
+    t0 = time.perf_counter()
+    runs = {}
+    for n, policy, kw in ((2, "affinity", {}), (2, "round_robin", {}),
+                          (4, "affinity", {}), (4, "round_robin", {}),
+                          (4, "affinity", dict(enforce_deadlines=True,
+                                               slo_price_model=ROUTER_BOOK))):
+        label = f"{n} replicas {policy}" + (" deadlines + SLO pricing"
+                                            if kw else "")
+        _, launches, _ = fleet_run(model, n, policy, dev, label, **kw)
+        runs[f"reflect_demo_100m fleet {label}"] = launches
+        release()
+    log(f"[fleet] TTFT is stamped on the host after the step whose ids "
+        f"were read back, so it includes that step's device work; phase "
+        f"{time.perf_counter() - t0:.1f}s")
+    return runs
+
+
+def check_fleet(cfg, state, dev, soften):
+    """The same trace through a 2-replica affinity fleet of the first
+    layers (float32, q/k scaled by ``soften``) on the card, captured, and
+    on the CPU: identical assignments, and completions apart from their
+    times."""
+    from repro_torch.models.registry import build_model
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    state = scaled(state, soften)
+    out = []
+    for d, aot in ((torch.device("cpu"), False), (dev, True)):
+        m = build_model(cfg32)
+        m.load_state_dict(state)
+        report, _, got = fleet_run(m.to(d), 2, "affinity", d,
+                                   f"{cfg.num_layers} layers on {d.type}",
+                                   aot=aot)
+        out.append((report.assignments,
+                    [{k: v for k, v in c.items()
+                      if k not in ("ttft_s", "latency_s")}
+                     for c in report.completions], got["wall_s"]))
+        del m
+    (c_assign, c_comp, c_wall), (g_assign, g_comp, g_wall) = out
+    log(f"[check] {cfg.name}, {cfg.num_layers} layers, fleet of 2 "
+        f"(affinity, {len(c_comp)} requests): cuda captured vs cpu eager: "
+        f"assignments identical {c_assign == g_assign}, completions apart "
+        f"from their times identical {c_comp == g_comp}; wall cpu "
+        f"{c_wall:.3f}s, cuda {g_wall:.3f}s")
+    if c_assign != g_assign or c_comp != g_comp:
+        raise AssertionError("the fleet on the card disagrees with the "
+                             "fleet on the CPU")
 
 
 def profile_round(eng, convos, max_new=16):
@@ -1609,11 +1961,19 @@ def phase_serve(dev):
         model, B=8, S=2048, lengths=np.linspace(1500, 2048, 8).astype(int),
         steps=16, forward=True, path=("flash_attention", "decode_attention"))
     runs.update(phase_reflect(model, dev))
+    with timed("chaos"):
+        runs.update(phase_chaos(model))
+    with timed("fleet"):
+        runs.update(phase_fleet(model, dev))
     state = {k: v.cpu() for k, v in model.state_dict().items()}
     check_logits(cfg, state, dev, soften=0.125)
     del model
     release()
-    check_engine(cut(cfg, 2), first_layers(state, 2), dev, 0.125)
+    with timed("demo engine check"):
+        check_engine(cut(cfg, 2), first_layers(state, 2), dev, 0.125,
+                     chaos=True)
+    with timed("demo fleet check"):
+        check_fleet(cut(cfg, 2), first_layers(state, 2), dev, 0.125)
     del state
     release()
     log(f"[time] reflect_demo_100m: {time.perf_counter() - t0:.1f}s")

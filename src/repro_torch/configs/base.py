@@ -5,9 +5,8 @@ the port serves: ``ModelConfig``, ``ServeConfig`` and the block patterns
 ``dense_pattern``, ``moe_pattern``, ``mamba_pattern`` and
 ``recurrentgemma_pattern``.
 Field names, defaults and meanings are unchanged, so a config built for
-one package reads the same in the other.  ``ServeConfig`` options that the
-port's engine does not implement yet (``mesh``, ``enforce_deadlines``,
-``nan_quarantine``, ``stall_limit``, ``slo_price_model``) make ``Engine``
+one package reads the same in the other.  The one ``ServeConfig`` option
+that the port's engine does not implement yet, ``mesh``, makes ``Engine``
 raise ``NotImplementedError`` instead of being ignored.
 """
 from __future__ import annotations

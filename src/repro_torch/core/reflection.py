@@ -90,8 +90,6 @@ class EngineBackend:
 
     def __init__(self, engine, tokenizer, max_new_tokens: int = 64,
                  faults=None):
-        if faults is not None:
-            raise NotImplementedError("not ported yet: faults")
         self.engine = engine
         self.tok = tokenizer
         self.max_new_tokens = max_new_tokens

@@ -11,9 +11,19 @@ seeded random weights, as the reference does, and runs on the CUDA
 device unless ``--device cpu`` is given.  ``--aot`` warms every serving
 step before the first request (``ServeConfig.aot_warmup``: CUDA graphs
 captured on a card, eager runs through the same buffers on the CPU) and
-prints the startup time and the recompile tripwire.  ``--mesh`` and
-``--replicas`` are accepted as in the reference and raise
-``NotImplementedError``: meshes and fleets are not ported.
+prints the startup time and the recompile tripwire.  ``--mesh`` is
+accepted as in the reference and raises ``NotImplementedError``: meshes
+are not ported.
+
+``--replicas N`` serves a fleet instead of one engine, as the reference
+does: N engines on ``--device`` behind the prefix-affinity router
+(``serving/fleet.py``), replaying a seeded trace (``--trace-requests``
+arrivals, ``serving/trace.py``) and printing the fleet report —
+per-replica assignment counts, p50/p99 TTFT, goodput, the fleet's
+prefix-hit rate, spillovers and steals.  ``--policy round_robin`` swaps
+in the baseline; ``--aot`` captures each replica's steps.  The replicas
+are pumped in turn on one device, so on one card the fleet measures
+routing and queueing, not parallel replicas.
 """
 import argparse
 import time
@@ -38,10 +48,12 @@ def main(argv=None):
                     help="warm every serving step at startup (CUDA "
                     "graphs on a card)")
     ap.add_argument("--replicas", type=int, default=0, metavar="N",
-                    help="fleet of N engines (not ported: raises)")
+                    help="serve a fleet of N engines behind the router")
     ap.add_argument("--policy", default="affinity",
-                    choices=("affinity", "round_robin"))
-    ap.add_argument("--trace-requests", type=int, default=24)
+                    choices=("affinity", "round_robin"),
+                    help="fleet routing policy (with --replicas)")
+    ap.add_argument("--trace-requests", type=int, default=24,
+                    help="trace arrivals to replay (with --replicas)")
     ap.add_argument("--trace-seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default: cuda)")
@@ -55,11 +67,13 @@ def main(argv=None):
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.request import Request
 
-    if args.replicas > 0:
-        raise NotImplementedError("fleet serving (--replicas) is not ported")
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch).replace(dtype="float32")
     model = build_model(cfg).init(torch.Generator().manual_seed(0))
+
+    if args.replicas > 0:
+        serve_fleet(args, model, device)
+        return
 
     t_init = time.perf_counter()
     engine = Engine(model,
@@ -101,6 +115,64 @@ def main(argv=None):
               f"{st['step_compiles']} {st['step_compiles_by_fn']}")
     if engine.prefix_cache:
         print(f"prefix cache: {engine.prefix_cache.stats_snapshot()}")
+
+
+def serve_fleet(args, model, device) -> None:
+    """``--replicas``: the reference's fleet report, on ``device``."""
+    from collections import Counter
+
+    import torch
+
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.fleet import EngineReplica, Router, RouterConfig
+    from repro_torch.serving.trace import TraceConfig, generate_trace
+
+    scfg = ServeConfig(max_batch=4, max_seq=256, page_size=16,
+                       prefix_cache=not args.no_prefix_cache,
+                       mesh=args.mesh, aot_warmup=args.aot)
+    t_init = time.perf_counter()
+    replicas = [EngineReplica(i, Engine(model, scfg, device=device))
+                for i in range(args.replicas)]
+    startup = time.perf_counter() - t_init
+    trace = generate_trace(TraceConfig(
+        n_requests=args.trace_requests, seed=args.trace_seed,
+        mean_rate=50.0, vocab=model.cfg.vocab_size,
+        out_tokens=(4, args.max_new)))
+    router = Router(replicas, RouterConfig(policy=args.policy))
+    t0 = time.perf_counter()
+    report = router.run_trace(trace)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    s = report.summary()
+    per_rep = Counter(rid for _, rid in report.assignments)
+    print(f"fleet: {args.replicas} replicas, policy={args.policy}, "
+          f"{s['requests']} requests in {dt:.2f}s on {device} "
+          f"(startup {startup:.2f}s)")
+    print("  assignment: "
+          + " ".join(f"r{i}={per_rep.get(i, 0)}"
+                     for i in range(args.replicas))
+          + f"  spillovers={s['spillovers']} steals={s['steals']}")
+    print(f"  ttft p50={s['p50_ttft_ms']:.1f}ms "
+          f"p99={s['p99_ttft_ms']:.1f}ms goodput={s['goodput']:.3f} "
+          f"prefix_hit_rate={s['prefix_hit_rate']:.3f}")
+    print(f"  preempt/slo/timeout: {s['preemptions']}"
+          f"/{s['slo_rejections']}/{s['timeouts']}")
+    leaked = router.shutdown_check()
+    print(f"  leaked pages after cache release: {leaked}")
+    for r in replicas:
+        st = r.engine.stats_snapshot()
+        pc = st.get("prefix_cache", {})
+        print(f"  r{r.rid}: prefill={st['prefill_tokens']} "
+              f"decode={st['decode_tokens']} "
+              f"pre={st['preemptions']} "
+              f"cache hits={pc.get('hits', 0)}"
+              f"+{pc.get('partial_hits', 0)}p"
+              f"/{pc.get('misses', 0)}m")
+        if args.aot:
+            print(f"  r{r.rid}: step_compiles "
+                  f"{r.engine.stats()['step_compiles']}")
 
 
 if __name__ == "__main__":

@@ -51,10 +51,23 @@ Differences from the reference:
     Their decode step routes every batch slot, idle ones included, so the
     engine keeps an idle slot's ``next_token`` and ``pos`` as the
     reference does: through expert capacity they reach the live rows.
-  * Not ported yet — the constructor raises ``NotImplementedError`` when
-    asked for them: fault injection, deadlines, NaN quarantine, the stall
-    detector, SLO pricing and meshes; whisper and vlm models fail when
-    the model is built.
+  * The reliability layer is the reference's: deterministic fault
+    injection (``faults=``, serving/faults.py), deadlines on ``clock``
+    (the fault plan's virtual clock when one is installed), NaN
+    quarantine, the stall detector and SLO pricing at admission
+    (``ServeConfig.slo_price_model``, with core/accounting.py).  The fault
+    hooks fire at the reference's opportunities in the reference's order,
+    so a plan cloned into both engines fires at the same places.  The
+    logit lanes' finite flags are computed on the device and come back
+    in the sampled ids' copy to the host, where the consumed lanes are
+    read as the reference reads them; and whenever a plan is installed or
+    quarantine is on and a row samples at a temperature, a non-finite
+    lane is replaced on the device before sampling (``sampler.guard``),
+    so a NaN never reaches ``torch.multinomial``.  With every option off
+    the step is unchanged.
+  * Not ported yet: meshes (the constructor raises
+    ``NotImplementedError``); whisper and vlm models fail when the model
+    is built.
 """
 from __future__ import annotations
 
@@ -66,40 +79,50 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ServeConfig
+from repro_torch.core.accounting import CostModel, LatencyModel
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models.transformer import KV_KINDS, STATE_KINDS
 from repro_torch.serving import sampler
 from repro_torch.serving.page_pool import PagePool, PagedSnapshot
 from repro_torch.serving.prefix_cache import PrefixCache
-from repro_torch.serving.request import (BudgetTier, Request, Status,
-                                         TokenUsage)
+from repro_torch.serving.request import (DEADLINE_EPS, BudgetTier, Request,
+                                         Status, TokenUsage)
 from repro_torch.serving.speculator import (NGramSpeculator, draft_corpus,
                                             external_draft_proposal)
 from repro_torch.serving.step_graph import StepGraph
 
 
-def _unsupported(scfg: ServeConfig, faults, mesh) -> List[str]:
-    """Options of the reference engine this port does not implement."""
-    asked = {
-        "faults": faults is not None,
-        "mesh": mesh is not None or scfg.mesh is not None,
-        "enforce_deadlines": scfg.enforce_deadlines,
-        "nan_quarantine": scfg.nan_quarantine,
-        "stall_limit": scfg.stall_limit > 0,
-        "slo_price_model": scfg.slo_price_model is not None,
-    }
+def _unsupported(scfg: ServeConfig, mesh) -> List[str]:
+    """Options of the reference engine this port does not implement: a
+    device mesh (``mesh=`` or ``ServeConfig.mesh``)."""
+    asked = {"mesh": mesh is not None or scfg.mesh is not None}
     return [name for name, on in asked.items() if on]
 
 
 class Engine:
     def __init__(self, model, scfg: ServeConfig, *,
                  device: Optional[Union[str, torch.device]] = None,
-                 faults=None, mesh=None):
-        missing = _unsupported(scfg, faults, mesh)
+                 faults=None, clock: Optional[Callable[[], float]] = None,
+                 mesh=None):
+        missing = _unsupported(scfg, mesh)
         if missing:
             raise NotImplementedError(
                 f"not ported yet: {', '.join(missing)}")
+        # Deterministic fault injection (serving/faults.py).  None (the
+        # default) and a rate-0 plan both serve as the engine without it.
+        self.faults = faults
+        # Clock for deadline enforcement: wall time by default, the fault
+        # plan's VirtualClock when one is installed.
+        if clock is not None:
+            self.clock = clock
+        elif faults is not None:
+            self.clock = faults.clock
+        else:
+            self.clock = time.monotonic
+        # guarded steps (_guarded): a plan may inject non-finite logits,
+        # and quarantine reads their flags
+        self._guard = faults is not None or scfg.nan_quarantine
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.cfg: ModelConfig = model.cfg
@@ -174,6 +197,12 @@ class Engine:
         self._mixed_buckets = sorted(
             {max(1, min(int(w), self.chunk)) for w in scfg.prefill_buckets}
             | {self.chunk})
+        # SLO-aware admission: price a queued request's predicted tokens
+        # against its own ceilings (None: no check)
+        self.cost_model = (CostModel.for_model(scfg.slo_price_model)
+                           if scfg.slo_price_model else None)
+        self.latency_model = (LatencyModel.for_model(scfg.slo_price_model)
+                              if scfg.slo_price_model else None)
 
         # self-speculative decoding: recurrent state mutates irreversibly,
         # so a rejected draft could not be rolled back — off for mamba /
@@ -202,6 +231,11 @@ class Engine:
         self._ff_version = -1   # prefix-cache version at last fast-forward
         self._admit_counter = 0
         self._pending_copies: List[Tuple[int, int]] = []   # COW (src, dst)
+        # Stall detector state: _progress_seq bumps on every commit /
+        # prefill advance / admission / finalize; a step that moves it
+        # nowhere while rows are in flight counts toward stall_limit.
+        self._progress_seq = 0
+        self._no_progress = 0
         self.model_steps = {"prefill_tokens": 0, "extend_tokens": 0,
                             "decode_steps": 0, "decode_batch_steps": 0,
                             "decode_tokens": 0,
@@ -210,7 +244,9 @@ class Engine:
                             "starved_mixed_steps": 0,
                             "verify_steps": 0, "spec_drafted": 0,
                             "spec_accepted": 0, "slo_rejections": 0,
-                            "timeouts": 0, "stalls": 0, "errors": 0}
+                            "timeouts": 0, "stalls": 0, "errors": 0,
+                            "nan_quarantines": 0, "crash_recoveries": 0,
+                            "stuck_rows": 0}
 
         # The model call of each step kind, on int32 device tensors
         # (tokens, positions[, n_valid][, page table]) -> logits; the cache
@@ -234,13 +270,14 @@ class Engine:
         Malformed requests — empty prompt, or a prompt + budget cap that
         cannot fit in max_seq — finalize immediately with stop_reason
         "error" instead of poisoning the batch."""
-        req.submitted_at = time.monotonic()
+        req.submitted_at = self.clock()
         if not req.prompt:
-            self._finalize_error(req, "empty prompt")
+            self._finalize_abnormal(req, None, "error", "empty prompt")
             return req.uid
         if len(req.prompt) + self._budget_cap(req) >= self.scfg.max_seq:
-            self._finalize_error(
-                req, f"prompt ({len(req.prompt)}) + budget cap "
+            self._finalize_abnormal(
+                req, None, "error",
+                f"prompt ({len(req.prompt)}) + budget cap "
                 f"({self._budget_cap(req)}) would overflow "
                 f"max_seq ({self.scfg.max_seq})")
             return req.uid
@@ -329,17 +366,6 @@ class Engine:
                 BudgetTier.LOW: self.scfg.max_think_tokens_low,
                 BudgetTier.HIGH: self.scfg.max_think_tokens_high}
         return min(req.max_new_tokens, caps[req.budget])
-
-    def _finalize_error(self, req: Request, detail: str) -> None:
-        """Terminal finalize of a request rejected at submit."""
-        req.status = Status.DONE
-        req.stop_reason = "error"
-        req.error = detail
-        req.decision_trace.append({"action": "finalize", "reason": "error",
-                                   "detail": detail})
-        self.model_steps["errors"] += 1
-        self.finished.append(req)
-        self.requests.pop(req.uid, None)
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
@@ -611,6 +637,171 @@ class Engine:
 
     # ------------------------------------------------------------ admission
 
+    def _slo_reject(self, req: Request) -> bool:
+        """Deadline/cost-aware admission: finalize a fresh request whose
+        ceilings cannot fund its own predicted tokens (prefill at the
+        prefix-cache hit length it would get right now, decode at its
+        full budget cap).  Only fresh requests are checked: a preempted
+        replay's work already happened and must be resumed, and the
+        reflection controller prices each round as its own request."""
+        if self.cost_model is None or req.preemptions or req.output:
+            return False
+        if req.max_cost_usd is None and req.max_latency_s is None:
+            return False
+        cached = 0
+        if self.prefix_cache is not None:
+            # peek: a pure length estimate that moves no hit statistics
+            # and no LRU order
+            res = self.prefix_cache.lookup(list(req.prompt),
+                                           record_miss=False, peek=True)
+            cached = min(res.cached_len, len(req.prompt) - 1)
+        fresh = len(req.prompt) - cached
+        pred = TokenUsage(input_tokens=fresh, cache_read_tokens=cached,
+                          cache_write_tokens=fresh,
+                          output_tokens=self._budget_cap(req))
+        cost = self.cost_model.cost(pred)
+        lat = self.latency_model.latency(pred)
+        if ((req.max_cost_usd is None or cost <= req.max_cost_usd + 1e-12)
+                and (req.max_latency_s is None
+                     or lat <= req.max_latency_s + DEADLINE_EPS)):
+            return False
+        req.status = Status.DONE
+        req.stop_reason = "slo"
+        req.decision_trace.append(
+            {"action": "finalize", "reason": "slo",
+             "pred_cost_usd": cost, "pred_latency_s": lat,
+             "max_cost_usd": req.max_cost_usd,
+             "max_latency_s": req.max_latency_s})
+        self.model_steps["slo_rejections"] += 1
+        self._progress_seq += 1
+        self.finished.append(req)
+        self.requests.pop(req.uid, None)
+        return True
+
+    # ------------------------------------------- reliability (faults.py)
+
+    def _finalize_abnormal(self, req: Request, slot: Optional[int],
+                           reason: str, detail: Optional[str] = None) -> None:
+        """Terminal finalize outside the normal eos/budget path: billing
+        stays frozen at the committed watermark, pages are released, and
+        the caller sees a definite stop_reason ("timeout" / "stalled" /
+        "error")."""
+        req.status = Status.DONE
+        req.stop_reason = reason
+        if detail is not None:
+            req.error = detail
+        rec = {"action": "finalize", "reason": reason}
+        if detail is not None:
+            rec["detail"] = detail
+        req.decision_trace.append(rec)
+        self.model_steps[{"timeout": "timeouts", "stalled": "stalls",
+                          "error": "errors"}[reason]] += 1
+        self._progress_seq += 1
+        self.finished.append(req)
+        self.requests.pop(req.uid, None)
+        if slot is not None:
+            self._release_slot_pages(slot)
+            self.slots[slot] = None
+
+    def _enforce_deadlines(self) -> None:
+        """Finalize every queued or in-flight request whose max_latency_s
+        has elapsed (stop_reason "timeout").  Partial output survives and
+        is billed exactly as committed."""
+        now = self.clock()
+
+        def expired(r: Request) -> bool:
+            # the admission epsilon: a request accepted exactly at its
+            # deadline must not time out on its first tick
+            return (r.max_latency_s is not None
+                    and r.submitted_at is not None
+                    and now - r.submitted_at > r.max_latency_s + DEADLINE_EPS)
+
+        if any(expired(r) for r in self.queue):
+            keep: deque[Request] = deque()
+            while self.queue:
+                r = self.queue.popleft()
+                if expired(r):
+                    self._finalize_abnormal(r, None, "timeout")
+                else:
+                    keep.append(r)
+            self.queue = keep
+        for slot, r in enumerate(self.slots):
+            if r is not None and expired(r):
+                self._finalize_abnormal(r, slot, "timeout")
+
+    def _nonfinite_rows(self, finite: Optional[np.ndarray], rows: List[int],
+                        nv: Optional[np.ndarray] = None,
+                        ndraft: Optional[np.ndarray] = None) -> List[int]:
+        """Rows (among ``rows``) whose CONSUMED logit lanes are not all
+        finite, from the lanes' flags that came back with the sampled ids
+        (``finite``: [B], or [B, W] for a verify step; None when
+        quarantine is off).  Lanes that are never consumed — nv=0 no-op
+        lanes, verify-step padding past nv — are excluded: fully masked
+        attention can legitimately produce NaN there."""
+        if not rows or finite is None:
+            return []
+        bad = []
+        for s in rows:
+            if finite.ndim == 1:
+                ok = bool(finite[s])
+            elif ndraft is not None and ndraft[s] > 0:
+                # verify window: lanes [0, nv) are scored for acceptance
+                ok = bool(finite[s, :nv[s]].all())
+            else:
+                ok = bool(finite[s, nv[s] - 1])
+            if not ok:
+                bad.append(s)
+        return bad
+
+    def _quarantine_rows(self, bad: List[int]) -> None:
+        """Non-finite logits: skip the row's commit this step and replay
+        it through the preemption path (prefix-cache snapshots and the
+        billed_prefill watermark: no recomputed token is billed twice).
+        Bounded per request by nan_retry_limit, after which the request
+        finalizes with stop_reason "error"."""
+        for slot in bad:
+            req = self.slots[slot]
+            if req is None:
+                continue
+            req.nan_retries += 1
+            self.model_steps["nan_quarantines"] += 1
+            req.decision_trace.append(
+                {"action": "fault", "kind": "nan_quarantine",
+                 "retries": req.nan_retries})
+            if req.nan_retries > self.scfg.nan_retry_limit:
+                self._finalize_abnormal(
+                    req, slot, "error",
+                    "non-finite logits persisted past nan_retry_limit")
+            else:
+                self._preempt_slot(slot)
+
+    def _mark_stuck(self) -> None:
+        """Fault hook ("engine.stuck"): one decoding row stops committing
+        tokens — its lane still runs, nothing lands.  Reaped by the stall
+        detector (or its own deadline)."""
+        rows = [i for i, r in enumerate(self.slots)
+                if r is not None and r.status is Status.DECODING
+                and not r.stuck]
+        if not rows:
+            return
+        req = self.slots[rows[self.faults.pick(len(rows))]]
+        req.stuck = True
+        self.model_steps["stuck_rows"] += 1
+        req.decision_trace.append({"action": "fault", "kind": "stuck"})
+
+    def _crash_recover(self) -> None:
+        """Simulated mid-run crash ("engine.crash"): in-flight state is
+        lost at a step boundary.  Recovery preempts every occupied slot,
+        youngest first, so the oldest admission heads the queue; replay
+        re-adopts prefix-cache snapshots and recomputes the rest, and the
+        billed_prefill watermarks bill no token twice."""
+        self.model_steps["crash_recoveries"] += 1
+        occupied = [i for i, r in enumerate(self.slots) if r is not None]
+        for slot in sorted(occupied,
+                           key=lambda i: -self.slots[i].admit_seq):
+            self._preempt_slot(slot)
+        self._no_progress = 0
+
     def _admit(self, req: Request, slot: int) -> None:
         """Assign a queued request to a free slot.  No model work happens
         here — prefill is chunked into subsequent mixed steps.  After a
@@ -637,6 +828,7 @@ class Engine:
         self._admit_counter += 1
         req.admit_seq = self._admit_counter
         self.slots[slot] = req
+        self._progress_seq += 1
 
     def _maybe_finish(self, slot: int) -> None:
         req = self.slots[slot]
@@ -662,18 +854,50 @@ class Engine:
         self._release_slot_pages(slot)
         self.slots[slot] = None
 
-    def _temperatures(self) -> torch.Tensor:
+    def _temperatures(self) -> np.ndarray:
         temps = np.zeros(len(self.slots), np.float32)
         for i, r in enumerate(self.slots):
             if r is not None:
                 temps[i] = r.temperature
-        return torch.from_numpy(temps).to(self.device)
+        return temps
 
-    def _sample_rows(self, logits: torch.Tensor) -> np.ndarray:
+    def _guarded(self, logits: torch.Tensor, temps: np.ndarray
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """A guarded step's logits to sample from, and their lanes' finite
+        flags (None when quarantine is off).  Only a temperature row can
+        carry a non-finite lane into ``torch.multinomial`` — a greedy row
+        takes the argmax (NaN counting as the largest, as the reference's
+        does) and the sampler gives it a uniform row to draw from — so the
+        lanes are replaced only when a row is hot: each eager operation
+        costs the host a launch."""
+        finite = None
+        if (temps > 0).any():
+            logits, finite = sampler.guard(logits)
+        if not self.scfg.nan_quarantine:
+            return logits, None
+        if finite is None:
+            finite = torch.isfinite(logits).all(dim=-1)
+        return logits, finite
+
+    def _sample_rows(self, logits: torch.Tensor, rows: List[int]
+                     ) -> Tuple[np.ndarray, List[int]]:
         """One batched sampling call for every row (greedy rows ignore
-        the generator; rows without a request are discarded)."""
-        return sampler.sample_batch(logits, self._temperatures(),
-                                    self.generator).cpu().numpy()
+        the generator; rows without a request are discarded), and the
+        rows among ``rows`` to quarantine.  Guarded, a non-finite row is
+        replaced before sampling, and with quarantine on the rows' finite
+        flags come back in the same copy to the host as the ids."""
+        temps = self._temperatures()
+        finite = None
+        if self._guard:
+            logits, finite = self._guarded(logits, temps)
+        ids = sampler.sample_batch(logits,
+                                   torch.from_numpy(temps).to(self.device),
+                                   self.generator)
+        if finite is None:
+            return ids.cpu().numpy(), []
+        host = torch.cat([ids, finite.to(ids.dtype)]).cpu().numpy()
+        B = len(self.slots)
+        return host[:B], self._nonfinite_rows(host[B:], rows)
 
     def _fast_forward(self) -> None:
         """In-flight prefix sharing: a PREFILLING slot jumps ahead when a
@@ -710,7 +934,7 @@ class Engine:
         Draft length is clamped to the row's output budget and max_seq."""
         drafts: Dict[int, List[int]] = {}
         for slot, req in enumerate(self.slots):
-            if req is None or req.status is not Status.DECODING:
+            if req is None or req.status is not Status.DECODING or req.stuck:
                 continue
             rem = self._budget_cap(req) - len(req.output)
             kmax = min(self.spec_tokens, rem,
@@ -783,6 +1007,7 @@ class Engine:
                              sampled: np.ndarray) -> None:
         req = self.slots[slot]
         target = req.prefill_target
+        self._progress_seq += 1
         req.prefill_pos += n
         req.prefill_chunks += 1
         req.prefill_steps += 1
@@ -821,6 +1046,7 @@ class Engine:
 
     def _postprocess_decode(self, slot: int, sampled: np.ndarray) -> None:
         req = self.slots[slot]
+        self._progress_seq += 1
         tok = int(sampled[slot])
         req.output.append(tok)
         req.usage.output_tokens += 1
@@ -838,6 +1064,7 @@ class Engine:
         tail pages that hold only rejected positions.  Only committed
         tokens are billed."""
         req = self.slots[slot]
+        self._progress_seq += 1
         P = int(self.pos[slot])
         req.spec_drafted += drafted
         req.spec_accepted += n_emit - 1
@@ -867,11 +1094,50 @@ class Engine:
     # ----------------------------------------------------------------- step
 
     def step(self) -> bool:
-        """One scheduler tick: admission, planning, one model call.
-        Returns False when fully idle."""
+        """One scheduler tick.  Returns False when fully idle.
+
+        Reliability wrapper around the scheduling core (_step_inner):
+        fault hooks fire at the step boundary (crash, stuck row, latency
+        spikes on the plan's virtual clock), expired deadlines finalize
+        before any new work is planned, and the stall detector reaps the
+        in-flight rows after stall_limit consecutive steps without
+        progress — all off by default."""
+        if self.faults is not None:
+            self.faults.on_step()
+            if self.faults.fire("engine.crash") is not None:
+                self._crash_recover()
+                return (bool(self.queue)
+                        or any(r is not None for r in self.slots))
+            if self.faults.fire("engine.stuck") is not None:
+                self._mark_stuck()
+        if self.scfg.enforce_deadlines:
+            self._enforce_deadlines()
+        p0 = self._progress_seq
+        busy = self._step_inner()
+        if self.scfg.stall_limit > 0:
+            if (self._progress_seq == p0
+                    and any(r is not None for r in self.slots)):
+                self._no_progress += 1
+                if self._no_progress >= self.scfg.stall_limit:
+                    for slot, r in enumerate(self.slots):
+                        if r is not None:
+                            self._finalize_abnormal(r, slot, "stalled")
+                    self._no_progress = 0
+                    busy = (bool(self.queue)
+                            or any(r is not None for r in self.slots))
+            else:
+                self._no_progress = 0
+        return busy
+
+    def _step_inner(self) -> bool:
+        """The scheduling core: admission, planning, one model call."""
+        # admit queued requests into free slots (no model work yet);
+        # SLO-unfundable requests finalize without taking a slot
         for slot in range(len(self.slots)):
             while self.slots[slot] is None and self.queue:
-                self._admit(self.queue.popleft(), slot)
+                req = self.queue.popleft()
+                if not self._slo_reject(req):
+                    self._admit(req, slot)
         if not any(r is not None for r in self.slots):
             return bool(self.queue)
 
@@ -914,8 +1180,15 @@ class Engine:
             logits = self._run("decode", self.next_token[:, None], self.pos)
             self.model_steps["decode_batch_steps"] += 1
             self.model_steps["decode_steps"] += len(decode_rows)
-            sampled = self._sample_rows(logits)
+            if self.faults is not None:
+                logits = self.faults.corrupt_logits("engine.logits", logits,
+                                                    decode_rows)
+            sampled, bad = self._sample_rows(logits, decode_rows)
+            self._quarantine_rows(bad)
             for slot in decode_rows:
+                req = self.slots[slot]
+                if req is None or req.stuck:   # quarantined / fault-stuck
+                    continue
                 self._postprocess_decode(slot, sampled)
             return True
 
@@ -931,12 +1204,21 @@ class Engine:
         self.model_steps["max_step_prefill_tokens"] = max(
             self.model_steps["max_step_prefill_tokens"],
             int(sum(plan.values())))
-        sampled = self._sample_rows(logits)
+        consumed = decode_rows + list(plan)
+        if self.faults is not None:
+            logits = self.faults.corrupt_logits("engine.logits", logits,
+                                                consumed)
+        sampled, bad = self._sample_rows(logits, consumed)
+        self._quarantine_rows(bad)
         for slot, n in plan.items():
+            if self.slots[slot] is None:       # quarantined this step
+                continue
             self._postprocess_prefill(slot, n, sampled)
         for slot in decode_rows:
-            if self.slots[slot] is not None:
-                self._postprocess_decode(slot, sampled)
+            req = self.slots[slot]
+            if req is None or req.stuck:
+                continue
+            self._postprocess_decode(slot, sampled)
         return True
 
     def _lanes(self, B: int, W: int, plan: Dict[int, int],
@@ -978,16 +1260,37 @@ class Engine:
         self.model_steps["max_step_prefill_tokens"] = max(
             self.model_steps["max_step_prefill_tokens"],
             int(sum(plan.values())))
+        consumed = decode_rows + list(plan)
+        if self.faults is not None:
+            logits_all = self.faults.corrupt_logits("engine.logits",
+                                                    logits_all, consumed)
+        temps = self._temperatures()
+        finite = None
+        if self._guard:
+            logits_all, finite = self._guarded(logits_all, temps)
         n_emit, emit = sampler.verify_batch(
             logits_all, self._tensor(toks), self._tensor(nv),
-            self._tensor(ndraft),
-            self._temperatures(), self.generator)
-        n_emit, emit = n_emit.cpu().numpy(), emit.cpu().numpy()
+            self._tensor(ndraft), torch.from_numpy(temps).to(self.device),
+            self.generator)
+        bad: List[int] = []
+        if finite is None:
+            n_emit, emit = n_emit.cpu().numpy(), emit.cpu().numpy()
+        else:
+            # one copy to the host: accepted counts, tokens, lane flags
+            host = torch.cat([n_emit[:, None], emit, finite.to(emit.dtype)],
+                             dim=1).cpu().numpy()
+            n_emit, emit = host[:, 0], host[:, 1:1 + W]
+            bad = self._nonfinite_rows(host[:, 1 + W:], consumed, nv, ndraft)
+        self._quarantine_rows(bad)
         # prefill rows: emit[:, 0] is the sample at their last valid lane
         for slot, n in plan.items():
+            if self.slots[slot] is None:       # quarantined this step
+                continue
             self._postprocess_prefill(slot, n, emit[:, 0])
         for slot in decode_rows:
-            if self.slots[slot] is not None:
-                self._postprocess_verify(slot, int(n_emit[slot]), emit[slot],
-                                         int(ndraft[slot]))
+            req = self.slots[slot]
+            if req is None or req.stuck:
+                continue
+            self._postprocess_verify(slot, int(n_emit[slot]), emit[slot],
+                                     int(ndraft[slot]))
         return True

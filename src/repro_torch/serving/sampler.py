@@ -21,6 +21,20 @@ def _categorical(probs: torch.Tensor,
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
+def guard(logits: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(logits, finite)``: every lane (last axis) that holds a NaN or an
+    infinity becomes a point mass on its argmax, which counts NaN as the
+    largest value as the reference's argmax does, and ``finite`` flags the
+    lanes that were left alone.  Greedy and temperature rows then draw the
+    token the reference draws from such a lane, and no NaN reaches
+    ``torch.multinomial``, whose check on a card is a device-side assert.
+    Runs on the logits' device, without a host synchronisation."""
+    finite = torch.isfinite(logits).all(dim=-1)
+    top = torch.argmax(logits, dim=-1, keepdim=True)
+    point = torch.full_like(logits, float("-inf")).scatter_(-1, top, 0.0)
+    return torch.where(finite[..., None], logits, point), finite
+
+
 def sample_batch(logits: torch.Tensor, temperature: torch.Tensor,
                  generator: torch.Generator) -> torch.Tensor:
     """Sample one token per row in a single call.

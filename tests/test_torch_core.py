@@ -1,5 +1,6 @@
 """The port's copy of the reflection stack's pure modules (``repro_torch/core``,
-``repro_torch/data``) against the JAX package's, on the same inputs.
+``repro_torch/data``, and ``serving/faults.py``, ``serving/trace.py`` and
+``serving/fleet.py``) against the JAX package's, on the same inputs.
 
 Each copied module is checked twice: its source must equal the
 reference's with ``repro.`` rewritten to ``repro_torch.``, apart from the
@@ -25,14 +26,15 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 MODULES = ("data/tokenizer.py", "data/tasks.py", "core/textmetrics.py",
            "core/accounting.py", "core/budget.py", "core/quality_sim.py",
            "core/pareto.py", "core/stats.py", "core/parallel_sampling.py",
-           "core/feedback.py", "core/controller.py", "core/reflection.py")
+           "core/feedback.py", "core/controller.py", "core/reflection.py",
+           "serving/faults.py", "serving/trace.py", "serving/fleet.py")
 
 # The port's intended differences from its reference: the reference's
 # lines (by number) that the port drops or rewords, and the port's lines
 # that stand in for them.  accounting.py carries the card's peaks and no
-# dollar rate; reflection.py refuses a fault plan (faults are not ported);
-# three comments no longer name the reference's change history or a
-# product.
+# dollar rate; faults.py's corrupt_logits writes into a copy of a torch
+# tensor where the reference sets a jax array; three comments no longer
+# name the reference's change history or a product.
 INTENDED = {
     "core/accounting.py": (
         [7, 8, 54, 55, 105, 106, 107, 112, 121, 122],
@@ -61,11 +63,19 @@ INTENDED = {
          "float:"]),
     "core/reflection.py": (
         [276, 442],
-        ["        if faults is not None:",
-         '            raise NotImplementedError("not ported yet: faults")',
-         "    large engine as ``Request.external_draft``.  That turns the "
+        ["    large engine as ``Request.external_draft``.  That turns the "
          "engine's",
          "        # directly, preserving float-for-float parity)"]),
+    "serving/faults.py": (
+        [190, 192, 193],
+        ['        val = float("inf" if sp.payload.get("value") == "inf" '
+         'else "nan")',
+         "        # a copy on the logits' device, as .at[].set makes: a "
+         "captured",
+         "        # step's logits are its graph's static output",
+         "        out = logits.clone()",
+         "        out[row] = val",
+         "        return out"]),
     "core/controller.py": (
         [387],
         ["        omit them and get the single-tier pricing unchanged.  The "

@@ -14,9 +14,11 @@ refuse what the kernels do not take, and small engine and model runs on
 the card launch the kernels of their models' paths.  Engines whose steps
 are captured as CUDA graphs give the eager engines' streams, bills and
 launches, and a replay reads the page table it is given; so does the
-paper's reflection loop (fixed and routed) over a captured engine, and
-the loop's backend refuses a fault plan.  The MoE FFN gives the CPU's
-expert ids and outputs on the card, and the same bits on every call.
+paper's reflection loop (fixed and routed) over a captured engine; the
+loop's backend takes a fault plan, and NaN or inf rows written into a
+captured step's logits, with or without quarantine, leave the context
+serving.  The MoE FFN gives the CPU's expert ids and outputs on the
+card, and the same bits on every call.
 """
 import dataclasses
 
@@ -973,14 +975,92 @@ def test_captured_reflection_loop_equals_eager(dev):
 
 
 def test_engine_backend_refuses_a_fault_plan_on_card(dev):
+    """The backend takes a fault plan on the card now: under a rate-0
+    plan at both backend sites it serves what it serves without one."""
     from repro_torch.configs.base import ServeConfig
-    from repro_torch.core.reflection import EngineBackend
+    from repro_torch.core.budget import InferenceStrategy
+    from repro_torch.core.reflection import (EngineBackend,
+                                             ReflectionController)
+    from repro_torch.data.tasks import make_sql_tasks
     from repro_torch.data.tokenizer import ByteTokenizer
     from repro_torch.models.registry import build_model, get_smoke_config
     from repro_torch.serving.engine import Engine
+    from repro_torch.serving.faults import FaultPlan, FaultSpec
 
-    m = build_model(get_smoke_config("reflect_demo_100m"))
-    eng = Engine(m, ServeConfig(max_batch=1, max_seq=128, page_size=16),
-                 device=dev)
-    with pytest.raises(NotImplementedError, match="faults"):
-        EngineBackend(eng, ByteTokenizer(), faults=object())
+    m = build_model(get_smoke_config("reflect_demo_100m")).init(
+        torch.Generator().manual_seed(0))
+    task = make_sql_tasks(1, seed=0)[0]
+    out = []
+    for plan in (FaultPlan([FaultSpec("backend.transient"),
+                            FaultSpec("backend.garbage")]), None):
+        eng = Engine(m, ServeConfig(max_batch=1, max_seq=1024, page_size=16),
+                     device=dev)
+        backend = EngineBackend(eng, ByteTokenizer(), max_new_tokens=8,
+                                faults=plan)
+        res = ReflectionController(InferenceStrategy(1)).run_task(backend,
+                                                                  task)
+        out.append([(r.response, dataclasses.asdict(r.usage))
+                    for r in res.rounds])
+    assert out[0] == out[1]
+
+
+def _nan_serve(m, dev, plan, temperature, **kw):
+    """Two rows of two rounds on a captured engine under ``plan``; returns
+    (streams, stop reasons, bills, the engine's counters)."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import Request
+
+    eng = Engine(m, ServeConfig(max_batch=2, max_seq=256, page_size=16,
+                                spec_decode=True, aot_warmup=True, **kw),
+                 device=dev, faults=plan)
+    convos = [[1] + list(range(10, 40)), [1] + list(range(50, 70))]
+    reqs = []
+    for _ in range(2):
+        rnd = [Request(prompt=list(c), max_new_tokens=12, eos_id=None,
+                       temperature=temperature) for c in convos]
+        for r in rnd:
+            eng.submit(r)
+        eng.run()
+        for c, r in zip(convos, rnd):
+            c += r.output + [99, 98]
+        reqs += rnd
+    torch.cuda.synchronize()
+    eng.pool.check()
+    assert eng.stats()["step_compiles"] == 0
+    return ([r.output for r in reqs], [r.stop_reason for r in reqs],
+            [dataclasses.asdict(r.usage) for r in reqs], eng.model_steps)
+
+
+@pytest.mark.parametrize("quarantine", [True, False],
+                         ids=["quarantine", "no-quarantine"])
+def test_hot_nan_row_on_captured_step(dev, quarantine):
+    """NaN and inf rows written into a captured step's logits, with and
+    without quarantine, temperature rows included: no device-side assert
+    (``torch.multinomial`` never sees them), the CUDA context serves on,
+    and with quarantine the greedy replay gives the clean run's streams
+    and bills."""
+    from repro_torch.models.registry import build_model, get_smoke_config
+    from repro_torch.serving.faults import FaultPlan, FaultSpec
+
+    m = build_model(get_smoke_config("reflect_demo_100m")).init(
+        torch.Generator().manual_seed(0))
+
+    def plan():
+        return FaultPlan([FaultSpec("engine.logits", rate=0.1),
+                          FaultSpec("engine.logits", rate=0.1,
+                                    payload={"value": "inf"})], seed=1)
+
+    kw = dict(nan_quarantine=quarantine, nan_retry_limit=20)
+    for temperature in (0.7, 0.0):
+        p = plan()
+        outs, stops, usage, steps = _nan_serve(m, dev, p, temperature, **kw)
+        assert p.stats["engine.logits"] > 0
+        assert set(stops) <= {"max_tokens", "error"}
+        assert steps["nan_quarantines"] == (p.stats["engine.logits"]
+                                            if quarantine else 0)
+    clean = _nan_serve(m, dev, None, 0.0)
+    if quarantine:
+        assert (outs, stops, usage) == clean[:3]
+    x = torch.arange(8.0, device=dev)
+    assert float((x * 2).sum()) == 56.0

@@ -120,22 +120,47 @@ def test_engine_preemption_matches_jax(fitted):
 
 @pytest.mark.parametrize("option", [
     {"enforce_deadlines": True}, {"nan_quarantine": True},
-    {"stall_limit": 3}, {"slo_price_model": "claude-3.5-sonnet"},
+    {"stall_limit": 3}, {"slo_price_model": "nova_micro"},
     {"mesh": "1x1"},
     {"paged_kv": False, "nan_quarantine": True}])
 def test_unported_options_raise(fitted, option):
-    """Options the port lacks raise, in the ring mode too."""
-    _, _, m = fitted
-    with pytest.raises(NotImplementedError):
-        Engine(m, ServeConfig(max_batch=1, max_seq=64, page_size=8,
-                              **option), device="cpu")
+    """Of the reference's engine options only a mesh is not ported: it
+    raises, in the ring mode too.  Every other option constructs and
+    serves the JAX engine's streams and bills with the same option."""
+    jm, params, m = fitted
+    kw = dict(max_batch=1, max_seq=64, page_size=8, **option)
+    if "mesh" in option:
+        with pytest.raises(NotImplementedError, match="mesh"):
+            Engine(m, ServeConfig(**kw), device="cpu")
+        return
+    prompts = [ramp_prompt(10, 20)]
+    jreqs = _serve(JEngine(jm, params, JServeConfig(**kw)), JRequest,
+                   prompts, rounds=1, max_new=8)
+    reqs = _serve(Engine(m, ServeConfig(**kw), device="cpu"), Request,
+                  prompts, rounds=1, max_new=8)
+    assert [r.output for r in reqs] == [r.output for r in jreqs]
+    assert ([dataclasses.asdict(r.usage) for r in reqs]
+            == [dataclasses.asdict(r.usage) for r in jreqs])
+    assert [r.stop_reason for r in reqs] == ["max_tokens"]
 
 
 def test_faults_raise(fitted):
+    """A fault plan is ported: ``faults=`` takes the port's ``FaultPlan``
+    (a rate-0 plan serves as no plan) and only ``mesh=`` still raises."""
+    from repro_torch.serving.faults import FaultPlan, FaultSpec
     _, _, m = fitted
-    with pytest.raises(NotImplementedError):
-        Engine(m, ServeConfig(max_batch=1, max_seq=64, page_size=8),
-               device="cpu", faults=object())
+    scfg = ServeConfig(max_batch=1, max_seq=64, page_size=8)
+    prompts = [ramp_prompt(10, 20)]
+    plan = FaultPlan([FaultSpec("engine.logits"), FaultSpec("engine.crash")])
+    eng = Engine(m, scfg, device="cpu", faults=plan)
+    assert eng.clock is plan.clock
+    got = _serve(eng, Request, prompts, rounds=1, max_new=8)
+    want = _serve(Engine(m, scfg, device="cpu"), Request, prompts,
+                  rounds=1, max_new=8)
+    assert [r.output for r in got] == [r.output for r in want]
+    assert plan.fired_total == 0
+    with pytest.raises(NotImplementedError, match="mesh"):
+        Engine(m, scfg, device="cpu", faults=plan, mesh=object())
 
 
 # ---------------------------------------------------------------- sampler

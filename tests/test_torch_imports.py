@@ -28,6 +28,7 @@ def test_port_imports_no_jax_and_no_repro():
         for name in ("kernels.flash_attention", "kernels.decode_attention",
                      "models.attention", "models.moe", "models.transformer",
                      "serving.engine", "serving.step_graph",
+                     "serving.faults", "serving.trace", "serving.fleet",
                      "core", "core.accounting", "core.budget",
                      "core.controller", "core.feedback",
                      "core.parallel_sampling", "core.pareto",
@@ -103,8 +104,8 @@ def test_engine_on_cuda_raises_without_a_card():
 def test_serve_launcher(capsys):
     """``launch/serve.py`` serves two reflection rounds on the CPU when
     asked, also with ``--aot`` (no step outside the warmed shapes),
-    refuses the card by default when there is none, and raises for the
-    options the port lacks."""
+    refuses the card by default when there is none, raises for a mesh,
+    which the port lacks, and serves a fleet with ``--replicas``."""
     from repro_torch.launch import serve
 
     serve.main(["--device", "cpu", "--requests", "2", "--rounds", "2",
@@ -119,9 +120,13 @@ def test_serve_launcher(capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve.main(["--requests", "1", "--rounds", "1"])
-    for flag in (["--mesh", "1x1"], ["--replicas", "2"]):
-        with pytest.raises(NotImplementedError):
-            serve.main(["--device", "cpu", "--requests", "1", *flag])
+    with pytest.raises(NotImplementedError):
+        serve.main(["--device", "cpu", "--requests", "1", "--mesh", "1x1"])
+    serve.main(["--device", "cpu", "--replicas", "2", "--trace-requests",
+                "6", "--max-new", "5"])
+    out = capsys.readouterr().out
+    assert "fleet: 2 replicas, policy=affinity, 6 requests" in out
+    assert "leaked pages after cache release: 0" in out
 
 
 REGISTRY_ARCHS = ("granite_moe_1b_a400m", "qwen3_0_6b", "recurrentgemma_9b",

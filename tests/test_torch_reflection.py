@@ -296,7 +296,25 @@ def test_cascade_matches_jax(fitted):
 
 
 def test_engine_backend_refuses_a_fault_plan(fitted):
-    eng = _engine(PORT, fitted)
-    with pytest.raises(NotImplementedError, match="faults"):
-        PORT.R.EngineBackend(eng, PORT.Tok.ByteTokenizer(),
-                             faults=object())
+    """The backend takes a fault plan now (the port's ``FaultPlan``); a
+    rate-0 plan at both backend sites serves as no plan, in the fixed
+    loop, like the reference's backend under its own rate-0 plan."""
+    from repro.serving.faults import FaultPlan as JPlan
+    from repro.serving.faults import FaultSpec as JSpec
+    from repro_torch.serving.faults import FaultPlan, FaultSpec
+    sites = ("backend.transient", "backend.garbage")
+    out = {}
+    for side, plan in ((JAX, JPlan([JSpec(s) for s in sites])),
+                       (PORT, FaultPlan([FaultSpec(s) for s in sites])),
+                       (PORT, None)):
+        backend = side.R.EngineBackend(_engine(side, fitted),
+                                       side.Tok.ByteTokenizer(),
+                                       max_new_tokens=MAX_NEW, faults=plan)
+        assert backend.faults is plan
+        ctrl = side.R.ReflectionController(side.B.InferenceStrategy(1))
+        task = side.T.make_sql_tasks(1, seed=0)[0]
+        res = ctrl.run_task(backend, task)
+        out.setdefault(side is PORT, []).append(
+            [(r.response, dataclasses.asdict(r.usage)) for r in res.rounds])
+        assert plan is None or plan.fired_total == 0
+    assert out[True][0] == out[True][1] == out[False][0]
