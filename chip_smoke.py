@@ -7,7 +7,7 @@ Phases, each of which stops the run with a non-zero exit on any error:
 
 1. device  — the card's name and power limit; TF32 off for matmuls and
    cuDNN, so float32 comparisons are float32.
-2. build   — compile the six hand-written kernels from ``csrc/`` with
+2. build   — compile the seven hand-written kernels from ``csrc/`` with
    nvcc (one process per source, in parallel) and print ``-Xptxas -v``.
 3. kernels — each kernel against its plain PyTorch version at the main
    paths' shapes, then kernel and plain-version times from CUDA events
@@ -133,7 +133,32 @@ Phases, each of which stops the run with a non-zero exit on any error:
    fault counters and fires identical), and the fleet trace through 2
    replicas of those two layers on the card and on the CPU (identical
    assignments, and completions apart from their times).
-5. result  — a JSON line of kernel records, the card line, and last the
+5. train   — training on the card (``[train]``):
+   * the flash-attention backward kernel (``csrc/flash_attention_bwd.cu``)
+     against ``flash_attention_bwd_ref`` at examples/torch_train_100m.py's
+     shape (B 8, H 12, K 4, S 256, hd 64; bfloat16 and float32), at
+     recurrentgemma-9b's local attention (B 1, H 16, K 1, S 4096, hd 256,
+     window 2048), at a ragged S 1000 with an empty row, and at hd 32 and
+     128 with a window and lengths (checked only), the same bits on a
+     second call; timed beside its bound and SDPA's backward;
+   * one float32 loss and gradient of the full-width 2-layer demo on the
+     card and on the CPU (loss to 1e-4 relative, gradient cosines at
+     least 0.9999);
+   * examples/torch_train_100m.py's run: full-width, full-depth
+     reflect_demo_100m, 200 AdamW steps of 8 x 256 in bf16; the loss must
+     be finite and fall (its ratio to the start is printed beside the
+     reference example's 0.7, which this recipe does not reach at full
+     width: PERF.md), the flash forward and backward launched once a
+     layer and step, and the checkpoint must restore the weights; ms a
+     step, tokens/s, peak memory;
+   * ``quick_fit_ramp`` on the card on the 2-layer cut, then
+     ``check_engine`` on those port-fitted weights (streams, bills and the
+     reflection loop identical on the card and the CPU);
+   * ``quick_fit_reflect`` on the 2-layer cut and a round-2 reflection
+     serve with speculation, which must accept drafts and keep the
+     streams it gives without speculation.
+   Then ring decode is read again in turns with SDPA (``[ring re-read]``).
+6. result  — a JSON line of kernel records, the card line, and last the
    JSON status line.
 
 Exits non-zero without a result when no CUDA device is present, or when
@@ -164,7 +189,9 @@ REPLACES = {"paged_decode": "src/repro/kernels/paged_attention.py:102",
             "flash_attention": "src/repro/kernels/flash_attention.py:67",
             "decode_attention": "src/repro/kernels/decode_attention.py:87",
             "mamba_scan": "src/repro/kernels/mamba_scan.py:46",
-            "rglru_scan": "src/repro/kernels/rglru_scan.py:31"}
+            "rglru_scan": "src/repro/kernels/rglru_scan.py:31",
+            # no Pallas counterpart: the XLA attention JAX differentiates
+            "flash_attention_bwd": "src/repro/models/attention.py:90"}
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu"
            for name in REPLACES}
 STEP_KINDS = ("mixed_steps", "decode_batch_steps", "verify_steps")
@@ -878,7 +905,8 @@ def serve_pair(model, kv_dtype, rounds, max_new, seed, path, paged=True,
     return eager["launches"], captured["launches"]
 
 
-def check_engine(cfg, state, dev, soften, sharpen=None, chaos=False):
+def check_engine(cfg, state, dev, soften, sharpen=None, chaos=False,
+                 label=None):
     """The engine on the card, every step captured, against the port's
     engine on the CPU (which the CPU tests hold to the JAX engine): float32
     activations and parameters, q/k scaled by ``soften`` and MoE routers
@@ -894,7 +922,8 @@ def check_engine(cfg, state, dev, soften, sharpen=None, chaos=False):
     near-tie can be told from a fault.  With ``chaos``, both engines then
     serve 2 greedy rounds under clones of ``[chaos]``'s hostile plan
     (``fault_run``): streams, stop reasons, bills, decision traces, fault
-    counters and the plan's fires must be identical."""
+    counters and the plan's fires must be identical.  ``label`` names the
+    weights in the log line (default: the q/k and router scales)."""
     from repro_torch.data.tasks import make_sql_tasks
     from repro_torch.models.registry import build_model
     from repro_torch.serving.engine import Engine
@@ -945,8 +974,10 @@ def check_engine(cfg, state, dev, soften, sharpen=None, chaos=False):
     if "moe" in cfg.block_pattern and not r_gaps:
         raise AssertionError("no MoE routing was recorded on the CPU")
     same = sum(a == b for a, b in zip(c_out, g_out))
-    log(f"[check] {cfg.name}, {cfg.num_layers} layers, engine fp32 q/k x "
-        f"{soften}{'' if sharpen is None else f', router x {sharpen}'}: "
+    weights = label or (f"q/k x {soften}" + ("" if sharpen is None
+                                             else f", router x {sharpen}"))
+    log(f"[check] {cfg.name}, {cfg.num_layers} layers, engine fp32, "
+        f"{weights} weights: "
         f"cuda captured vs cpu eager: {same}/{len(c_out)} "
         f"identical token streams, bills identical {c_use == g_use}; "
         f"reflection loop (reflect1/exec and routed, 2 SQL tasks, "
@@ -2011,6 +2042,316 @@ def phase_serve(dev):
     return runs
 
 
+# ---------------------------------------------------------------- [train]
+
+# (tag, (B, H, K, S, hd), window, dtypes, lengths, timed): the training
+# shape of examples/torch_train_100m.py (reflect_demo_100m, 8 x 256),
+# recurrentgemma-9b's local attention (hd 256, window 2048) at S 4096, a
+# ragged batch with an empty row, and hd 32 / 128 checked only
+BWD_CASES = (
+    ("demo", (8, 12, 4, 256, 64), None, (torch.bfloat16, torch.float32),
+     None, True),
+    ("rg", (1, 16, 1, 4096, 256), 2048, (torch.bfloat16,), None, True),
+    ("ragged", (8, 12, 4, 1000, 64), None, (torch.bfloat16,),
+     (0, 1000, 517, 1, 999, 64, 700, 333), True),
+    ("hd32", (2, 8, 2, 300, 32), 100, (torch.float32, torch.bfloat16),
+     (300, 77), False),
+    ("hd128", (2, 8, 4, 300, 128), 100, (torch.float32, torch.bfloat16),
+     (300, 77), False),
+)
+
+
+def bwd_cases(records, dev, flush):
+    """The flash backward kernel against ``flash_attention_bwd_ref`` on the
+    same inputs (q, k, v, the forward kernel's output, a seeded output
+    gradient), tolerance 1e-4 (float32) or 2e-2 (bfloat16) of the largest
+    gradient magnitude; timed cases beside their bound (the five backward
+    products, 10 * hd FLOP a valid (query, key) pair, and q/k/v/o/do read
+    once and dq/dk/dv written once) and SDPA's backward (autograd of one
+    ``scaled_dot_product_attention`` call, the forward excluded) as the
+    library yardstick."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    F = torch.nn.functional
+    g = torch.Generator().manual_seed(11)
+    for tag, (B, H, K, S, hd), window, dtypes, lengths, timed in BWD_CASES:
+        for dtype in dtypes:
+            mk = lambda *s: torch.randn(*s, generator=g).to(dev, dtype)
+            q, k, v = mk(B, H, S, hd), mk(B, K, S, hd), mk(B, K, S, hd)
+            do = mk(B, H, S, hd)
+            ln = (None if lengths is None else
+                  torch.tensor(lengths, dtype=torch.int32, device=dev))
+            o = ops.flash_attention(q, k, v, window=window, lengths=ln)
+            kern = lambda: flash_attention_bwd(q, k, v, o, do, window=window,
+                                               lengths=ln)
+            got = kern()
+            again = kern()
+            torch.cuda.synchronize()
+            want = ref.flash_attention_bwd_ref(
+                q.float(), k.float(), v.float(), o.float(), do.float(),
+                window=window, lengths=ln)
+            bf16 = dtype == torch.bfloat16
+            mode = "bfloat16" if bf16 else "float32"
+            tol = 2e-2 if bf16 else 1e-4
+            errs = []
+            for name, x, w, y in zip(("dq", "dk", "dv"), got, want, again):
+                scale = float(w.abs().max())
+                err = float((x.float() - w).abs().max())
+                ok = (bool(torch.isfinite(x).all()) and err <= tol *
+                      max(scale, 1.0) and torch.equal(x, y))
+                errs.append(err)
+                log(f"[train] {tag} flash_attention_bwd B={B} H={H} K={K} "
+                    f"S={S} hd={hd} {mode} window={window} lengths="
+                    f"{lengths is not None} {name}: max_abs_err={err:.3e} "
+                    f"(tol {tol} x max(|grad|, 1) = {tol * max(scale, 1):.3e})"
+                    f"; same bits on a second call {torch.equal(x, y)} "
+                    f"{'ok' if ok else 'MISMATCH'}")
+                if not ok:
+                    raise AssertionError(f"{tag} flash backward {name} "
+                                         "disagrees with its plain version")
+            if ln is not None and 0 in lengths:
+                b = lengths.index(0)
+                if any(bool(x[b].any()) for x in got):
+                    raise AssertionError("an empty row got a gradient")
+            del want, got, again
+            if not timed:
+                continue
+            plain = lambda: ref.flash_attention_bwd_ref(
+                q, k, v, o, do, window=window, lengths=ln)
+            valid = flash_valid(S, window, ln, dev)
+            pairs = int(valid.sum()) * (B if valid.shape[0] == 1 else 1) * H
+            kv_rows = B * S if ln is None else int(ln.clamp_max(S).sum())
+            nbytes = (4 * q.numel() + 2 * kv_rows * K * hd
+                      + 2 * k.numel()) * q.element_size()
+            qa, ka, va = (t.detach().requires_grad_(True) for t in (q, k, v))
+            if window is None and ln is None:
+                out = F.scaled_dot_product_attention(qa, ka, va,
+                                                     is_causal=True,
+                                                     enable_gqa=True)
+            else:
+                out = F.scaled_dot_product_attention(
+                    qa, ka, va, attn_mask=valid[:, None], enable_gqa=True)
+            lib = lambda: torch.autograd.grad(out, (qa, ka, va), do,
+                                              retain_graph=True)
+            rec = time_record(kern, plain, flush, nbytes, 10 * hd * pairs,
+                              dtype, max(errs), pairs, lib=lib)
+            log_record(f"{tag} flash_attention_bwd {mode} window={window}",
+                       rec)
+            log(f"[train] {tag} flash_attention_bwd {mode}: "
+                f"{rec['ops'] / rec['ms'] / 1e9:.1f} TFLOP/s achieved "
+                f"({rec['ops']} FLOP in {rec['ms']:.4f} ms), SDPA backward "
+                f"{rec['ops'] / rec['library_ms'] / 1e9:.1f} TFLOP/s; bound "
+                f"share {rec['bound_ms'] / rec['ms']:.3f}")
+            records[("flash_attention_bwd", tag, mode)] = rec
+            del q, k, v, o, do, qa, ka, va, out, valid
+            torch.cuda.empty_cache()
+
+
+def train_card_vs_cpu(cfg):
+    """One float32 loss and gradient of the 2-layer full-width cut on the
+    card and on the CPU, on one seeded weight set and one batch of the
+    task corpus: loss within 1e-4 relative, every gradient tensor's cosine
+    with the CPU's at least 0.9999.  The card's run must launch the flash
+    forward and backward kernels."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.lm_data import lm_batches
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.loop import (grads_of, make_loss_fn, params_of,
+                                        to_device, trainable)
+    cfg32 = cut(cfg, 2).replace(dtype="float32", param_dtype="float32")
+    tcfg = TrainConfig(remat=False)
+    batch = next(lm_batches(256, 8, 1))
+    state = build_model(cfg32).init(torch.Generator().manual_seed(3)) \
+        .state_dict()
+    out = []
+    for d in (torch.device("cpu"), torch.device("cuda")):
+        m = build_model(cfg32)
+        m.load_state_dict(state)
+        m.to(d)
+        ops.reset_launches()
+        with trainable(m):
+            loss, metrics = make_loss_fn(m, cfg32, tcfg)(to_device(batch, d))
+            grads = grads_of(loss, params_of(m))
+        launches = dict(ops.LAUNCHES)
+        out.append((float(loss.detach()), {k: v.detach().cpu().double()
+                                           for k, v in grads.items()},
+                    launches))
+        del m
+    (c_loss, c_g, _), (g_loss, g_g, launches) = out
+    cos = {k: float((c_g[k] * g_g[k]).sum()
+                    / (c_g[k].norm() * g_g[k].norm()).clamp_min(1e-300))
+           for k in c_g}
+    worst = min(cos, key=cos.get)
+    rel = abs(g_loss - c_loss) / abs(c_loss)
+    log(f"[train] {cfg.name}, 2 layers fp32, one batch of 8 x 256: loss "
+        f"cpu {c_loss:.7f} cuda {g_loss:.7f} (relative {rel:.2e}, tol "
+        f"1e-4); smallest gradient cosine {cos[worst]:.7f} ({worst}, tol "
+        f"0.9999) over {len(cos)} tensors; cuda launches {launches}")
+    if rel > 1e-4 or cos[worst] < 0.9999:
+        raise AssertionError("the train step on the card disagrees with "
+                             "the CPU")
+    if min(launches["flash_attention"], launches["flash_attention_bwd"]) \
+            != 2:
+        raise AssertionError("the 2-layer step did not launch the flash "
+                             f"forward and backward once a layer: {launches}")
+
+
+def fitted_reflect_serve(cfg, dev):
+    """Speculation on fitted weights: the 2-layer full-width cut (float32)
+    fitted by ``quick_fit_reflect`` on the card, then the reflection
+    pattern it was fitted on: round 1 answers 8 ramp questions, round 2
+    quotes the answer and restates the question (``prompt + answer + [2]
+    + prompt``, the answer as the speculation context), served with
+    speculation off and on: the streams must agree and drafts must be
+    accepted."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import Request
+    from repro_torch.train.quick_fit import quick_fit_reflect
+    from repro_torch.launch.train import build
+    cfg32 = cut(cfg, 2).replace(dtype="float32", param_dtype="float32")
+    model = build(cfg32, dev, seed=0)
+    t0 = time.perf_counter()
+    quick_fit_reflect(model, steps=400)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    kw = dict(max_batch=8, max_seq=256, page_size=16, spec_tokens=6)
+    prompts = [[1] + list(range(10 + 55 * i, 25 + 55 * i)) for i in range(8)]
+
+    def serve_round(spec, reqs):
+        eng = Engine(model, ServeConfig(spec_decode=spec, **kw), device=dev)
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        return [list(r.output) for r in reqs], eng.stats()
+
+    answers, _ = serve_round(False, [Request(prompt=list(p),
+                                             max_new_tokens=32, eos_id=None)
+                                     for p in prompts])
+    got = {}
+    for spec in (False, True):
+        reqs = [Request(prompt=p + a + [2] + p, max_new_tokens=28,
+                        eos_id=None, spec_context=list(a))
+                for p, a in zip(prompts, answers)]
+        got[spec] = serve_round(spec, reqs)
+    st = got[True][1]
+    same = sum(a == b for a, b in zip(got[False][0], got[True][0]))
+    redone = sum(o == a[:28] for o, a in zip(got[True][0], answers))
+    log(f"[train] {cfg.name}, 2 layers fp32, quick_fit_reflect 400 steps "
+        f"on the card in {t_fit:.2f}s; round 2 with speculation: drafted "
+        f"{st['spec_drafted']}, accepted {st['spec_accepted']} "
+        f"({st['spec_accepted'] / max(st['spec_drafted'], 1):.3f}), "
+        f"{st['verify_steps']} verify steps; streams as without speculation "
+        f"{same}/8; round 2 re-derives round 1's answer {redone}/8")
+    if same != 8 or st["spec_accepted"] <= 0:
+        raise AssertionError("speculation on fitted weights accepted no "
+                             "draft or changed the streams")
+    del model
+    release()
+
+
+def phase_train(dev):
+    """Training on the card: the backward kernel's records, the card's
+    step against the CPU's, the full 12-layer run of
+    ``examples/torch_train_100m.py`` (the main path of the backward
+    kernel, whose launches are counted from it), C2 on port-fitted
+    weights (``quick_fit_ramp`` on the card, then ``check_engine``), and
+    a speculative serve on ``quick_fit_reflect`` weights.  Returns the
+    records and the train run's launches."""
+    import torch_train_100m as example
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import get_config
+    from repro_torch.train.quick_fit import _ramp_margin, quick_fit_ramp
+    from repro_torch.launch.train import build
+    records = {}
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev).zero_
+    with timed("train kernels"):
+        bwd_cases(records, dev, flush)
+    del flush
+    cfg = get_config("reflect_demo_100m")
+    with timed("train card vs cpu"):
+        train_card_vs_cpu(cfg)
+    with timed("train full run"):
+        from repro_torch.train import checkpoint as ckpt
+        ops.reset_launches()
+        out = example.train_demo(steps=200, batch=8, seq=256, device=dev,
+                                 log=lambda m: log(f"[train] {m}"))
+        launches = dict(ops.LAUNCHES)
+        ratio = out["last"] / out["first"]
+        log(f"[train] {cfg.name} full width and depth, 200 steps of 8 x "
+            f"256, bf16 activations, fp32 parameters, AdamW: loss "
+            f"{out['first']:.4f} -> {out['last']:.4f} (ratio {ratio:.4f}; "
+            f"the reference example's criterion < 0.7 "
+            f"{'met' if ratio < 0.7 else 'NOT met'}); "
+            f"{out['ms_per_step']:.2f} ms a step, "
+            f"{out['tokens_per_s']:.0f} tokens/s (steps 2-200); peak memory "
+            f"{out['peak_bytes']} B; launches {launches}")
+        if not (all(np.isfinite(out["losses"])) and ratio < 1.0):
+            raise AssertionError("the training loss is not finite or did "
+                                 "not fall")
+        for k in ("flash_attention", "flash_attention_bwd"):
+            if launches[k] != 200 * cfg.num_layers:
+                raise AssertionError(f"{k} launched {launches[k]} times, "
+                                     f"not once a layer and step")
+        path = ROOT / "build" / "reflect_demo.msgpack"
+        ckpt.save_model(str(path), out["model"], step=200)
+        back = build(cfg, dev, seed=1)
+        if ckpt.restore_model(str(path), back) != 200 or any(
+                not torch.equal(a, b) for a, b in zip(
+                    out["model"].state_dict().values(),
+                    back.state_dict().values())):
+            raise AssertionError("the checkpoint did not restore the "
+                                 "trained weights")
+        log(f"[train] checkpoint {path.stat().st_size} B written and "
+            "restored")
+        del out, back
+        release()
+    with timed("train C2 check"):
+        cfg32 = cut(cfg, 2).replace(dtype="float32", param_dtype="float32")
+        model = build(cfg32, dev, seed=0)
+        before = _ramp_margin(model)
+        t0 = time.perf_counter()
+        quick_fit_ramp(model)
+        torch.cuda.synchronize()
+        margin = _ramp_margin(model)
+        log(f"[train] {cfg.name}, 2 layers fp32: quick_fit_ramp on the card "
+            f"in {time.perf_counter() - t0:.2f}s, worst-case ramp margin "
+            f"{before:.4f} -> {margin:.4f} (target 2.0)")
+        state = {k: v.cpu() for k, v in model.state_dict().items()}
+        del model
+        release()
+        check_engine(cut(cfg, 2), state, dev, None, label="port-fitted")
+    with timed("train fitted speculation"):
+        fitted_reflect_serve(cfg, dev)
+    return records, launches
+
+
+def ring_reread(dev):
+    """The demo's bf16 ring decode read again at the end of the run, in
+    turns with SDPA (``interleaved_ms``), beside the kernels phase's
+    reading."""
+    from repro_torch.kernels import ops
+    F = torch.nn.functional
+    B, K, G, hd, C = 8, 4, 3, 64, 2048
+    # the kernels phase's demo bf16 window-None inputs (its seed)
+    q, k, v, tok, pos, _ = ring_inputs(103, B, K, G, hd, C,
+                                       torch.bfloat16, False, dev)
+    kern = lambda: ops.decode_attention(q, k, v, tok, pos)
+    mask = ring_valid(tok, pos, None)[:, None, None, :]
+    qh, kh, vh = q.reshape(B, K * G, 1, hd), k.transpose(1, 2), \
+        v.transpose(1, 2)
+    lib = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                                 enable_gqa=True)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev).zero_
+    (ms, lo, hi), (lms, llo, lhi) = interleaved_ms(kern, lib, flush)
+    log(f"[ring re-read] demo decode_attention bfloat16 at the end of the "
+        f"run: kernel median {ms:.4f} ms (range {lo:.4f}-{hi:.4f}), SDPA "
+        f"median {lms:.4f} ms (range {llo:.4f}-{lhi:.4f}), in turns, "
+        f"cold-L2")
+    return ms
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> int:
@@ -2029,11 +2370,16 @@ def main() -> int:
         records = phase_kernels(dev)
     with timed("serve"):
         runs = phase_serve(dev)
+    with timed("train"):
+        train_records, runs["torch_train_100m"] = phase_train(dev)
+    records.update(train_records)
+    ring_reread(dev)
     kernels = []
     # each kernel's record at one shape its model's runs give it: paged
     # extend at Sx = 5 (the demo's verify steps make most of its
     # launches), the scans at the 32-lane mixed step with the serve's bf16
-    # activations, ring decode and flash at the demo's bf16 shapes
+    # activations, ring decode and flash at the demo's bf16 shapes, the
+    # flash backward at the demo's bf16 training shape
     for name, key, run in (
             ("paged_decode", ("paged_decode", "demo", 1, "bfloat16"),
              "reflect_demo_100m"),
@@ -2046,7 +2392,9 @@ def main() -> int:
             ("mamba_scan", ("mamba_scan", 32, "bfloat16"),
              "falcon_mamba_7b"),
             ("rglru_scan", ("rglru_scan", 32, "float32"),
-             "recurrentgemma_9b")):
+             "recurrentgemma_9b"),
+            ("flash_attention_bwd", ("flash_attention_bwd", "demo",
+                                     "bfloat16"), "torch_train_100m")):
         rec = records[key]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],

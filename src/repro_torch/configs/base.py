@@ -1,8 +1,8 @@
 """Configuration dataclasses for models and serving.
 
 A copy of the reference package's ``configs/base.py`` restricted to what
-the port serves: ``ModelConfig``, ``ServeConfig`` and the block patterns
-``dense_pattern``, ``moe_pattern``, ``mamba_pattern`` and
+the port serves: ``ModelConfig``, ``TrainConfig``, ``ServeConfig`` and the
+block patterns ``dense_pattern``, ``moe_pattern``, ``mamba_pattern`` and
 ``recurrentgemma_pattern``.
 Field names, defaults and meanings are unchanged, so a config built for
 one package reads the same in the other.  The one ``ServeConfig`` option
@@ -117,6 +117,24 @@ def recurrentgemma_pattern(n: int) -> Tuple[str, ...]:
     while len(pat) < n:
         pat.extend(["rglru", "rglru", "rg_attn"])
     return tuple(pat[:n])
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1_000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    optimizer: str = "adamw"               # adamw | adafactor
+    microbatch: int = 0                    # 0 = no gradient accumulation
+    remat: bool = True
+    z_loss: float = 1e-4
+    loss_chunk: int = 0                    # 0 = unchunked cross-entropy
+    seed: int = 0
 
 
 @dataclass(frozen=True)

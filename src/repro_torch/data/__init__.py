@@ -1,3 +1,3 @@
-"""Tasks with verifiers and the byte tokenizer the reflection loop uses;
-copies of ``repro/data``'s counterparts (the training data, ``lm_data.py``,
-is not ported)."""
+"""Tasks with verifiers, the byte tokenizer the reflection loop uses, and
+the training data (``lm_data.py``); copies of ``repro/data``'s
+counterparts."""

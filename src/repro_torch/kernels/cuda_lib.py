@@ -30,6 +30,7 @@ SOURCES = {"paged_decode": "paged_decode.cu",
            "paged_extend": "paged_extend.cu",
            "decode_attention": "decode_attention.cu",
            "flash_attention": "flash_attention.cu",
+           "flash_attention_bwd": "flash_attention_bwd.cu",
            "mamba_scan": "mamba_scan.cu",
            "rglru_scan": "rglru_scan.cu"}
 HEADERS = ("paged_common.cuh", "flash_tc.cuh")
@@ -48,6 +49,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #                B, K, G, hd, C, window, splits, stream)
 #   flash_attention:  (dtype, q, k, v, lengths, out, B, K, G, hd, S,
 #                window, stream)
+#   flash_attention_bwd: (dtype, q, k, v, o, dout, lengths, lse, delta, dq,
+#                dk, dv, B, K, G, hd, S, window, stream)
 #   mamba_scan: (x_dtype, dt, Bm, Cm, x, A, Dsk, h0, y, h, B, S, D, N,
 #                stream)
 #   rglru_scan: (a, b, h0, hs, h, B, S, W, stream)
@@ -56,6 +59,7 @@ _ARGTYPES = {
     "paged_extend": [_I] + [_P] * 10 + [_I] * 9 + [_P],
     "decode_attention": [_I] + [_P] * 10 + [_I] * 7 + [_P],
     "flash_attention": [_I] + [_P] * 5 + [_I] * 6 + [_P],
+    "flash_attention_bwd": [_I] + [_P] * 11 + [_I] * 6 + [_P],
     "mamba_scan": [_I] + [_P] * 9 + [_I] * 4 + [_P],
     "rglru_scan": [_P] * 5 + [_I] * 3 + [_P],
 }
@@ -284,6 +288,19 @@ def check_kv_inputs(kind: str, q, k, v, index, pos, k_scale, k_zero,
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("K/V must be 16-byte aligned")
     return code
+
+
+def refuse_grad(kernel: str, item: str, *tensors) -> None:
+    """RuntimeError when grad mode is on and an input needs a gradient:
+    ``kernel`` has no backward kernel (ROADMAP ``item``), and a launch that
+    writes into ``torch.empty`` would give detached outputs, so zero
+    gradients without an error."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(
+            f"{kernel} has no backward kernel on the card (ROADMAP {item}); "
+            "call it under torch.no_grad(), or train on the CPU, where "
+            "autograd differentiates its plain version")
 
 
 def pointer(t) -> int:

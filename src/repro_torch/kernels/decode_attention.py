@@ -39,6 +39,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return plain(q, k, v, tok, pos, k_scale=k_scale, k_zero=k_zero,
                      v_scale=v_scale, window=window)
+    cuda_lib.refuse_grad("decode_attention", "A16d", q, k, v, k_scale, k_zero,
+                         v_scale)
     if q.dim() != 4:
         raise ValueError(f"q must be [B, K, G, hd], got {tuple(q.shape)}")
     B, K, G, hd = q.shape

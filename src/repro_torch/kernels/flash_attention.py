@@ -20,6 +20,15 @@ sources.
 Token i attends j <= i (and j > i - window with a window, and j <
 lengths[b] with lengths); the output takes q's dtype.  A row with no
 attendable token is zeros.
+
+Gradients: on a CPU tensor autograd differentiates the plain version.  On
+a CUDA tensor that needs a gradient (grad mode on and q, k or v requiring
+one) the call goes through ``_FlashAttention``, an autograd function whose
+forward is the same kernel launch and whose backward launches the
+hand-written ``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd``;
+plain version ``ref.flash_attention_bwd_ref``).  Without a gradient the
+call is the bare launch, so serving steps and their CUDA-graph captures
+are unchanged.
 """
 from __future__ import annotations
 
@@ -28,20 +37,18 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import cuda_lib
+from repro_torch.kernels.ref import flash_attention_bwd_ref
 from repro_torch.kernels.ref import flash_attention_ref as plain
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    window: Optional[int] = None,
-                    lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-    if q.device.type == "cpu":
-        return plain(q, k, v, window=window, lengths=lengths)
+def _check(q, k, v, lengths, window, extra=()) -> int:
+    """Validate a forward or backward launch; returns the dtype code."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q must be [B, H, S, hd] and k [B, K, S, hd], got "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")
     B, H, S, hd = q.shape
     K = k.shape[1]
-    tensors = [q, k, v] + ([] if lengths is None else [lengths])
+    tensors = [q, k, v, *extra] + ([] if lengths is None else [lengths])
     cuda_lib.check_operands("flash", tensors, q)
     code = cuda_lib.DTYPE_CODES.get((q.dtype, k.dtype))
     if code not in (0, 1) or v.dtype != k.dtype:
@@ -53,6 +60,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if H % K or k.shape != (B, K, S, hd) or v.shape != k.shape:
         raise ValueError(f"k/v shape {tuple(k.shape)} does not match "
                          f"q {tuple(q.shape)}")
+    if any(t.shape != q.shape or t.dtype != q.dtype for t in extra):
+        raise ValueError("o and its gradient must match q's shape and dtype")
     if lengths is not None and (lengths.dtype != torch.int32
                                 or lengths.shape != (B,)):
         raise ValueError("lengths must be int32 [B]")
@@ -60,6 +69,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("k and v must be 16-byte aligned")
     if window is not None and window <= 0:
         raise ValueError("window must be positive")
+    return code
+
+
+def _launch(q, k, v, window, lengths) -> torch.Tensor:
+    code = _check(q, k, v, lengths, window)
+    B, H, S, hd = q.shape
+    K = k.shape[1]
     out = torch.empty_like(q)
     cuda_lib.launch(
         "flash_attention", code, q.data_ptr(), k.data_ptr(),
@@ -67,3 +83,57 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         H // K, hd, S, window or 0,
         torch.cuda.current_stream(q.device).cuda_stream)
     return out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *,
+                        window: Optional[int] = None,
+                        lengths: Optional[torch.Tensor] = None):
+    """(dq, dk, dv) of ``flash_attention(q, k, v)`` at output ``o`` and
+    output gradient ``do``, in the inputs' dtype: the kernel on a CUDA
+    tensor, ``ref.flash_attention_bwd_ref`` on a CPU tensor."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, do, window=window,
+                                       lengths=lengths)
+    code = _check(q, k, v, lengths, window, extra=(o, do))
+    B, H, S, hd = q.shape
+    K = k.shape[1]
+    lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    cuda_lib.launch(
+        "flash_attention_bwd", code, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), o.data_ptr(), do.data_ptr(), cuda_lib.pointer(lengths),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), B, K, H // K, hd, S, window or 0,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel, differentiated by the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, lengths):
+        out = _launch(q, k, v, window, lengths)
+        ctx.save_for_backward(q, k, v, out, lengths)
+        ctx.window = window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lengths = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, do.contiguous(),
+                                         window=ctx.window, lengths=lengths)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: Optional[int] = None,
+                    lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return plain(q, k, v, window=window, lengths=lengths)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, window, lengths)
+    return _launch(q, k, v, window, lengths)

@@ -37,6 +37,7 @@ def mamba_scan(dt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     """Returns (y [B, S, D] f32, h_last [B, D, N] f32)."""
     if dt.device.type == "cpu":
         return plain(dt, Bm, Cm, x, A, Dsk, h0)
+    cuda_lib.refuse_grad("mamba_scan", "A16c", dt, Bm, Cm, x, A, Dsk, h0)
     B, S, D = dt.shape
     N = A.shape[-1]
     shapes = {"dt": (dt, (B, S, D)), "Bm": (Bm, (B, S, N)),

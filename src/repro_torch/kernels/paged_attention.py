@@ -37,6 +37,8 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if q.device.type == "cpu":
         return plain(q, k_pool, v_pool, page_table, pos, k_scale=k_scale,
                      k_zero=k_zero, v_scale=v_scale, window=window)
+    cuda_lib.refuse_grad("paged_decode", "A16d", q, k_pool, v_pool, k_scale, k_zero,
+                         v_scale)
     if q.dim() != 4:
         raise ValueError(f"q must be [B, K, G, hd], got {tuple(q.shape)}")
     B, K, G, hd = q.shape

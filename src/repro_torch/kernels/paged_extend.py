@@ -41,6 +41,8 @@ def paged_extend_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if q.device.type == "cpu":
         return plain(q, k_pool, v_pool, page_table, pos0, k_scale=k_scale,
                      k_zero=k_zero, v_scale=v_scale, window=window)
+    cuda_lib.refuse_grad("paged_extend", "A16d", q, k_pool, v_pool, k_scale, k_zero,
+                         v_scale)
     if q.dim() != 5:
         raise ValueError(f"q must be [B, Sx, K, G, hd], got {tuple(q.shape)}")
     B, Sx, K, G, hd = q.shape

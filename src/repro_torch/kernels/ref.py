@@ -1,8 +1,10 @@
 """Plain PyTorch versions of the port's kernels.
 
 Ports of ``repro/kernels/ref.py``: ``flash_attention_ref`` (causal
-full-sequence attention), ``decode_attention_ref`` (one query over a dense
-ring cache), ``paged_decode_attention_ref`` and
+full-sequence attention) and its gradient ``flash_attention_bwd_ref``
+(which the reference leaves to JAX's autodiff and the port writes out),
+``decode_attention_ref`` (one query over a dense ring cache),
+``paged_decode_attention_ref`` and
 ``paged_extend_attention_ref`` (which gather each request's pages into a
 dense logical ``[B, NP*ps, K, hd]`` view) all mask by absolute position
 and softmax in float32 through :func:`masked_attention`;
@@ -90,6 +92,41 @@ def flash_attention_ref(q, k, v, *, window: Optional[int] = None,
     return o.permute(0, 2, 3, 1, 4).reshape(B, H, S, hd)
 
 
+def flash_attention_bwd_ref(q, k, v, o, do, *, window: Optional[int] = None,
+                            lengths: Optional[torch.Tensor] = None):
+    """Gradients (dq, dk, dv) of ``flash_attention_ref`` at output ``o``
+    and output gradient ``do`` (both [B,H,S,hd]), written out in float32
+    rather than taken by autograd: the scores are recomputed, ``lse`` is
+    each row's log-sum-exp over its valid keys, ``D = rowsum(do * o)``,
+    ``dS = P * (dP - D)``, and dK and dV are summed over the G query heads
+    of each KV head.  Same mask as the forward; a query row with no valid
+    key (``lengths`` 0) gets zero gradients, as the forward gives it
+    zeros.  Returns the input dtypes."""
+    B, H, S, hd = q.shape
+    K = k.shape[1]
+    scale = hd ** -0.5
+    i = torch.arange(S, device=q.device)
+    valid = _in_window(i[None, :], i[:, None], window)[None]  # [1,S,S]
+    if lengths is not None:
+        valid = valid & (i[None, None, :] < lengths.long()[:, None, None])
+    valid = valid[:, None, None]                             # [B|1,1,1,S,S]
+    qf = q.float().reshape(B, K, H // K, S, hd)
+    dof = do.float().reshape(B, K, H // K, S, hd)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bkgid,bkjd->bkgij", qf, kf) * scale
+    s = s.masked_fill(~valid, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * valid
+    p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    delta = (dof * o.float().reshape(B, K, H // K, S, hd)).sum(-1)
+    dp = torch.einsum("bkgid,bkjd->bkgij", dof, vf)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bkgij,bkjd->bkgid", ds, kf) * scale
+    dk = torch.einsum("bkgij,bkgid->bkjd", ds, qf) * scale
+    dv = torch.einsum("bkgij,bkgid->bkjd", p, dof)
+    return (dq.reshape(B, H, S, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
 def decode_attention_ref(q, k, v, tok, pos, *, k_scale=None, k_zero=None,
                          v_scale=None, window: Optional[int] = None
                          ) -> torch.Tensor:
@@ -147,8 +184,9 @@ def mamba_scan_ref(dt, Bm, Cm, x, A, Dsk, h0):
     dt, x: [B, S, D]; Bm, Cm: [B, S, N]; A: [D, N]; Dsk: [D]; h0:
     [B, D, N].  ``h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) B_t`` and
     ``y_t = h_t . C_t + Dsk * x_t``.  Returns (y [B, S, D], h_last
-    [B, D, N]), both float32."""
-    h = h0.float()
+    [B, D, N]), both float32.  h0 is copied, not aliased: callers write
+    the returned state into it while autograd may still need it."""
+    h = h0.float().clone()
     A, Dsk = A.float(), Dsk.float()
     ys = []
     for t in range(dt.shape[1]):
@@ -163,8 +201,8 @@ def mamba_scan_ref(dt, Bm, Cm, x, A, Dsk, h0):
 def rglru_scan_ref(a, b, h0):
     """Sequential linear recurrence ``h_t = a_t * h_{t-1} + b_t``.
     a, b: [B, S, W] float32; h0: [B, W].  Returns (hs [B, S, W], h_last
-    [B, W])."""
-    h = h0
+    [B, W]); h0 is copied, as in ``mamba_scan_ref``."""
+    h = h0.clone()
     hs = []
     for t in range(a.shape[1]):
         h = a[:, t] * h + b[:, t]

@@ -25,6 +25,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
     """Returns (hs [B, S, W] f32, h_last [B, W] f32)."""
     if a.device.type == "cpu":
         return plain(a, b, h0)
+    cuda_lib.refuse_grad("rglru_scan", "A16c", a, b, h0)
     B, S, W = a.shape
     for name, t, shape in (("a", a, (B, S, W)), ("b", b, (B, S, W)),
                            ("h0", h0, (B, W))):

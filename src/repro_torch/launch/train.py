@@ -1,0 +1,99 @@
+"""Training launcher: ``python -m repro_torch.launch.train --arch <id>
+[--smoke] [--steps N --batch B --seq S] [--device cuda|cpu]``.
+
+The port of ``repro/launch/train.py``: builds the architecture (the
+reduced config with ``--smoke``, else the full one) with seeded random
+weights on ``--device`` (the card unless ``--device cpu``), and trains it
+with AdamW on the synthetic task corpus (``data/lm_data.py``) through
+``train/loop.py``'s step, printing the loss every 10 steps.  On the card
+attention's forward and backward run in the hand-written flash kernels;
+the recurrent scans have no backward kernel yet, so training a mamba or
+RG-LRU model on the card raises (ROADMAP A16c).  ``--dryrun`` (the
+reference's production plan over a device mesh) raises
+``NotImplementedError``: the mesh tooling is not ported (ROADMAP A17).
+The registry's unported archs (whisper, the VLM) raise as it does.
+"""
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import TrainConfig
+from repro_torch.data.lm_data import lm_batches
+from repro_torch.device import resolve_device
+from repro_torch.models.registry import (ARCH_IDS, EXTRA_ARCH_IDS,
+                                         build_model, get_config,
+                                         get_smoke_config)
+from repro_torch.train.loop import init_opt_state, make_train_step
+
+
+def build(cfg, device, seed: int = 0):
+    """``cfg``'s model on ``device`` with weights from a seeded generator
+    on that device."""
+    with torch.device(device):
+        model = build_model(cfg)
+    return model.init(torch.Generator(device=device).manual_seed(seed))
+
+
+def train(model, cfg, tcfg: TrainConfig, steps: int, batch: int, seq: int,
+          log_every: int = 10, log=print) -> dict:
+    """``steps`` train steps of ``batch`` x ``seq`` tokens of the task
+    corpus.  Returns the per-step losses and accuracies and, past the
+    first step (which builds the kernels on a card), the mean wall time a
+    step in ms and tokens a second."""
+    state = init_opt_state(model, cfg, tcfg)
+    step = make_train_step(model, cfg, tcfg)
+    dev = model.embed.device
+    losses, accs = [], []
+    t1 = None
+    for i, b in enumerate(lm_batches(seq, batch, steps)):
+        m = step(state, b)
+        losses.append(float(m["loss"]))
+        accs.append(float(m["accuracy"]))
+        if i == 0:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t1 = time.perf_counter()
+        if log_every and (i % log_every == 0 or i == steps - 1):
+            log(f"step {i:4d} loss {losses[-1]:.3f} acc {accs[-1]:.3f}")
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    n = max(steps - 1, 1)
+    ms = (time.perf_counter() - t1) / n * 1e3
+    return {"losses": losses, "accuracy": accs, "ms_per_step": ms,
+            "tokens_per_s": batch * seq / ms * 1e3}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="reflect_demo_100m",
+                    help="an architecture id of models/registry.py "
+                    f"({', '.join(ARCH_IDS + EXTRA_ARCH_IDS)})")
+    ap.add_argument("--smoke", action="store_true",
+                    help="train the reduced config")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--dryrun", action="store_true",
+                    help="print the production plan (not ported: raises)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to train on (default: cuda)")
+    args = ap.parse_args(argv)
+    if args.dryrun:
+        raise NotImplementedError(
+            "--dryrun needs the mesh and sharding tooling, which the port "
+            "does not have yet (ROADMAP A17)")
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    dev = resolve_device(args.device)
+    tcfg = TrainConfig(total_steps=args.steps, warmup_steps=10,
+                       learning_rate=1e-3, remat=False)
+    model = build(cfg, dev, tcfg.seed)
+    out = train(model, cfg, tcfg, args.steps, args.batch, args.seq)
+    print(f"final loss {np.mean(out['losses'][-5:]):.3f} on {dev} "
+          f"({out['ms_per_step']:.1f} ms a step)")
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -55,10 +55,14 @@ def cast(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     a copy kept on it, one per dtype, made again when the parameter was
     written (its version counter moved: ``copy_``, ``load_state_dict``) or
     moved (its storage changed: ``Module.to``).  The copy holds the values
-    ``w.to(dtype)`` gives; other tensors are cast afresh."""
+    ``w.to(dtype)`` gives; other tensors, and a parameter that autograd
+    is tracking (grad mode on and ``requires_grad``: a kept copy would be
+    detached from it, or hold a graph past its backward), are cast
+    afresh."""
     if w.dtype == dtype:
         return w
-    if not isinstance(w, nn.Parameter):
+    if not isinstance(w, nn.Parameter) or (w.requires_grad
+                                           and torch.is_grad_enabled()):
         return w.to(dtype)
     casts = w.__dict__.setdefault("_casts", {})
     key = (w._version, w.data_ptr())

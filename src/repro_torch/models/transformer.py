@@ -6,18 +6,21 @@
 latter with RecurrentGemma's ``local_window``), ``moe`` (attention and a
 mixture-of-experts FFN, models/moe.py), ``mamba`` and ``rglru``.
 The reference's ``lax.scan`` over a stacked repeating unit becomes a loop
-over ``self.blocks``.  Entry points, all without gradients:
+over ``self.blocks``.  Entry points:
 
-* ``forward`` (teacher forcing: logits at every position, and the MoE
-  load-balancing aux loss) and ``prefill`` (logits at each sequence's
-  last valid token and the primed decode cache), whose attention layers
-  run ``ops.flash_attention``;
+* ``forward`` (teacher forcing: logits at every position, or the final
+  hidden states for the chunked loss, and the MoE load-balancing aux
+  loss), the one entry point autograd can differentiate (the trainer,
+  ``train/loop.py``, turns the parameters' ``requires_grad`` on), and
+  ``prefill`` (logits at each sequence's last valid token and the primed
+  decode cache), whose attention layers run ``ops.flash_attention``;
 * ``prefill_extend`` (chunked prefill, mixed steps and speculative
   verify) and ``decode_step``, which take the cache — a list with one
   dict per layer: the ring cache or shared page pools of an attention
   layer, the dense per-slot ``{"conv", "h"}`` state of a recurrent one —
   and, for paged caches, the ``[B, NP]`` int32 page table; they update
-  the cache in place and return ``(logits, cache)``.
+  the cache in place and return ``(logits, cache)``.  ``prefill``,
+  ``prefill_extend`` and ``decode_step`` run without gradients.
 
 Not ported yet: the whisper and vlm models.
 """
@@ -27,6 +30,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
@@ -156,15 +160,20 @@ class TransformerLM(nn.Module):
 
     # ---------------- full sequences -----------------------------------------
 
-    @torch.no_grad()
-    def forward(self, batch: Dict[str, torch.Tensor]
+    def forward(self, batch: Dict[str, torch.Tensor], remat: bool = False,
+                return_hidden: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Teacher forcing: ``batch["tokens"]`` [B, S] (and optional
-        ``batch["lengths"]`` [B]) -> (logits [B, S, V], aux loss).  The aux
-        loss is MoE load balancing summed over the MoE layers and divided
-        by ``cfg.num_layers``, as in the reference: 0 without MoE blocks.
-        There is no backward: the flash kernel has none, as the TPU kernel
-        had none."""
+        ``batch["lengths"]`` [B]) -> (logits [B, S, V], aux loss), or the
+        final hidden states [B, S, d] after ``ln_f`` instead of the logits
+        with ``return_hidden`` (the chunked loss).  The aux loss is MoE
+        load balancing summed over the MoE layers and divided by
+        ``cfg.num_layers``, as in the reference: 0 without MoE blocks.
+        Differentiable: on the card attention's backward is the
+        hand-written flash backward kernel; the recurrent scans have no
+        backward kernel yet and raise there.  ``remat`` recomputes each
+        block in the backward pass (``torch.utils.checkpoint``), as the
+        reference's ``jax.checkpoint`` of its scanned unit."""
         tokens = batch["tokens"]
         lengths = batch.get("lengths")
         x = self.embed_tokens(tokens)
@@ -172,19 +181,34 @@ class TransformerLM(nn.Module):
                                  dtype=torch.int32)[None, :]
         aux = torch.zeros((), device=x.device)
         for kind, blk in zip(self.cfg.block_pattern, self.blocks):
-            if kind in ATTN_KINDS:
-                x = A.attn_block_forward(self.cfg, blk, x, positions, kind,
-                                         lengths)
-            elif kind == "moe":
-                x, a = MOE.moe_block_forward(self.cfg, blk, x, positions,
-                                             lengths)
-                aux = aux + a
-            elif kind == "mamba":
-                x = M.mamba_block_forward(self.cfg, blk, x)
+            if remat and torch.is_grad_enabled():
+                x, a = checkpoint(self._block_forward, kind, blk, x,
+                                  positions, lengths, use_reentrant=False)
             else:
-                x = RG.rglru_block_forward(self.cfg, blk, x)
+                x, a = self._block_forward(kind, blk, x, positions, lengths)
+            if a is not None:
+                aux = aux + a
         x = L.rmsnorm(self.ln_f.scale, x, self.cfg.norm_eps)
-        return self.logits(x), aux / max(self.cfg.num_layers, 1)
+        aux = aux / max(self.cfg.num_layers, 1)
+        if return_hidden:
+            return x, aux
+        return self.logits(x), aux
+
+    def _block_forward(self, kind: str, blk: nn.Module, x: torch.Tensor,
+                       positions: torch.Tensor,
+                       lengths: Optional[torch.Tensor]
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One block of ``forward``: (x, its aux loss; None but for
+        MoE)."""
+        if kind == "moe":
+            return MOE.moe_block_forward(self.cfg, blk, x, positions,
+                                         lengths)
+        if kind in ATTN_KINDS:
+            return A.attn_block_forward(self.cfg, blk, x, positions, kind,
+                                        lengths), None
+        if kind == "mamba":
+            return M.mamba_block_forward(self.cfg, blk, x), None
+        return RG.rglru_block_forward(self.cfg, blk, x), None
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor,

@@ -35,6 +35,7 @@ the weights change, build a new engine.
 """
 from __future__ import annotations
 
+import gc
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -93,8 +94,17 @@ class StepGraph:
             torch.cuda.current_stream(self.device).wait_stream(side)
             before = dict(ops.LAUNCHES)
             sig.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(sig.graph, pool=self._pool):
-                sig.out = self._fn(*sig.static)
+            # no garbage collection inside the capture: a dead cycle that
+            # holds another engine's graphs would be freed there, a CUDA
+            # call the capture forbids (the process aborts)
+            was_enabled = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(sig.graph, pool=self._pool):
+                    sig.out = self._fn(*sig.static)
+            finally:
+                if was_enabled:
+                    gc.enable()
             # capture records launches without running them
             sig.launches = {k: n - before[k] for k, n in ops.LAUNCHES.items()
                             if n != before[k]}

@@ -23,7 +23,8 @@ import pytest
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
-MODULES = ("data/tokenizer.py", "data/tasks.py", "core/textmetrics.py",
+MODULES = ("data/tokenizer.py", "data/tasks.py", "data/lm_data.py",
+           "core/textmetrics.py",
            "core/accounting.py", "core/budget.py", "core/quality_sim.py",
            "core/pareto.py", "core/stats.py", "core/parallel_sampling.py",
            "core/feedback.py", "core/controller.py", "core/reflection.py",

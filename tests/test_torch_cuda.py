@@ -1064,3 +1064,125 @@ def test_hot_nan_row_on_captured_step(dev, quarantine):
         assert (outs, stops, usage) == clean[:3]
     x = torch.arange(8.0, device=dev)
     assert float((x * 2).sum()) == 56.0
+
+
+# ------------------------------------------------------------- training
+
+@pytest.mark.parametrize("act", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("B,H,K,S,window,lengths", [
+    (2, 6, 2, 97, None, None),            # G 3, S past a tile
+    (2, 4, 1, 130, 40, None),             # window below a tile's reach
+    (3, 4, 4, 77, None, [77, 0, 30]),     # G 1, an empty row
+    (2, 8, 2, 200, 50, [200, 61]),        # window and ragged lengths
+])
+def test_flash_backward_matches_plain(dev, act, hd, B, H, K, S, window,
+                                      lengths):
+    """``flash_attention_bwd`` (csrc/flash_attention_bwd.cu) against
+    ``flash_attention_bwd_ref`` in float32 on the same inputs: 1e-4
+    (float32) or 2e-2 (bfloat16, its outputs rounded) of the largest
+    gradient magnitude; zero gradients for an empty row; two calls
+    bit-equal."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    q, k, v = (t.to(dev) for t in _flash_inputs(act, B, H, K, S, hd,
+                                                 seed=S + hd + H))
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(hd)) \
+        .to(dev, act)
+    lens = (None if lengths is None
+            else torch.tensor(lengths, dtype=torch.int32, device=dev))
+    o = ops.flash_attention(q, k, v, window=window, lengths=lens)
+    got = flash_attention_bwd(q, k, v, o, do, window=window, lengths=lens)
+    again = flash_attention_bwd(q, k, v, o, do, window=window, lengths=lens)
+    want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                       o.float(), do.float(), window=window,
+                                       lengths=lens)
+    tol = 2e-2 if act == torch.bfloat16 else 1e-4
+    for x, y, w in zip(got, again, want):
+        assert x.dtype == act and x.shape == w.shape
+        assert float((x.float() - w).abs().max()) <= \
+            tol * max(float(w.abs().max()), 1.0)
+        assert torch.equal(x, y)
+    if lengths is not None and 0 in lengths:
+        b = lengths.index(0)
+        assert not any(bool(x[b].any()) for x in got)
+
+
+def test_flash_autograd_on_card_launches_the_backward(dev):
+    """Grad mode on a CUDA tensor goes through the autograd function: the
+    forward kernel once and the backward kernel once, giving the plain
+    version's gradients; without a gradient the call is the bare forward
+    launch."""
+    from repro_torch.kernels import cuda_lib
+    q, k, v = (t.to(dev) for t in _flash_inputs(torch.float32, 2, 6, 2, 64,
+                                                 64, seed=3))
+    do = torch.randn_like(q)
+    qa, ka, va = (t.clone().requires_grad_(True) for t in (q, k, v))
+    cuda_lib.reset_launches()
+    ops.flash_attention(qa, ka, va, window=16).backward(do)
+    assert cuda_lib.LAUNCHES["flash_attention"] == 1
+    assert cuda_lib.LAUNCHES["flash_attention_bwd"] == 1
+    qb, kb, vb = (t.clone().requires_grad_(True) for t in (q, k, v))
+    ref.flash_attention_ref(qb, kb, vb, window=16).backward(do)
+    for a, b in zip((qa, ka, va), (qb, kb, vb)):
+        torch.testing.assert_close(a.grad, b.grad, atol=1e-4, rtol=1e-4)
+    with torch.no_grad():
+        out = ops.flash_attention(qa, ka, va)
+    assert out.grad_fn is None
+    assert cuda_lib.LAUNCHES["flash_attention_bwd"] == 1
+
+
+def test_kernels_without_backward_refuse_gradients_on_card(dev):
+    """The paged, ring-decode and scan wrappers raise on CUDA inputs that
+    need a gradient instead of returning detached outputs."""
+    (q, kp, vp, pt, pos0), _, _, _ = _inputs(dev, torch.float32, False)
+    qd = q[:, 0].contiguous()
+    g = torch.Generator().manual_seed(0)
+    f = lambda *s: torch.rand(*s, generator=g).to(dev)
+    calls = {
+        "paged_decode": lambda t: ops.paged_decode_attention(
+            t(qd), kp, vp, pt, pos0),
+        "paged_extend": lambda t: ops.paged_extend_attention(
+            t(q), kp, vp, pt, pos0),
+        "decode_attention": lambda t: ops.decode_attention(
+            t(qd), f(3, 64, 2, 64), f(3, 64, 2, 64),
+            torch.arange(64, dtype=torch.int32, device=dev).repeat(3, 1),
+            torch.full((3,), 63, dtype=torch.int32, device=dev)),
+        "mamba_scan": lambda t: ops.mamba_scan(
+            t(f(2, 4, 8)), f(2, 4, 16), f(2, 4, 16), f(2, 4, 8),
+            -f(8, 16), f(8), f(2, 8, 16)),
+        "rglru_scan": lambda t: ops.rglru_scan(t(f(2, 4, 8)), f(2, 4, 8),
+                                               f(2, 8)),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=f"{name} has no backward"):
+            call(lambda x: x.clone().requires_grad_(True))
+        call(lambda x: x)                              # launches as before
+        with torch.no_grad():
+            call(lambda x: x.clone().requires_grad_(True))
+
+
+def test_train_step_on_card_launches_both_flash_kernels(dev):
+    """One AdamW step of the demo's smoke config on the card: finite
+    metrics under the reference's keys, the flash forward and backward
+    launched once a layer, parameters moved."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.lm_data import lm_batches
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch.train import build
+    from repro_torch.models.registry import get_smoke_config
+    from repro_torch.train.loop import init_opt_state, make_train_step
+    cfg = get_smoke_config("reflect_demo_100m")
+    model = build(cfg, dev)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    tcfg = TrainConfig(remat=True)
+    cuda_lib.reset_launches()
+    m = make_train_step(model, cfg, tcfg)(init_opt_state(model, cfg, tcfg),
+                                          next(lm_batches(64, 4, 1)))
+    assert set(m) == {"loss", "xent", "accuracy", "lr", "grad_norm"}
+    assert all(np.isfinite(float(v)) for v in m.values())
+    # remat runs each block's forward again in the backward pass
+    assert cuda_lib.LAUNCHES["flash_attention"] == 2 * cfg.num_layers
+    assert cuda_lib.LAUNCHES["flash_attention_bwd"] == cfg.num_layers
+    assert all(not torch.equal(v, before[k])
+               for k, v in model.state_dict().items())
+    assert not any(p.requires_grad for p in model.parameters())

@@ -12,6 +12,18 @@ import torch
 SRC = Path(__file__).resolve().parents[1] / "src"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the launcher and example tests serve long runs
+    of small tensor operations on the CPU, which wait on every thread of
+    the pool; under the suite's parallel workers a full pool made one of
+    them 55x slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_port_imports_no_jax_and_no_repro():
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
@@ -37,7 +49,10 @@ def test_port_imports_no_jax_and_no_repro():
                      "data.tokenizer", "configs.granite_moe_1b_a400m",
                      "configs.mixtral_8x7b", "configs.kimi_k2_1t_a32b",
                      "configs.llama3_70b", "configs.minitron_4b",
-                     "configs.yi_6b", "configs.nemotron_4_340b"):
+                     "configs.yi_6b", "configs.nemotron_4_340b",
+                     "kernels.flash_attention", "train", "train.optimizer",
+                     "train.loop", "train.checkpoint", "train.quick_fit",
+                     "data.lm_data", "launch.train", "bridge"):
             assert "repro_torch." + name in names, name
         print(len(names))
     """)
@@ -72,6 +87,45 @@ def test_reflection_example_imports_no_jax_and_no_repro():
     assert any(n.startswith("repro_torch") for n in names), names
     bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad
+
+
+def test_train_example_imports_no_jax_and_no_repro():
+    names = _imported("examples/torch_train_100m.py")
+    assert any(n.startswith("repro_torch") for n in names), names
+    bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, bad
+
+
+def test_kernel_wrappers_without_backward_refuse_gradients():
+    """A CUDA wrapper whose kernel has no backward raises when grad mode is
+    on and an input requires a gradient, before anything else is checked
+    (meta tensors stand in for CUDA ones: they take the kernel branch),
+    and names the ROADMAP item; under ``torch.no_grad()`` the same call
+    goes on to the operand checks."""
+    from repro_torch.kernels import ops
+    m = lambda *s: torch.empty(s, device="meta")
+    q4, pool, pt, pos = m(2, 2, 3, 64), m(8, 16, 2, 64), m(2, 4), m(2)
+    calls = {
+        "paged_decode": lambda g: ops.paged_decode_attention(
+            q4.requires_grad_(g), pool, pool, pt, pos),
+        "paged_extend": lambda g: ops.paged_extend_attention(
+            m(2, 5, 2, 3, 64).requires_grad_(g), pool, pool, pt, pos),
+        "decode_attention": lambda g: ops.decode_attention(
+            q4.requires_grad_(g), m(2, 32, 2, 64), m(2, 32, 2, 64),
+            m(2, 32), pos),
+        "mamba_scan": lambda g: ops.mamba_scan(
+            m(2, 4, 8).requires_grad_(g), m(2, 4, 16), m(2, 4, 16),
+            m(2, 4, 8), m(8, 16), m(8), m(2, 8, 16)),
+        "rglru_scan": lambda g: ops.rglru_scan(
+            m(2, 4, 8).requires_grad_(g), m(2, 4, 8), m(2, 8)),
+    }
+    for name, call in calls.items():
+        item = "A16c" if name.endswith("scan") else "A16d"
+        with pytest.raises(RuntimeError, match=f"{name} has no backward "
+                           f"kernel on the card \\(ROADMAP {item}\\)"):
+            call(True)
+        with torch.no_grad(), pytest.raises(ValueError):
+            call(True)
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
