@@ -40,7 +40,17 @@ Phases, each of which stops the run with a non-zero exit on any error:
      64, S 2048; window None and 48; float32 and bfloat16), at
      granite-moe-1b-a400m's (B 8, H 16, K 8, S 2048, bfloat16), at
      recurrentgemma-9b's (B 4, H 16, K 1, hd 256, S 4096, window 2048,
-     bfloat16) and at a ragged S 1000 with per-row lengths.
+     bfloat16) and at a ragged S 1000 with per-row lengths;
+   * the flash-attention backward kernel (``csrc/flash_attention_bwd.cu``)
+     against ``flash_attention_bwd_ref`` at examples/torch_train_100m.py's
+     shape (B 8, H 12, K 4, S 256, hd 64; bfloat16 and float32), at
+     recurrentgemma-9b's local attention (B 1, H 16, K 1, S 4096, hd 256,
+     window 2048), at a ragged S 1000 with an empty row, and at hd 32 and
+     128 with a window and lengths (checked only), the same bits on a
+     second call; bfloat16 takes the lse of a forward launch made outside
+     the timed call; timed beside its bound and SDPA's backward; and the
+     bf16 forward with its lse output against the forward without it, in
+     turns, at the training shape.
    The two attention kernels are also timed against one PyTorch call
    computing the same function, ``scaled_dot_product_attention`` with
    ``enable_gqa`` (causal, or a boolean mask for windows, lengths and ring
@@ -48,8 +58,8 @@ Phases, each of which stops the run with a non-zero exit on any error:
    medians and ranges of each); int8 rings have no such call.  Flash
    cases print their achieved TFLOP/s and ring decode its split count;
    the build prints the tensor-core instructions (HGMMA, HMMA) that
-   ``cuobjdump -sass`` finds in the flash and paged-extend libraries,
-   each of which must hold HGMMA.
+   ``cuobjdump -sass`` finds in the flash, flash-backward and
+   paged-extend libraries, each of which must hold HGMMA.
 4. serve   — four models through the port's ``Engine``, one after the
    other, each freed before the next: 8 conversations of a few hundred
    tokens, 3 reflection rounds with the suffix [99, 98], paged KV or ring
@@ -134,16 +144,16 @@ Phases, each of which stops the run with a non-zero exit on any error:
    replicas of those two layers on the card and on the CPU (identical
    assignments, and completions apart from their times).
 5. train   — training on the card (``[train]``):
-   * the flash-attention backward kernel (``csrc/flash_attention_bwd.cu``)
-     against ``flash_attention_bwd_ref`` at examples/torch_train_100m.py's
-     shape (B 8, H 12, K 4, S 256, hd 64; bfloat16 and float32), at
-     recurrentgemma-9b's local attention (B 1, H 16, K 1, S 4096, hd 256,
-     window 2048), at a ragged S 1000 with an empty row, and at hd 32 and
-     128 with a window and lengths (checked only), the same bits on a
-     second call; timed beside its bound and SDPA's backward;
    * one float32 loss and gradient of the full-width 2-layer demo on the
      card and on the CPU (loss to 1e-4 relative, gradient cosines at
-     least 0.9999);
+     least 0.9999), and one bfloat16 loss and gradient of the same cut on
+     the card through the flash kernels, against the forward kernel with
+     the plain backward (random init) and against autograd of the plain
+     version (q/k softened by 0.125): every gradient cosine at least
+     0.999; on the random init the forward kernel's output at the first
+     layer's q, k, v against the plain version (2e-2), and, printed, the
+     kernels and a plain step with P rounded to bf16 against plain
+     attention;
    * examples/torch_train_100m.py's run: full-width, full-depth
      reflect_demo_100m, 200 AdamW steps of 8 x 256 in bf16; the loss must
      be finite and fall (its ratio to the start is printed beside the
@@ -239,7 +249,7 @@ def phase_build():
             if line.strip():
                 log(f"[build] {name}: {line.strip()}")
     cuobjdump = Path(cuda_lib._nvcc()).with_name("cuobjdump")
-    for name in ("flash_attention", "paged_extend"):
+    for name in ("flash_attention", "paged_extend", "flash_attention_bwd"):
         sass = subprocess.run(
             [str(cuobjdump), "-sass", str(cuda_lib._library_path(name))],
             capture_output=True, text=True, check=True, timeout=300).stdout
@@ -250,6 +260,11 @@ def phase_build():
         if counts["HGMMA"] == 0:
             raise AssertionError(f"the bf16 {name} kernel has no wgmma "
                                  "(HGMMA)")
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        logs["flash_attention_bwd"])
+    if not spills or any(s != ("0", "0") for s in spills):
+        raise AssertionError("a flash backward kernel spills registers: "
+                             f"{spills}")
 
 
 # -------------------------------------------------------------- 3. kernels
@@ -374,6 +389,28 @@ def interleaved_ms(kern, lib, flush, rounds=10):
             times[fn].append(s.elapsed_time(e))
     return [(float(np.median(t)), min(t), max(t))
             for t in (times[kern], times[lib])]
+
+
+def device_us_by_kernel(fn, calls=5):
+    """Mean device microseconds a call of ``fn`` spends in each kernel it
+    launches (``torch.profiler``, warm L2, ``calls`` calls after one
+    unprofiled): the card's work without the host's time to enqueue it."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = e.cuda_time_total
+        if us > 0:
+            name = re.search(r"\w+_kernel(<\d+>)?", e.key)
+            out[name.group(0) if name else e.key[:60]] = us / calls
+    return out
 
 
 def time_record(kern, plain, flush, nbytes, nops, dtype, err, exps=0,
@@ -784,6 +821,7 @@ def phase_kernels(dev):
     scan_cases(records, dev, flush)
     ring_cases(records, dev, flush)
     flash_cases(records, dev, flush)
+    bwd_cases(records, dev, flush)
     return records
 
 
@@ -2069,8 +2107,10 @@ def bwd_cases(records, dev, flush):
     products, 10 * hd FLOP a valid (query, key) pair, and q/k/v/o/do read
     once and dq/dk/dv written once) and SDPA's backward (autograd of one
     ``scaled_dot_product_attention`` call, the forward excluded) as the
-    library yardstick."""
+    library yardstick.  bfloat16 takes the lse of a forward launch made
+    outside the timed call, as the autograd function keeps it."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels.flash_attention import flash_attention_bwd
     F = torch.nn.functional
     g = torch.Generator().manual_seed(11)
@@ -2081,9 +2121,10 @@ def bwd_cases(records, dev, flush):
             do = mk(B, H, S, hd)
             ln = (None if lengths is None else
                   torch.tensor(lengths, dtype=torch.int32, device=dev))
-            o = ops.flash_attention(q, k, v, window=window, lengths=ln)
-            kern = lambda: flash_attention_bwd(q, k, v, o, do, window=window,
-                                               lengths=ln)
+            o, lse = FA._launch(q, k, v, window, ln,
+                                with_lse=dtype == torch.bfloat16)
+            kern = lambda: flash_attention_bwd(q, k, v, o, do, lse=lse,
+                                               window=window, lengths=ln)
             got = kern()
             again = kern()
             torch.cuda.synchronize()
@@ -2100,7 +2141,7 @@ def bwd_cases(records, dev, flush):
                 ok = (bool(torch.isfinite(x).all()) and err <= tol *
                       max(scale, 1.0) and torch.equal(x, y))
                 errs.append(err)
-                log(f"[train] {tag} flash_attention_bwd B={B} H={H} K={K} "
+                log(f"[kernels] {tag} flash_attention_bwd B={B} H={H} K={K} "
                     f"S={S} hd={hd} {mode} window={window} lengths="
                     f"{lengths is not None} {name}: max_abs_err={err:.3e} "
                     f"(tol {tol} x max(|grad|, 1) = {tol * max(scale, 1):.3e})"
@@ -2137,14 +2178,41 @@ def bwd_cases(records, dev, flush):
                               dtype, max(errs), pairs, lib=lib)
             log_record(f"{tag} flash_attention_bwd {mode} window={window}",
                        rec)
-            log(f"[train] {tag} flash_attention_bwd {mode}: "
+            if bf16:
+                # one cold-L2 call between two events also holds the
+                # wrapper's host enqueue, which at the demo shape exceeds
+                # the device work: the profiler's time is the kernels' own
+                us = device_us_by_kernel(kern)
+                log(f"[kernels] {tag} flash_attention_bwd {mode}: device us "
+                    f"a call (profiler, warm L2, mean of 5) " + ", ".join(
+                        f"{n} {x:.1f}" for n, x in us.items())
+                    + f"; total {sum(us.values()):.1f} us against "
+                    f"{1e3 * rec['ms']:.1f} us between events (cold L2) and "
+                    f"{1e3 * rec['warm_ms']:.1f} us (warm L2)")
+            log(f"[kernels] {tag} flash_attention_bwd {mode}: "
                 f"{rec['ops'] / rec['ms'] / 1e9:.1f} TFLOP/s achieved "
                 f"({rec['ops']} FLOP in {rec['ms']:.4f} ms), SDPA backward "
                 f"{rec['ops'] / rec['library_ms'] / 1e9:.1f} TFLOP/s; bound "
                 f"share {rec['bound_ms'] / rec['ms']:.3f}")
             records[("flash_attention_bwd", tag, mode)] = rec
-            del q, k, v, o, do, qa, ka, va, out, valid
+            if tag == "demo" and bf16:
+                lse_forward_ms(q, k, v, flush)
+            del q, k, v, o, do, qa, ka, va, out, valid, lse
             torch.cuda.empty_cache()
+
+
+def lse_forward_ms(q, k, v, flush):
+    """The bf16 forward launch with its lse output (as the autograd
+    function makes it) against the bare launch (serving, no grad), in
+    turns, cold-L2."""
+    from repro_torch.kernels import flash_attention as FA
+    (ms, lo, hi), (bare, blo, bhi) = interleaved_ms(
+        lambda: FA._launch(q, k, v, None, None, with_lse=True),
+        lambda: FA._launch(q, k, v, None, None), flush)
+    log(f"[kernels] demo flash_attention bfloat16 B={q.shape[0]} "
+        f"H={q.shape[1]} S={q.shape[2]} hd={q.shape[3]}: with lse median "
+        f"{ms:.4f} ms (range {lo:.4f}-{hi:.4f}), without {bare:.4f} ms "
+        f"(range {blo:.4f}-{bhi:.4f}), in turns, cold-L2")
 
 
 def train_card_vs_cpu(cfg):
@@ -2195,6 +2263,179 @@ def train_card_vs_cpu(cfg):
             != 2:
         raise AssertionError("the 2-layer step did not launch the flash "
                              f"forward and backward once a layer: {launches}")
+
+
+class _KernelForwardPlainBackward(torch.autograd.Function):
+    """The flash forward kernel with ``ref.flash_attention_bwd_ref`` as
+    its backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, lengths):
+        from repro_torch.kernels import flash_attention as FA
+        out, _ = FA._launch(q, k, v, window, lengths)
+        ctx.save_for_backward(q, k, v, out, lengths)
+        ctx.window = window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        from repro_torch.kernels import ref
+        q, k, v, out, lengths = ctx.saved_tensors
+        return (*ref.flash_attention_bwd_ref(
+            q, k, v, out, do, window=ctx.window, lengths=lengths), None, None)
+
+
+def kernel_forward_plain_backward(q, k, v, window=None, lengths=None):
+    return _KernelForwardPlainBackward.apply(q, k, v, window, lengths)
+
+
+def plain_attention(q, k, v, window=None, lengths=None):
+    """Autograd of the flash kernels' plain version."""
+    from repro_torch.kernels import ref
+    return ref.flash_attention_ref(q, k, v, window=window, lengths=lengths)
+
+
+def plain_bf16_p(q, k, v, window=None, lengths=None):
+    """Plain attention in float32 under autograd whose P V product takes
+    P as the bf16 forward kernel does (``flash_tc::softmax_tile``): p =
+    exp(s - the row's max) rounded to bf16 (its gradient passed through),
+    divided after the product by the row's sum of the unrounded p.  The
+    kernel's running max makes its roundings differ in detail, not in
+    size; an empty row gives zeros."""
+    B, H, S, hd = q.shape
+    K = k.shape[1]
+    valid = flash_valid(S, window, lengths, q.device)[:, None, None]
+    s = torch.einsum("bkgid,bkjd->bkgij",
+                     q.float().reshape(B, K, H // K, S, hd),
+                     k.float()) * hd ** -0.5
+    s = s.masked_fill(~valid, -torch.inf)
+    m = s.amax(-1, keepdim=True).detach()
+    p = torch.exp(s - torch.where(torch.isfinite(m), m, torch.zeros_like(m)))
+    o = torch.einsum("bkgij,bkjd->bkgid", p.to(torch.bfloat16).float(),
+                     v.float()) / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    return o.reshape(B, H, S, hd).to(q.dtype)
+
+
+def train_bf16_kernels_vs_plain(cfg, dev):
+    """One bfloat16 loss and gradient of the 2-layer full-width cut on the
+    card, one batch, through the flash kernels (the forward with lse, the
+    tensor-core backward) and through three plain counterparts: the
+    forward kernel with the plain backward, autograd of the plain version
+    (``ref.flash_attention_ref`` on CUDA tensors), and that with P
+    rounded to bf16 before P V, as the forward kernel rounds it
+    (``plain_bf16_p``).  Gated, every gradient tensor's cosine at least
+    0.999: on the reference's random init, whose attention is near
+    one-hot, the kernels against the kernel forward with the plain
+    backward (the backward kernel's own bf16 P and dS); with q/k softened
+    by 0.125, as ``check_logits`` does, the kernels against plain
+    attention.  Also gated on the raw init: the forward kernel's output
+    at the first layer's own q, k, v against the plain version (2e-2 of
+    max(|out|, 1)).  Printed: on the raw init the kernels and the bf16-P
+    witness against plain attention, the two gaps the forward's bf16 P
+    makes there (PERF.md)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.lm_data import lm_batches
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import attention as A
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.loop import (grads_of, make_loss_fn, params_of,
+                                        to_device, trainable)
+
+    cfg2 = cut(cfg, 2)
+    tcfg = TrainConfig(remat=False)
+    batch = next(lm_batches(256, 8, 1))
+    init = build_model(cfg2).init(torch.Generator().manual_seed(3)) \
+        .state_dict()
+    kern = A.ops.flash_attention
+    first = []  # the first layer's q, k, v on the raw init
+
+    def kernels(q, k, v, window=None, lengths=None):
+        if not first:
+            first.append((q.detach().clone(), k.detach().clone(),
+                          v.detach().clone(), window, lengths))
+        return kern(q, k, v, window=window, lengths=lengths)
+
+    ways = {"kernels": kernels,
+            "kernel forward, plain backward": kernel_forward_plain_backward,
+            "plain": plain_attention,
+            "plain, bf16 P": plain_bf16_p}
+
+    def step(state, way):
+        A.ops.flash_attention = ways[way]
+        try:
+            m = build_model(cfg2)
+            m.load_state_dict(state)
+            m.to(dev)
+            ops.reset_launches()
+            with trainable(m):
+                loss, _ = make_loss_fn(m, cfg2, tcfg)(to_device(batch, dev))
+                grads = grads_of(loss, params_of(m))
+            out = (float(loss.detach()), {k: g.detach().double().cpu()
+                                          for k, g in grads.items()},
+                   dict(ops.LAUNCHES))
+            del m, grads, loss
+            return out
+        finally:
+            A.ops.flash_attention = kern
+
+    def worst(a, b):
+        cos = {k: float((a[1][k] * b[1][k]).sum() / (a[1][k].norm()
+                        * b[1][k].norm()).clamp_min(1e-300)) for k in a[1]}
+        k = min(cos, key=cos.get)
+        return cos[k], k
+
+    soft = scaled(init, soften=0.125)
+    runs = {("init", w): step(init, w) for w in ways}
+    runs.update({("softened", w): step(soft, w)
+                 for w in ("kernels", "plain")})
+    checks = []
+    for s, way, other, gated in (
+            ("init", "kernels", "kernel forward, plain backward", True),
+            ("softened", "kernels", "plain", True),
+            ("init", "kernels", "plain", False),
+            ("init", "plain, bf16 P", "plain", False),
+            ("init", "kernels", "plain, bf16 P", False)):
+        a, b = runs[(s, way)], runs[(s, other)]
+        cos, leaf = worst(a, b)
+        log(f"[train] {cfg.name}, 2 layers bf16, one batch of 8 x 256 on "
+            f"the card, {s} weights: {way} against {other}: loss "
+            f"{a[0]:.6f} / {b[0]:.6f} (relative "
+            f"{abs(a[0] - b[0]) / abs(b[0]):.2e}); smallest gradient "
+            f"cosine {cos:.6f} ({leaf}"
+            f"{', tol 0.999' if gated else ', not gated'}) over "
+            f"{len(a[1])} tensors")
+        if gated:
+            checks.append(cos >= 0.999)
+    q, k, v, window, lengths = first[0]
+    with torch.no_grad():
+        got = FA._launch(q, k, v, window, lengths)[0].float()
+        want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                       window=window, lengths=lengths)
+        witness = plain_bf16_p(q.float(), k.float(), v.float(), window,
+                               lengths)
+    scale = max(float(want.abs().max()), 1.0)
+    err = float((got - want).abs().max())
+    checks.append(bool(torch.isfinite(got).all()) and err <= 2e-2 * scale)
+    log(f"[train] the forward kernel at the first layer's q, k, v "
+        f"{list(q.shape)} on the raw init: max_abs_err {err:.3e} against "
+        f"the plain version (tol 2e-2 x max(|out|, 1) = {2e-2 * scale:.3e}),"
+        f" {float((got - witness).abs().max()):.3e} against it with bf16 "
+        f"P; the bf16-P witness against the plain version "
+        f"{float((witness - want).abs().max()):.3e}")
+    launches = runs[("init", "kernels")][2]
+    log(f"[train] bf16 2-layer step launches: kernels {launches}, kernel "
+        f"forward / plain backward "
+        f"{runs[('init', 'kernel forward, plain backward')][2]}")
+    if not all(checks):
+        raise AssertionError("the bf16 step through the kernels disagrees "
+                             "with its plain counterpart on the card")
+    if launches["flash_attention"] != 2 or \
+            launches["flash_attention_bwd"] != 2 or \
+            runs[("init", "plain")][2]["flash_attention_bwd"] != 0:
+        raise AssertionError("the bf16 2-layer step did not launch the "
+                             f"flash kernels once a layer: {launches}")
+    release()
 
 
 def fitted_reflect_serve(cfg, dev):
@@ -2252,26 +2493,24 @@ def fitted_reflect_serve(cfg, dev):
 
 
 def phase_train(dev):
-    """Training on the card: the backward kernel's records, the card's
-    step against the CPU's, the full 12-layer run of
+    """Training on the card: the card's steps against the CPU's and
+    against plain attention, the full 12-layer run of
     ``examples/torch_train_100m.py`` (the main path of the backward
     kernel, whose launches are counted from it), C2 on port-fitted
     weights (``quick_fit_ramp`` on the card, then ``check_engine``), and
     a speculative serve on ``quick_fit_reflect`` weights.  Returns the
-    records and the train run's launches."""
+    train run's launches.  The backward kernel's records are taken in
+    phase 3 with the other kernels' (``bwd_cases``)."""
     import torch_train_100m as example
     from repro_torch.kernels import ops
     from repro_torch.models.registry import get_config
     from repro_torch.train.quick_fit import _ramp_margin, quick_fit_ramp
     from repro_torch.launch.train import build
-    records = {}
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev).zero_
-    with timed("train kernels"):
-        bwd_cases(records, dev, flush)
-    del flush
     cfg = get_config("reflect_demo_100m")
     with timed("train card vs cpu"):
         train_card_vs_cpu(cfg)
+    with timed("train bf16 kernels vs plain"):
+        train_bf16_kernels_vs_plain(cfg, dev)
     with timed("train full run"):
         from repro_torch.train import checkpoint as ckpt
         ops.reset_launches()
@@ -2324,7 +2563,7 @@ def phase_train(dev):
         check_engine(cut(cfg, 2), state, dev, None, label="port-fitted")
     with timed("train fitted speculation"):
         fitted_reflect_serve(cfg, dev)
-    return records, launches
+    return launches
 
 
 def ring_reread(dev):
@@ -2371,8 +2610,7 @@ def main() -> int:
     with timed("serve"):
         runs = phase_serve(dev)
     with timed("train"):
-        train_records, runs["torch_train_100m"] = phase_train(dev)
-    records.update(train_records)
+        runs["torch_train_100m"] = phase_train(dev)
     ring_reread(dev)
     kernels = []
     # each kernel's record at one shape its model's runs give it: paged

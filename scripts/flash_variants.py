@@ -63,8 +63,8 @@ def call(fn, q, k, v, window, lengths):
     K = k.shape[1]
     out = torch.empty_like(q)
     err = fn(1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             0 if lengths is None else lengths.data_ptr(), out.data_ptr(), B,
-             K, H // K, hd, S, window or 0,
+             0 if lengths is None else lengths.data_ptr(), out.data_ptr(), 0,
+             B, K, H // K, hd, S, window or 0,
              torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"variant launch failed: CUDA error {err}")

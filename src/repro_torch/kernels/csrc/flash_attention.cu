@@ -11,6 +11,10 @@
 //   k/v      [B, K, S, HD]   same type as q
 //   lengths  [B] int32       optional: token t is attendable iff t < len
 //   out      [B, H, S, HD]   type of q
+//   lse      [B, H, S] f32   optional, bf16 only: each row's log-sum-exp of
+//                            its scaled scores (natural log; +inf for a row
+//                            with no attendable key), which the autograd
+//                            forward keeps for flash_attention_bwd.cu
 //
 // Query token p attends tokens t <= p (and t > p - window when a window is
 // set, and t < lengths[b] when lengths are given).  It runs in every
@@ -118,12 +122,13 @@ cudaError_t by_head_dim_tc(int hd, const flash_tc::Args& a,
 }  // namespace
 
 // dtype: 0 = f32, 1 = bf16 (q, k, v and out alike).  lengths may be null.
-// window <= 0 means no window.  Returns the cudaError_t of the launch
-// (0 = success).
+// lse may be null, and must be with dtype 0 (the fp32 backward computes its
+// own).  window <= 0 means no window.  Returns the cudaError_t of the
+// launch (0 = success).
 extern "C" int flash_attention(int dtype, const void* q, const void* k,
                                const void* v, const void* lengths,
-                               void* out, int B, int K, int G, int hd, int S,
-                               int window, void* stream) {
+                               void* out, void* lse, int B, int K, int G,
+                               int hd, int S, int window, void* stream) {
   const paged::Args a{q, k, v, nullptr, nullptr, nullptr, nullptr, out,
                       B, S, K, G, window,
                       // q, out [B, K * G, S, HD]: row (b, token, h, g)
@@ -132,7 +137,9 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k,
   const paged::Dense w{static_cast<const int32_t*>(lengths), S};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return by_head_dim<float>(hd, a, w, st);
+    case 0:
+      if (lse != nullptr) return cudaErrorInvalidValue;
+      return by_head_dim<float>(hd, a, w, st);
     case 1:
       return by_head_dim_tc(
           hd,
@@ -140,8 +147,8 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k,
                          static_cast<const __nv_bfloat16*>(k),
                          static_cast<const __nv_bfloat16*>(v),
                          static_cast<const int32_t*>(lengths),
-                         static_cast<__nv_bfloat16*>(out), B, K, G, S,
-                         window},
+                         static_cast<__nv_bfloat16*>(out),
+                         static_cast<float*>(lse), B, K, G, S, window},
           st);
     default: return cudaErrorInvalidValue;
   }

@@ -37,6 +37,15 @@
 // MN-major one (V: the reduction runs along the keys, tnspB = 1), by the
 // descriptors' two strides.  A row with no attendable key is zeros.
 //
+// With a non-null Args::lse the kernel also stores each query row's
+// log-sum-exp of its scaled scores, lse = log sum_t exp(q.k_t / sqrt(HD))
+// over the keys it attends, in natural-log units (torch.logsumexp's), as
+// float [B, H, S]; a row with no attendable key stores +inf.  It comes from
+// the running max and sum the softmax keeps anyway, after their final
+// shuffles: the flash backward (flash_attention_bwd.cu) takes P = exp(s -
+// lse) from it.  The serving and no-grad launches pass null and store
+// nothing more.
+//
 // The bf16 paged extend kernel (paged_extend.cu) runs the same tile on
 // key tiles gathered from a page table: it shares the loader
 // (chunk_of, load_rows), the descriptors and wgmma wrappers, and the
@@ -63,6 +72,7 @@ struct Args {
   const __nv_bfloat16* v;  // [B, K, S, HD]
   const int32_t* lengths;  // [B] valid tokens of each sequence, or null
   __nv_bfloat16* out;      // [B, H, S, HD]
+  float* lse;              // [B, H, S] each row's log-sum-exp, or null
   int B, K, G, S, window;  // window <= 0: no window
 };
 
@@ -249,7 +259,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // 256 bytes): s [BN / 2] fp32 in the accumulator layout (thread t holds
 // rows 16 (t / 32) + (t % 32) / 4 and 8 more, two columns of every 8), Q
 // [64, HD] at qw_s and K [BN, HD] at k_s, both K-major core matrices.
-template <int HD, int BN>
+// With WAIT false the products are only issued: the caller commits, waits
+// and fences s (the backward issues two products before one wait).
+template <int HD, int BN, bool WAIT = true>
 __device__ __forceinline__ void score_tile(float* s, uint32_t qw_s,
                                            uint32_t k_s) {
   constexpr uint32_t CM = 128, ROW8 = HD / 8 * CM;
@@ -263,9 +275,11 @@ __device__ __forceinline__ void score_tile(float* s, uint32_t qw_s,
     else
       mma_ss_n32(s, da, db, kk > 0);
   }
-  wg_commit();
-  wg_wait<0>();
-  fence_regs<BN / 2>(s);
+  if constexpr (WAIT) {
+    wg_commit();
+    wg_wait<0>();
+    fence_regs<BN / 2>(s);
+  }
 }
 
 // Online softmax of one masked score tile in the log2 domain, p = 2^(s *
@@ -314,26 +328,31 @@ __device__ __forceinline__ void softmax_tile(float* s, float* o, float* m,
 
 // O += P V over a tile's BN keys in steps of 16 (two core matrices along
 // the keys, 2 * ROW8 bytes), in pieces of 64 columns of HD: P from
-// registers, V [BN, HD] at v_s read MN-major (tnspB = 1).
-template <int HD, int BN>
+// registers, V [BN, HD] at v_s read MN-major (tnspB = 1).  With NC < HD,
+// o [NC / 2] takes the NC columns from v_s on (the backward's dk / dv
+// column halves); WAIT as for score_tile (p must then stay unchanged until
+// the caller's wait).
+template <int HD, int BN, int NC = HD, bool WAIT = true>
 __device__ __forceinline__ void pv_tile(float* o, const uint32_t (*p)[4],
                                         uint32_t v_s) {
   constexpr uint32_t CM = 128, ROW8 = HD / 8 * CM;
   wg_fence();
 #pragma unroll
   for (int kk = 0; kk < BN / 16; ++kk) {
-    if constexpr (HD == 32) {
+    if constexpr (NC == 32) {
       mma_rs_n32(o, p[kk], desc(v_s + 2 * ROW8 * kk, ROW8, CM));
     } else {
 #pragma unroll
-      for (int pc = 0; pc < HD / 64; ++pc)
+      for (int pc = 0; pc < NC / 64; ++pc)
         mma_rs_n64(o + 32 * pc, p[kk],
                    desc(v_s + 2 * ROW8 * kk + 8 * CM * pc, ROW8, CM));
     }
   }
-  wg_commit();
-  wg_wait<0>();
-  fence_regs<HD / 2>(o);
+  if constexpr (WAIT) {
+    wg_commit();
+    wg_wait<0>();
+    fence_regs<NC / 2>(o);
+  }
 }
 
 template <int HD, int WG>
@@ -437,6 +456,10 @@ __global__ void __launch_bounds__(kWG * WG)
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const int row = r0 + 8 * i;
     if (row >= a.S) continue;
+    if (a.lse != nullptr && lane % 4 == 0)  // log2 units back to natural
+      a.lse[q_off / HD + row] =
+          l[i] > 0.f ? (m[i] + log2f(l[i])) * 0.6931471805599453f
+                     : INFINITY;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
     uint32_t* dst = reinterpret_cast<uint32_t*>(
         a.out + q_off + static_cast<size_t>(row) * HD + c0);

@@ -47,10 +47,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #                part, B, [Sx,] K, G, hd, ps, NP, window, splits, stream)
 #   decode_attention: (dtype, q, k, v, ks, kz, vs, tok, pos, out, part,
 #                B, K, G, hd, C, window, splits, stream)
-#   flash_attention:  (dtype, q, k, v, lengths, out, B, K, G, hd, S,
+#   flash_attention:  (dtype, q, k, v, lengths, out, lse, B, K, G, hd, S,
 #                window, stream)
 #   flash_attention_bwd: (dtype, q, k, v, o, dout, lengths, lse, delta, dq,
-#                dk, dv, B, K, G, hd, S, window, stream)
+#                dk, dv, part, B, K, G, hd, S, window, splits, stream)
 #   mamba_scan: (x_dtype, dt, Bm, Cm, x, A, Dsk, h0, y, h, B, S, D, N,
 #                stream)
 #   rglru_scan: (a, b, h0, hs, h, B, S, W, stream)
@@ -58,8 +58,8 @@ _ARGTYPES = {
     "paged_decode": [_I] + [_P] * 10 + [_I] * 8 + [_P],
     "paged_extend": [_I] + [_P] * 10 + [_I] * 9 + [_P],
     "decode_attention": [_I] + [_P] * 10 + [_I] * 7 + [_P],
-    "flash_attention": [_I] + [_P] * 5 + [_I] * 6 + [_P],
-    "flash_attention_bwd": [_I] + [_P] * 11 + [_I] * 6 + [_P],
+    "flash_attention": [_I] + [_P] * 6 + [_I] * 6 + [_P],
+    "flash_attention_bwd": [_I] + [_P] * 12 + [_I] * 7 + [_P],
     "mamba_scan": [_I] + [_P] * 9 + [_I] * 4 + [_P],
     "rglru_scan": [_P] * 5 + [_I] * 3 + [_P],
 }
@@ -199,6 +199,24 @@ def partials_shape(B: int, K: int, rows: int, hd: int, splits: int) -> tuple:
 
 TC_CODES = (1, 3)      # bf16 q: paged extend runs on the tensor cores
 TC_ROWS = 64           # query rows of a warpgroup (wgmma's M)
+
+
+def bwd_splits(B: int, K: int, S: int, G: int) -> int:
+    """Head groups NS the G query heads of a kv head are split into by
+    the bf16 flash backward's dk/dv kernel (``flash_attention_bwd.cu``),
+    one block each per (sequence, kv head, key tile of ``TC_ROWS``, the
+    kernel's ``kKeys``).  One group while the B * K * tiles blocks reach
+    half the SMs (the demo's training shape, 128 blocks: NS 1 and 3 ran
+    alike on an H100, and one group saves a launch and the partials);
+    below that, the least divisor
+    of G (groups of equal size) that gives at least three blocks per SM,
+    or G (recurrentgemma-9b's S 4096, K 1: 64 blocks, NS 8).  Each group
+    writes float32 partial dk / dv, added in group order."""
+    blocks = B * K * -(-S // TC_ROWS)
+    if 2 * blocks >= SMS:
+        return 1
+    return next(d for d in range(1, G + 1)
+                if G % d == 0 and (blocks * d >= 3 * SMS or d == G))
 
 
 def key_tile(hd: int) -> int:

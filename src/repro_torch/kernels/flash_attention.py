@@ -26,9 +26,14 @@ a CUDA tensor that needs a gradient (grad mode on and q, k or v requiring
 one) the call goes through ``_FlashAttention``, an autograd function whose
 forward is the same kernel launch and whose backward launches the
 hand-written ``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd``;
-plain version ``ref.flash_attention_bwd_ref``).  Without a gradient the
-call is the bare launch, so serving steps and their CUDA-graph captures
-are unchanged.
+plain version ``ref.flash_attention_bwd_ref``).  In bfloat16 the forward
+launch also stores each row's log-sum-exp (``lse``, float32 [B, H, S],
+natural log; plain version ``ref.flash_attention_ref(...,
+return_lse=True)``), which the backward's tensor-core body (wgmma: a dk/dv
+kernel a key tile and head group, a dq kernel a query tile) takes P from;
+float32 keeps the backward's CUDA-core body, which computes its own.
+Without a gradient the call is the bare launch with no lse, so serving
+steps and their CUDA-graph captures are unchanged.
 """
 from __future__ import annotations
 
@@ -65,66 +70,97 @@ def _check(q, k, v, lengths, window, extra=()) -> int:
     if lengths is not None and (lengths.dtype != torch.int32
                                 or lengths.shape != (B,)):
         raise ValueError("lengths must be int32 [B]")
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("k and v must be 16-byte aligned")
+    # the kernels read q, k, v (and the backward o and its gradient) in
+    # 16-byte chunks
+    if any(t.data_ptr() % 16 for t in (q, k, v, *extra)):
+        raise ValueError("q, k, v, o and its gradient must be 16-byte "
+                         "aligned")
     if window is not None and window <= 0:
         raise ValueError("window must be positive")
     return code
 
 
-def _launch(q, k, v, window, lengths) -> torch.Tensor:
+def _launch(q, k, v, window, lengths, with_lse=False):
+    """The forward kernel: (out, lse), lse float32 [B, H, S] when
+    ``with_lse`` (bfloat16 only), else None."""
     code = _check(q, k, v, lengths, window)
+    if with_lse and code != 1:
+        raise ValueError("the forward kernel stores lse in bfloat16 only")
     B, H, S, hd = q.shape
     K = k.shape[1]
     out = torch.empty_like(q)
+    lse = (torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+           if with_lse else None)
     cuda_lib.launch(
         "flash_attention", code, q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), cuda_lib.pointer(lengths), out.data_ptr(), B, K,
-        H // K, hd, S, window or 0,
+        v.data_ptr(), cuda_lib.pointer(lengths), out.data_ptr(),
+        cuda_lib.pointer(lse), B, K, H // K, hd, S, window or 0,
         torch.cuda.current_stream(q.device).cuda_stream)
-    return out
+    return out, lse
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, *,
+                        lse: Optional[torch.Tensor] = None,
                         window: Optional[int] = None,
                         lengths: Optional[torch.Tensor] = None):
     """(dq, dk, dv) of ``flash_attention(q, k, v)`` at output ``o`` and
     output gradient ``do``, in the inputs' dtype: the kernel on a CUDA
-    tensor, ``ref.flash_attention_bwd_ref`` on a CPU tensor."""
+    tensor, ``ref.flash_attention_bwd_ref`` on a CPU tensor (which
+    recomputes every row's lse).  On the card bfloat16 takes the forward's
+    ``lse`` (float32 [B, H, S], ``_launch(..., with_lse=True)``) and
+    raises without it; float32 takes none (its pre-pass computes it)."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, do, window=window,
                                        lengths=lengths)
     code = _check(q, k, v, lengths, window, extra=(o, do))
     B, H, S, hd = q.shape
     K = k.shape[1]
-    lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
+    if code == 1:
+        if lse is None:
+            raise ValueError("the bfloat16 flash backward takes the "
+                             "forward's lse (_launch(..., with_lse=True))")
+        cuda_lib.check_operands("flash", [lse], q)
+        if lse.dtype != torch.float32 or lse.shape != (B, H, S):
+            raise ValueError(f"lse must be float32 {[B, H, S]}")
+        splits = cuda_lib.bwd_splits(B, K, S, H // K)
+    else:
+        if lse is not None:
+            raise ValueError("the float32 flash backward computes its own "
+                             "lse and takes none")
+        lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+        splits = 1
+    delta = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+    part = (torch.empty(splits, 2, B, K, S, hd, dtype=torch.float32,
+                        device=q.device) if splits > 1 else None)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     cuda_lib.launch(
         "flash_attention_bwd", code, q.data_ptr(), k.data_ptr(),
         v.data_ptr(), o.data_ptr(), do.data_ptr(), cuda_lib.pointer(lengths),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), B, K, H // K, hd, S, window or 0,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        dv.data_ptr(), cuda_lib.pointer(part), B, K, H // K, hd, S,
+        window or 0, splits, torch.cuda.current_stream(q.device).cuda_stream)
     return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The forward kernel, differentiated by the backward kernel."""
+    """The forward kernel (storing lse in bfloat16), differentiated by the
+    backward kernel."""
 
     @staticmethod
     def forward(ctx, q, k, v, window, lengths):
-        out = _launch(q, k, v, window, lengths)
-        ctx.save_for_backward(q, k, v, out, lengths)
+        out, lse = _launch(q, k, v, window, lengths,
+                           with_lse=q.dtype == torch.bfloat16)
+        ctx.save_for_backward(q, k, v, out, lse, lengths)
         ctx.window = window
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out, lengths = ctx.saved_tensors
+        q, k, v, out, lse, lengths = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, do.contiguous(),
-                                         window=ctx.window, lengths=lengths)
+                                         lse=lse, window=ctx.window,
+                                         lengths=lengths)
         return dq, dk, dv, None, None
 
 
@@ -136,4 +172,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, window, lengths)
-    return _launch(q, k, v, window, lengths)
+    return _launch(q, k, v, window, lengths)[0]

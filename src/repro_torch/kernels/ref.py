@@ -74,22 +74,42 @@ def _in_window(t, pos, window):
     return ok if window is None else ok & (t > pos - window)
 
 
-def flash_attention_ref(q, k, v, *, window: Optional[int] = None,
-                        lengths: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
-    """q: [B,H,S,hd]; k/v: [B,K,S,hd] -> [B,H,S,hd].  Causal: token i
-    attends j <= i (and j > i - window); with ``lengths`` ([B]) also only
-    j < lengths[b] — the mask of the JAX ``attention_full_qkv``."""
-    B, H, S, hd = q.shape
-    K = k.shape[1]
-    i = torch.arange(S, device=q.device)
+def _flash_valid(S, window, lengths, device) -> torch.Tensor:
+    """[B or 1, S, S] bool: may query i attend key j."""
+    i = torch.arange(S, device=device)
     valid = _in_window(i[None, :], i[:, None], window)[None]  # [1,S,S]
     if lengths is not None:
         valid = valid & (i[None, None, :] < lengths.long()[:, None, None])
+    return valid
+
+
+def flash_attention_ref(q, k, v, *, window: Optional[int] = None,
+                        lengths: Optional[torch.Tensor] = None,
+                        return_lse: bool = False):
+    """q: [B,H,S,hd]; k/v: [B,K,S,hd] -> [B,H,S,hd].  Causal: token i
+    attends j <= i (and j > i - window); with ``lengths`` ([B]) also only
+    j < lengths[b] — the mask of the JAX ``attention_full_qkv``.  With
+    ``return_lse``, returns (out, lse): lse float32 [B,H,S] is each row's
+    log-sum-exp of its scaled scores q.k / sqrt(hd) over its valid keys,
+    in natural-log units (``torch.logsumexp``'s), ``+inf`` for a row with
+    none — the plain version of the bf16 kernel's lse output, which the
+    backward kernel takes P from."""
+    B, H, S, hd = q.shape
+    K = k.shape[1]
+    valid = _flash_valid(S, window, lengths, q.device)
     q5 = q.reshape(B, K, H // K, S, hd).permute(0, 3, 1, 2, 4)
     o = masked_attention(q5, k.transpose(1, 2), v.transpose(1, 2),
                          valid.expand(B, S, S))
-    return o.permute(0, 2, 3, 1, 4).reshape(B, H, S, hd)
+    o = o.permute(0, 2, 3, 1, 4).reshape(B, H, S, hd)
+    if not return_lse:
+        return o
+    s = torch.einsum("bkgid,bkjd->bkgij",
+                     q.float().reshape(B, K, H // K, S, hd),
+                     k.float()) * hd ** -0.5
+    valid = valid[:, None, None]                             # [B|1,1,1,S,S]
+    lse = torch.logsumexp(s.masked_fill(~valid, -torch.inf), dim=-1)
+    lse = lse.masked_fill(~valid.any(-1), torch.inf)
+    return o, lse.reshape(B, H, S)
 
 
 def flash_attention_bwd_ref(q, k, v, o, do, *, window: Optional[int] = None,
@@ -105,11 +125,7 @@ def flash_attention_bwd_ref(q, k, v, o, do, *, window: Optional[int] = None,
     B, H, S, hd = q.shape
     K = k.shape[1]
     scale = hd ** -0.5
-    i = torch.arange(S, device=q.device)
-    valid = _in_window(i[None, :], i[:, None], window)[None]  # [1,S,S]
-    if lengths is not None:
-        valid = valid & (i[None, None, :] < lengths.long()[:, None, None])
-    valid = valid[:, None, None]                             # [B|1,1,1,S,S]
+    valid = _flash_valid(S, window, lengths, q.device)[:, None, None]
     qf = q.float().reshape(B, K, H // K, S, hd)
     dof = do.float().reshape(B, K, H // K, S, hd)
     kf, vf = k.float(), v.float()

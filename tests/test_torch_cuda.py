@@ -8,7 +8,8 @@ Each kernel is held against its plain PyTorch version on the same inputs
 (float32 to 1e-4, bfloat16 against the plain version in float32 on the
 same rounded inputs to 2e-2, int8 caches to 1e-4; the scans to 1e-4, and
 the RG-LRU scan bit for bit), the bf16 flash body and the split ring and
-page walks give bit-equal results from call to call (the paged kernels
+page walks give bit-equal results from call to call (the bf16 flash forward
+also with its lse output, which the bf16 backward needs) (the paged kernels
 also at forced split counts at the split walk's edges), the wrappers
 refuse what the kernels do not take, and small engine and model runs on
 the card launch the kernels of their models' paths.  Engines whose steps
@@ -1068,6 +1069,39 @@ def test_hot_nan_row_on_captured_step(dev, quarantine):
 
 # ------------------------------------------------------------- training
 
+@pytest.mark.parametrize("B,H,K,S,hd,window,lengths", [
+    (2, 6, 2, 97, 64, None, None),
+    (1, 16, 1, 300, 256, 100, None),
+    (3, 4, 4, 77, 128, 2048, [77, 0, 30]),    # an empty row
+    (2, 8, 2, 200, 32, 20, [200, 61]),        # rows past the window's reach
+])
+def test_flash_forward_lse(dev, B, H, K, S, hd, window, lengths):
+    """The bf16 forward with an lse pointer gives the output of the launch
+    without one, bit for bit, and each row's lse of the plain version
+    (``flash_attention_ref(..., return_lse=True)``) to 1e-3 absolute (fp32
+    sums in another order, ``ex2.approx``), +inf for a row with no key."""
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v = (t.to(dev) for t in _flash_inputs(torch.bfloat16, B, H, K, S,
+                                                 hd, seed=S + hd))
+    lens = (None if lengths is None
+            else torch.tensor(lengths, dtype=torch.int32, device=dev))
+    bare, none = FA._launch(q, k, v, window, lens)
+    out, lse = FA._launch(q, k, v, window, lens, with_lse=True)
+    assert none is None and torch.equal(out, bare)
+    _, want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                      window=window, lengths=lens,
+                                      return_lse=True)
+    assert torch.equal(torch.isinf(lse), torch.isinf(want))
+    assert bool((lse[torch.isinf(want)] > 0).all())
+    fin = torch.isfinite(want)
+    assert float((lse[fin] - want[fin]).abs().max()) <= 1e-3
+    if lengths is not None and 0 in lengths:
+        assert bool(torch.isinf(lse[lengths.index(0)]).all())
+    with pytest.raises(ValueError, match="bfloat16 only"):
+        FA._launch(q.float(), k.float(), v.float(), window, lens,
+                   with_lse=True)
+
+
 @pytest.mark.parametrize("act", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", [32, 64, 128, 256])
 @pytest.mark.parametrize("B,H,K,S,window,lengths", [
@@ -1075,6 +1109,7 @@ def test_hot_nan_row_on_captured_step(dev, quarantine):
     (2, 4, 1, 130, 40, None),             # window below a tile's reach
     (3, 4, 4, 77, None, [77, 0, 30]),     # G 1, an empty row
     (2, 8, 2, 200, 50, [200, 61]),        # window and ragged lengths
+    (1, 8, 1, 300, 100, [290]),           # K 1, G 8: bf16 head groups
 ])
 def test_flash_backward_matches_plain(dev, act, hd, B, H, K, S, window,
                                       lengths):
@@ -1082,7 +1117,10 @@ def test_flash_backward_matches_plain(dev, act, hd, B, H, K, S, window,
     ``flash_attention_bwd_ref`` in float32 on the same inputs: 1e-4
     (float32) or 2e-2 (bfloat16, its outputs rounded) of the largest
     gradient magnitude; zero gradients for an empty row; two calls
-    bit-equal."""
+    bit-equal.  bfloat16 takes the forward launch's lse and, at K 1 and
+    G 8, splits the heads into groups (``cuda_lib.bwd_splits`` > 1)."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels.flash_attention import flash_attention_bwd
     q, k, v = (t.to(dev) for t in _flash_inputs(act, B, H, K, S, hd,
                                                  seed=S + hd + H))
@@ -1090,9 +1128,14 @@ def test_flash_backward_matches_plain(dev, act, hd, B, H, K, S, window,
         .to(dev, act)
     lens = (None if lengths is None
             else torch.tensor(lengths, dtype=torch.int32, device=dev))
-    o = ops.flash_attention(q, k, v, window=window, lengths=lens)
-    got = flash_attention_bwd(q, k, v, o, do, window=window, lengths=lens)
-    again = flash_attention_bwd(q, k, v, o, do, window=window, lengths=lens)
+    o, lse = FA._launch(q, k, v, window, lens,
+                        with_lse=act == torch.bfloat16)
+    if K == 1 and act == torch.bfloat16:
+        assert cuda_lib.bwd_splits(B, K, S, H // K) > 1
+    got = flash_attention_bwd(q, k, v, o, do, lse=lse, window=window,
+                              lengths=lens)
+    again = flash_attention_bwd(q, k, v, o, do, lse=lse, window=window,
+                                lengths=lens)
     want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
                                        o.float(), do.float(), window=window,
                                        lengths=lens)
@@ -1129,6 +1172,45 @@ def test_flash_autograd_on_card_launches_the_backward(dev):
         out = ops.flash_attention(qa, ka, va)
     assert out.grad_fn is None
     assert cuda_lib.LAUNCHES["flash_attention_bwd"] == 1
+
+
+def test_flash_backward_lse_by_dtype(dev):
+    """bfloat16 on the card needs the forward's lse and float32 takes
+    none, and an operand off a 16-byte boundary is refused, each with
+    ValueError and nothing launched; the autograd
+    function in bfloat16 launches the forward (with lse) and the backward
+    once each and gives the plain version's gradients to 2e-2."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    q, k, v = (t.to(dev) for t in _flash_inputs(torch.bfloat16, 2, 6, 2, 64,
+                                                 64, seed=5))
+    do = torch.randn_like(q)
+    o = ops.flash_attention(q, k, v)
+    cuda_lib.reset_launches()
+    with pytest.raises(ValueError, match="takes the forward's lse"):
+        flash_attention_bwd(q, k, v, o, do)
+    f = [t.float() for t in (q, k, v, o, do)]
+    with pytest.raises(ValueError, match="takes none"):
+        flash_attention_bwd(*f, lse=torch.zeros(2, 6, 64, device=dev))
+    # the D pass reads o and its gradient in 16-byte chunks
+    shifted = torch.empty(do.numel() + 1, dtype=do.dtype,
+                          device=dev)[1:].view(do.shape)
+    shifted.copy_(do)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_bwd(q, k, v, o, shifted,
+                            lse=torch.zeros(2, 6, 64, device=dev))
+    assert cuda_lib.LAUNCHES["flash_attention_bwd"] == 0
+    qa, ka, va = (t.clone().requires_grad_(True) for t in (q, k, v))
+    ops.flash_attention(qa, ka, va, window=16).backward(do)
+    assert cuda_lib.LAUNCHES["flash_attention"] == 1
+    assert cuda_lib.LAUNCHES["flash_attention_bwd"] == 1
+    want = ref.flash_attention_bwd_ref(
+        q.float(), k.float(), v.float(),
+        ops.flash_attention(q, k, v, window=16).float(), do.float(),
+        window=16)
+    for a, w in zip((qa, ka, va), want):
+        assert float((a.grad.float() - w).abs().max()) <= \
+            2e-2 * max(float(w.abs().max()), 1.0)
 
 
 def test_kernels_without_backward_refuse_gradients_on_card(dev):

@@ -254,21 +254,44 @@ def test_kernel_tile_walk_visits_every_pair_once(case, TL):
 def test_autograd_function_plumbing(monkeypatch):
     """The card's ``_FlashAttention`` (forward launch saved for the
     backward launch) with both launches replaced by their plain versions
-    gives autograd's gradients of the plain forward."""
+    gives autograd's gradients of the plain forward; in bfloat16 the
+    forward launch is asked for lse, and the backward gets that lse."""
     B, H, K, S, hd, window, lengths = CASES["window_ragged"]
-    calls = []
-    monkeypatch.setattr(FA, "_launch", lambda q, k, v, w, ln:
-                        calls.append("fwd") or ref.flash_attention_ref(
-                            q, k, v, window=w, lengths=ln))
-    monkeypatch.setattr(FA, "flash_attention_bwd", lambda *a, **kw:
-                        calls.append("bwd") or ref.flash_attention_bwd_ref(
-                            *a, **kw))
+    calls, lses = [], []
+
+    def launch(q, k, v, w, ln, with_lse=False):
+        out, lse = ref.flash_attention_ref(q, k, v, window=w, lengths=ln,
+                                           return_lse=True)
+        calls.append(("fwd", with_lse))
+        lses.append(lse if with_lse else None)
+        return out, lses[-1]
+
+    def bwd(q, k, v, o, do, *, lse=None, window=None, lengths=None):
+        calls.append(("bwd", lse is lses[-1]))
+        return ref.flash_attention_bwd_ref(q, k, v, o, do, window=window,
+                                           lengths=lengths)
+
+    monkeypatch.setattr(FA, "_launch", launch)
+    monkeypatch.setattr(FA, "flash_attention_bwd", bwd)
     q, k, v, do = (torch.tensor(a) for a in _inputs(B, H, K, S, hd))
     tl = _lengths(lengths)
     a = [t.clone().requires_grad_(True) for t in (q, k, v)]
     FA._FlashAttention.apply(*a, window, tl).backward(do)
     b = [t.clone().requires_grad_(True) for t in (q, k, v)]
     ref.flash_attention_ref(*b, window=window, lengths=tl).backward(do)
-    assert calls == ["fwd", "bwd"]
+    assert calls == [("fwd", False), ("bwd", True)] and lses == [None]
     for x, y in zip(a, b):
         _close(x.grad, y.grad)
+
+    # bfloat16: lse from the forward reaches the backward
+    calls.clear()
+    a16 = [t.to(torch.bfloat16).requires_grad_(True) for t in (q, k, v)]
+    out = FA._FlashAttention.apply(*a16, window, tl)
+    out.backward(do.to(torch.bfloat16))
+    assert calls == [("fwd", True), ("bwd", True)]
+    assert lses[-1].dtype == torch.float32 and lses[-1].shape == (B, H, S)
+    want = ref.flash_attention_bwd_ref(*(t.detach() for t in a16),
+                                       out.detach(), do.to(torch.bfloat16),
+                                       window=window, lengths=tl)
+    for x, w in zip(a16, want):
+        assert torch.equal(x.grad, w)
