@@ -7,7 +7,7 @@ Phases, each of which stops the run with a non-zero exit on any error:
 
 1. device  — the card's name and power limit; TF32 off for matmuls and
    cuDNN, so float32 comparisons are float32.
-2. build   — compile the seven hand-written kernels from ``csrc/`` with
+2. build   — compile the nine hand-written kernels from ``csrc/`` with
    nvcc (one process per source, in parallel) and print ``-Xptxas -v``.
 3. kernels — each kernel against its plain PyTorch version at the main
    paths' shapes, then kernel and plain-version times from CUDA events
@@ -50,7 +50,14 @@ Phases, each of which stops the run with a non-zero exit on any error:
      second call; bfloat16 takes the lse of a forward launch made outside
      the timed call; timed beside its bound and SDPA's backward; and the
      bf16 forward with its lse output against the forward without it, in
-     turns, at the training shape.
+     turns, at the training shape;
+   * the scans' backward kernels (``csrc/mamba_scan_bwd.cu``,
+     ``csrc/rglru_scan_bwd.cu``) against ``mamba_scan_bwd_ref`` and
+     ``rglru_scan_bwd_ref`` at the ``[train]`` runs' shapes: mamba
+     [8, 256, 8192] N 16 with bf16 and float32 x (1e-4 absolute plus 1e-4
+     of each gradient's largest magnitude), RG-LRU [8, 256, 4096] bit for
+     bit; the same bits on a second call; timed beside their bounds (no
+     PyTorch call computes either).
    The two attention kernels are also timed against one PyTorch call
    computing the same function, ``scaled_dot_product_attention`` with
    ``enable_gqa`` (causal, or a boolean mask for windows, lengths and ring
@@ -166,7 +173,25 @@ Phases, each of which stops the run with a non-zero exit on any error:
      reflection loop identical on the card and the CPU);
    * ``quick_fit_reflect`` on the 2-layer cut and a round-2 reflection
      serve with speculation, which must accept drafts and keep the
-     streams it gives without speculation.
+     streams it gives without speculation;
+   * the recurrent families: one float32 loss and gradient of
+     falcon-mamba-7b's and of recurrentgemma-9b's 2-layer full-width cuts
+     (1 x 256) on the card and on the CPU (as the demo's: loss 1e-4
+     relative, cosines at least 0.9999), through the scans' forward and
+     backward kernels; 20 AdamW steps of 8 x 256 (bf16 activations, fp32
+     parameters) of falcon-mamba-7b at full width and 4 layers and of
+     recurrentgemma-9b at full width and 3 layers (rglru, rglru,
+     rg_attn) through ``launch/train.py``: the loss must be finite and
+     fall, and each scan and its backward launch once a layer and step
+     (ms a step, tokens/s, peak memory, the card's name and power limit);
+     and ``quick_fit_ramp`` of falcon-mamba-7b's 2-layer fp32 cut on the
+     card at SGD lr 0.1 for its base 120 steps (the reference's 0.5
+     collapses this cut's logits, and more steps at 0.1 do not bring its
+     margin above 0), its margin printed, then ``check_engine`` on those
+     weights.
+   Each fitted model must have exact top-2 logit ties at no more than
+   0.01 of the positions of random prompts (``tie_share``), so that an
+   engine check on it compares the model, not tie-breaking.
    Then ring decode is read again in turns with SDPA (``[ring re-read]``).
 6. result  — a JSON line of kernel records, the card line, and last the
    JSON status line.
@@ -200,8 +225,10 @@ REPLACES = {"paged_decode": "src/repro/kernels/paged_attention.py:102",
             "decode_attention": "src/repro/kernels/decode_attention.py:87",
             "mamba_scan": "src/repro/kernels/mamba_scan.py:46",
             "rglru_scan": "src/repro/kernels/rglru_scan.py:31",
-            # no Pallas counterpart: the XLA attention JAX differentiates
-            "flash_attention_bwd": "src/repro/models/attention.py:90"}
+            # no Pallas counterparts: the XLA code JAX differentiates
+            "flash_attention_bwd": "src/repro/models/attention.py:90",
+            "mamba_scan_bwd": "src/repro/models/mamba.py:96",
+            "rglru_scan_bwd": "src/repro/models/mamba.py:70"}
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu"
            for name in REPLACES}
 STEP_KINDS = ("mixed_steps", "decode_batch_steps", "verify_steps")
@@ -822,6 +849,7 @@ def phase_kernels(dev):
     ring_cases(records, dev, flush)
     flash_cases(records, dev, flush)
     bwd_cases(records, dev, flush)
+    scan_bwd_cases(records, dev, flush)
     return records
 
 
@@ -2201,6 +2229,94 @@ def bwd_cases(records, dev, flush):
             torch.cuda.empty_cache()
 
 
+def scan_bwd_cases(records, dev, flush):
+    """The two scans' backward kernels at the training shapes of the
+    ``[train]`` runs against their written-out plain versions on the same
+    inputs (a nonzero h0, random output gradients on both outputs, pad
+    lanes as in ``scan_cases``): mamba at falcon-mamba-7b's [8, 256, 8192]
+    N 16 with bf16 x (timed) and float32 x, 1e-4 absolute plus 1e-4 of
+    each gradient's largest magnitude (``ex2.approx``); the RG-LRU at
+    recurrentgemma-9b's [8, 256, 4096], bit for bit; both the same bits on
+    a second call.  Bounds: the bytes each input is read and each output
+    written once; mamba also one exponential a (b, t, d, n) over the SFU
+    rate and 12 float32 operations each."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mamba_scan import mamba_scan_bwd
+    from repro_torch.kernels.rglru_scan import rglru_scan_bwd
+    g = torch.Generator(device=dev).manual_seed(12)
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev)
+    B, S, D, N, W = 8, 256, 8192, 16, 4096
+    nv = torch.tensor([S] + [S - 16 * b - 3 for b in range(1, B)],
+                      device=dev)
+    pad = torch.arange(S, device=dev)[None, :] < nv[:, None]
+    dt = torch.nn.functional.softplus(rn(B, S, D) - 4.0) * pad[..., None]
+    Bm, Cm, x32 = rn(B, S, N), rn(B, S, N), rn(B, S, D)
+    A = -torch.exp(0.5 * rn(D, N))
+    Dsk, h0, dy, dh = rn(D), rn(B, D, N), rn(B, S, D), rn(B, D, N)
+    names = ("d_dt", "dBm", "dCm", "dx", "dA", "dDsk", "dh0")
+    for mode, x in (("bfloat16", x32.bfloat16()), ("float32", x32)):
+        kern = lambda: mamba_scan_bwd(dt, Bm, Cm, x, A, Dsk, h0, dy, dh)
+        plain = lambda: ref.mamba_scan_bwd_ref(dt, Bm, Cm, x, A, Dsk, h0,
+                                               dy, dh)
+        got, again, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        errs = []
+        for name, a, b, w in zip(names, got, again, want):
+            scale = float(w.float().abs().max())
+            err = float((a.float() - w.float()).abs().max())
+            # dx in bf16: the kernel and the plain version each round once
+            tol = 1e-4 + 1e-4 * scale + (2 ** -8 * scale if a.dtype ==
+                                          torch.bfloat16 else 0.0)
+            ok = (bool(torch.isfinite(a).all()) and err <= tol
+                  and torch.equal(a, b))
+            errs.append(err)
+            log(f"[kernels] mamba_scan_bwd [{B},{S},{D}] N={N} x {mode} "
+                f"{name}: max_abs_err={err:.3e} (tol {tol:.3e}; largest "
+                f"{scale:.3e}); same bits on a second call "
+                f"{torch.equal(a, b)} {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                raise AssertionError(f"mamba_scan_bwd {name} x {mode} "
+                                     "disagrees with its plain version")
+        del got, again, want
+        nbytes = ((dt.numel() * 3 + 2 * Bm.numel() * 2 + A.numel() * 2
+                   + Dsk.numel() * 2 + h0.numel() * 3) * 4
+                  + x.numel() * x.element_size() * 2)
+        exps = B * S * D * N
+        rec = time_record(kern, plain, flush, nbytes, 12 * exps,
+                          torch.float32, max(errs), exps)
+        log_record(f"mamba_scan_bwd train x {mode}", rec)
+        records[("mamba_scan_bwd", "train", mode)] = rec
+    del dt, Bm, Cm, x32, A, Dsk, h0, dy, dh
+    a = torch.sigmoid(rn(B, S, W))
+    b = rn(B, S, W)
+    a.masked_fill_(~pad[..., None], 1.0)
+    b.masked_fill_(~pad[..., None], 0.0)
+    h0 = rn(B, W)
+    hs, _ = ref.rglru_scan_ref(a, b, h0)
+    dhs, dh = rn(B, S, W), rn(B, W)
+    kern = lambda: rglru_scan_bwd(a, hs, h0, dhs, dh)
+    plain = lambda: ref.rglru_scan_bwd_ref(a, hs, h0, dhs, dh)
+    got, again, want = kern(), kern(), plain()
+    torch.cuda.synchronize()
+    err = max(float((x - w).abs().max()) for x, w in zip(got, want))
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    log(f"[kernels] rglru_scan_bwd [{B},{S},{W}]: max_abs_err={err:.3e} "
+        f"(tol 0: the kernel rounds as the plain version does); same bits "
+        f"on a second call {same} {'ok' if err == 0 and same else 'MISMATCH'}")
+    if err != 0 or not same or not all(bool(torch.isfinite(x).all())
+                                       for x in got):
+        raise AssertionError("rglru_scan_bwd disagrees with its plain "
+                             "version")
+    del got, again, want
+    rec = time_record(kern, plain, flush,
+                      (5 * a.numel() + 3 * h0.numel()) * 4,
+                      3 * a.numel(), torch.float32, err)
+    log_record("rglru_scan_bwd train", rec)
+    records[("rglru_scan_bwd", "train", "float32")] = rec
+    del a, b, h0, hs, dhs, dh
+    torch.cuda.empty_cache()
+
+
 def lse_forward_ms(q, k, v, flush):
     """The bf16 forward launch with its lse output (as the autograd
     function makes it) against the bare launch (serving, no grad), in
@@ -2215,12 +2331,14 @@ def lse_forward_ms(q, k, v, flush):
         f"(range {blo:.4f}-{bhi:.4f}), in turns, cold-L2")
 
 
-def train_card_vs_cpu(cfg):
+def train_card_vs_cpu(cfg, batch=8, kernels=("flash_attention",
+                                               "flash_attention_bwd")):
     """One float32 loss and gradient of the 2-layer full-width cut on the
-    card and on the CPU, on one seeded weight set and one batch of the
-    task corpus: loss within 1e-4 relative, every gradient tensor's cosine
-    with the CPU's at least 0.9999.  The card's run must launch the flash
-    forward and backward kernels."""
+    card and on the CPU, on one seeded weight set and one batch of
+    ``batch`` x 256 of the task corpus: loss within 1e-4 relative, every
+    gradient tensor's cosine with the CPU's at least 0.9999.  The card's
+    run must launch each of ``kernels`` once a layer (the forward and the
+    backward kernel of the cut's attention or scan)."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data.lm_data import lm_batches
     from repro_torch.kernels import ops
@@ -2229,7 +2347,7 @@ def train_card_vs_cpu(cfg):
                                         to_device, trainable)
     cfg32 = cut(cfg, 2).replace(dtype="float32", param_dtype="float32")
     tcfg = TrainConfig(remat=False)
-    batch = next(lm_batches(256, 8, 1))
+    data = next(lm_batches(256, batch, 1))
     state = build_model(cfg32).init(torch.Generator().manual_seed(3)) \
         .state_dict()
     out = []
@@ -2239,30 +2357,31 @@ def train_card_vs_cpu(cfg):
         m.to(d)
         ops.reset_launches()
         with trainable(m):
-            loss, metrics = make_loss_fn(m, cfg32, tcfg)(to_device(batch, d))
+            loss, metrics = make_loss_fn(m, cfg32, tcfg)(to_device(data, d))
             grads = grads_of(loss, params_of(m))
         launches = dict(ops.LAUNCHES)
         out.append((float(loss.detach()), {k: v.detach().cpu().double()
                                            for k, v in grads.items()},
                     launches))
-        del m
+        del m, grads, loss
+    del state
     (c_loss, c_g, _), (g_loss, g_g, launches) = out
     cos = {k: float((c_g[k] * g_g[k]).sum()
                     / (c_g[k].norm() * g_g[k].norm()).clamp_min(1e-300))
            for k in c_g}
     worst = min(cos, key=cos.get)
     rel = abs(g_loss - c_loss) / abs(c_loss)
-    log(f"[train] {cfg.name}, 2 layers fp32, one batch of 8 x 256: loss "
-        f"cpu {c_loss:.7f} cuda {g_loss:.7f} (relative {rel:.2e}, tol "
+    log(f"[train] {cfg.name}, 2 layers fp32, one batch of {batch} x 256: "
+        f"loss cpu {c_loss:.7f} cuda {g_loss:.7f} (relative {rel:.2e}, tol "
         f"1e-4); smallest gradient cosine {cos[worst]:.7f} ({worst}, tol "
         f"0.9999) over {len(cos)} tensors; cuda launches {launches}")
     if rel > 1e-4 or cos[worst] < 0.9999:
-        raise AssertionError("the train step on the card disagrees with "
-                             "the CPU")
-    if min(launches["flash_attention"], launches["flash_attention_bwd"]) \
-            != 2:
-        raise AssertionError("the 2-layer step did not launch the flash "
-                             f"forward and backward once a layer: {launches}")
+        raise AssertionError(f"the {cfg.name} train step on the card "
+                             "disagrees with the CPU")
+    if any(launches[k] != 2 for k in kernels):
+        raise AssertionError(f"the 2-layer step did not launch {kernels} "
+                             f"once a layer: {launches}")
+    release()
 
 
 class _KernelForwardPlainBackward(torch.autograd.Function):
@@ -2492,20 +2611,132 @@ def fitted_reflect_serve(cfg, dev):
     release()
 
 
-def phase_train(dev):
+# (arch, layers of the full-width cut, {block kind: its kernel}): the
+# recurrent families' training runs
+RECURRENT_TRAIN = (
+    ("falcon_mamba_7b", 4, {"mamba": "mamba_scan"}),
+    ("recurrentgemma_9b", 3, {"rglru": "rglru_scan",
+                              "rg_attn": "flash_attention"}))
+
+
+def train_recurrent(arch, n_layers, kernels, dev, smi):
+    """20 AdamW steps of 8 x 256 of the task corpus through
+    ``launch/train.py``'s ``build`` and ``train`` (``train/loop.py``'s
+    step) at full width and ``n_layers`` layers: bf16 activations, fp32
+    parameters (AdamW's moments need them), no remat.  The loss must be
+    finite and fall, and each block kind's forward and backward kernels
+    launch once a layer and step.  Returns the run's launches."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import build, train
+    from repro_torch.models.registry import get_config
+    steps = 20
+    cfg = cut(get_config(arch), n_layers).replace(dtype="bfloat16",
+                                                  param_dtype="float32")
+    model = build(cfg, dev, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    tcfg = TrainConfig(total_steps=steps, warmup_steps=5,
+                       learning_rate=1e-3, remat=False)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    out = train(model, cfg, tcfg, steps, 8, 256, log_every=5,
+                log=lambda m: log(f"[train] {cfg.name} {m}"))
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    first, last = (float(np.mean(out["losses"][:5])),
+                   float(np.mean(out["losses"][-5:])))
+    log(f"[train] {cfg.name} full width, {n_layers} layers "
+        f"({' '.join(cfg.block_pattern)}), {n_params} fp32 parameters, bf16 "
+        f"activations, {steps} AdamW steps of 8 x 256: loss {first:.4f} -> "
+        f"{last:.4f} (means of the first and last 5); "
+        f"{out['ms_per_step']:.2f} ms a step, {out['tokens_per_s']:.0f} "
+        f"tokens/s (steps 2-{steps}); peak memory {peak} B; launches "
+        f"{launches}; {smi}")
+    if not (all(np.isfinite(out["losses"])) and last < first):
+        raise AssertionError(f"{cfg.name}: the training loss is not finite "
+                             "or did not fall")
+    for kind, kernel in kernels.items():
+        want = steps * cfg.block_pattern.count(kind)
+        if launches[kernel] != want or launches[kernel + "_bwd"] != want:
+            raise AssertionError(f"{cfg.name}: {kernel} and its backward "
+                                 f"did not launch once a {kind} layer and "
+                                 f"step: {launches}")
+    del model, out
+    release()
+    return launches
+
+
+def tie_share(model, dev):
+    """The share of positions of 8 seeded random prompts of 300 tokens
+    whose two largest logits are exactly equal: near 0 on a model that
+    ranks its tokens, near 1 on one whose logits have collapsed (where an
+    engine check would compare tie-breaking, not the model)."""
+    rng = np.random.default_rng(4)
+    toks = torch.tensor(rng.integers(3, model.cfg.vocab_size, (8, 300)),
+                        dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        top = model.forward({"tokens": toks})[0].float().topk(2, -1).values
+    return float((top[..., 0] == top[..., 1]).float().mean())
+
+
+def fitted_engine_check(cfg, dev, lr=0.5, max_steps=None):
+    """C2 on port-fitted weights: ``quick_fit_ramp`` (SGD at ``lr``, at
+    most ``max_steps`` steps) of the 2-layer full-width fp32 cut on the
+    card (its gradients through the card's backward kernels), the
+    worst-case ramp margin it reaches
+    printed, the fitted model's share of exact top-2 ties on random
+    prompts at most 0.01 (its logits have not collapsed), then
+    ``check_engine`` on those weights (streams, bills and the reflection
+    loop identical on the card and the CPU)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import build
+    from repro_torch.train.quick_fit import _ramp_margin, quick_fit_ramp
+    cfg32 = cut(cfg, 2).replace(dtype="float32", param_dtype="float32")
+    model = build(cfg32, dev, seed=0)
+    before = _ramp_margin(model)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    quick_fit_ramp(model, lr=lr, max_steps=max_steps)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    margin, ties = _ramp_margin(model), tie_share(model, dev)
+    cap = "" if max_steps is None else f", at most {max_steps} steps"
+    log(f"[train] {cfg.name}, 2 layers fp32: quick_fit_ramp (lr {lr}{cap}) "
+        f"on the card in {fit_s:.2f}s, worst-case ramp margin {before:.4f} "
+        f"-> {margin:.4f} (target 2.0); exact top-2 ties on random prompts "
+        f"{ties:.4f} (tol 0.01); launches {launches}")
+    if not all(k + "_bwd" in launches for k in launches
+               if not k.endswith("_bwd")):
+        raise AssertionError("the fit's gradients did not go through the "
+                             f"backward kernels: {launches}")
+    if ties > 0.01:
+        raise AssertionError("the fitted model's logits have collapsed: an "
+                             "engine check on it would compare ties")
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    del model
+    release()
+    check_engine(cut(cfg, 2), state, dev, None, label="port-fitted")
+
+
+def phase_train(dev, smi):
     """Training on the card: the card's steps against the CPU's and
     against plain attention, the full 12-layer run of
-    ``examples/torch_train_100m.py`` (the main path of the backward
+    ``examples/torch_train_100m.py`` (the main path of the flash backward
     kernel, whose launches are counted from it), C2 on port-fitted
-    weights (``quick_fit_ramp`` on the card, then ``check_engine``), and
-    a speculative serve on ``quick_fit_reflect`` weights.  Returns the
-    train run's launches.  The backward kernel's records are taken in
-    phase 3 with the other kernels' (``bwd_cases``)."""
+    weights (``quick_fit_ramp`` on the card, then ``check_engine``), a
+    speculative serve on ``quick_fit_reflect`` weights; then the recurrent
+    families: falcon-mamba-7b's and recurrentgemma-9b's 2-layer steps on
+    the card against the CPU, their full-width training runs (the main
+    path of the scans' backward kernels), and C2 on falcon-mamba weights
+    fitted on the card.  Returns the train runs' launches.  The backward
+    kernels' records are taken in phase 3 with the other kernels'
+    (``bwd_cases``, ``scan_bwd_cases``)."""
     import torch_train_100m as example
     from repro_torch.kernels import ops
     from repro_torch.models.registry import get_config
-    from repro_torch.train.quick_fit import _ramp_margin, quick_fit_ramp
     from repro_torch.launch.train import build
+    runs = {}
     cfg = get_config("reflect_demo_100m")
     with timed("train card vs cpu"):
         train_card_vs_cpu(cfg)
@@ -2517,6 +2748,7 @@ def phase_train(dev):
         out = example.train_demo(steps=200, batch=8, seq=256, device=dev,
                                  log=lambda m: log(f"[train] {m}"))
         launches = dict(ops.LAUNCHES)
+        runs["torch_train_100m"] = launches
         ratio = out["last"] / out["first"]
         log(f"[train] {cfg.name} full width and depth, 200 steps of 8 x "
             f"256, bf16 activations, fp32 parameters, AdamW: loss "
@@ -2547,23 +2779,25 @@ def phase_train(dev):
         del out, back
         release()
     with timed("train C2 check"):
-        cfg32 = cut(cfg, 2).replace(dtype="float32", param_dtype="float32")
-        model = build(cfg32, dev, seed=0)
-        before = _ramp_margin(model)
-        t0 = time.perf_counter()
-        quick_fit_ramp(model)
-        torch.cuda.synchronize()
-        margin = _ramp_margin(model)
-        log(f"[train] {cfg.name}, 2 layers fp32: quick_fit_ramp on the card "
-            f"in {time.perf_counter() - t0:.2f}s, worst-case ramp margin "
-            f"{before:.4f} -> {margin:.4f} (target 2.0)")
-        state = {k: v.cpu() for k, v in model.state_dict().items()}
-        del model
-        release()
-        check_engine(cut(cfg, 2), state, dev, None, label="port-fitted")
+        fitted_engine_check(cfg, dev)
     with timed("train fitted speculation"):
         fitted_reflect_serve(cfg, dev)
-    return launches
+    for arch, n_layers, kernels in RECURRENT_TRAIN:
+        rcfg = get_config(arch)
+        scans = [k for k in kernels.values() if k.endswith("scan")]
+        with timed(f"train {arch} card vs cpu"):
+            train_card_vs_cpu(rcfg, batch=1,
+                              kernels=scans + [k + "_bwd" for k in scans])
+        with timed(f"train {arch} full width"):
+            runs[f"{arch} train"] = train_recurrent(arch, n_layers, kernels,
+                                                    dev, smi)
+    with timed("train falcon_mamba_7b C2 check"):
+        # the reference's lr 0.5 collapses this full-width cut's logits,
+        # and at 0.1 its margin stays below 0 through all 720 steps
+        # (scripts/train_profile.py; PERF.md, PR 23): the base 120 steps
+        fitted_engine_check(get_config("falcon_mamba_7b"), dev, lr=0.1,
+                            max_steps=120)
+    return runs
 
 
 def ring_reread(dev):
@@ -2610,14 +2844,15 @@ def main() -> int:
     with timed("serve"):
         runs = phase_serve(dev)
     with timed("train"):
-        runs["torch_train_100m"] = phase_train(dev)
+        runs.update(phase_train(dev, smi))
     ring_reread(dev)
     kernels = []
     # each kernel's record at one shape its model's runs give it: paged
     # extend at Sx = 5 (the demo's verify steps make most of its
     # launches), the scans at the 32-lane mixed step with the serve's bf16
     # activations, ring decode and flash at the demo's bf16 shapes, the
-    # flash backward at the demo's bf16 training shape
+    # backward kernels at their training runs' shapes (the demo's for
+    # flash, falcon-mamba-7b's bf16 x for mamba, recurrentgemma-9b's)
     for name, key, run in (
             ("paged_decode", ("paged_decode", "demo", 1, "bfloat16"),
              "reflect_demo_100m"),
@@ -2632,7 +2867,11 @@ def main() -> int:
             ("rglru_scan", ("rglru_scan", 32, "float32"),
              "recurrentgemma_9b"),
             ("flash_attention_bwd", ("flash_attention_bwd", "demo",
-                                     "bfloat16"), "torch_train_100m")):
+                                     "bfloat16"), "torch_train_100m"),
+            ("mamba_scan_bwd", ("mamba_scan_bwd", "train", "bfloat16"),
+             "falcon_mamba_7b train"),
+            ("rglru_scan_bwd", ("rglru_scan_bwd", "train", "float32"),
+             "recurrentgemma_9b train")):
         rec = records[key]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],

@@ -32,7 +32,9 @@ SOURCES = {"paged_decode": "paged_decode.cu",
            "flash_attention": "flash_attention.cu",
            "flash_attention_bwd": "flash_attention_bwd.cu",
            "mamba_scan": "mamba_scan.cu",
-           "rglru_scan": "rglru_scan.cu"}
+           "mamba_scan_bwd": "mamba_scan_bwd.cu",
+           "rglru_scan": "rglru_scan.cu",
+           "rglru_scan_bwd": "rglru_scan_bwd.cu"}
 HEADERS = ("paged_common.cuh", "flash_tc.cuh")
 
 # Kernel launches per kernel since the last reset: each wrapper adds one
@@ -53,7 +55,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #                dk, dv, part, B, K, G, hd, S, window, splits, stream)
 #   mamba_scan: (x_dtype, dt, Bm, Cm, x, A, Dsk, h0, y, h, B, S, D, N,
 #                stream)
+#   mamba_scan_bwd: (x_dtype, dt, Bm, Cm, x, A, Dsk, h0, dy, dh_last,
+#                d_dt, dBm, dCm, dx, dA, dDsk, dh0, states, part, part_a,
+#                part_d, B, S, D, N, stream)
 #   rglru_scan: (a, b, h0, hs, h, B, S, W, stream)
+#   rglru_scan_bwd: (a, hs, h0, dhs, dh_last, da, db, dh0, B, S, W, stream)
 _ARGTYPES = {
     "paged_decode": [_I] + [_P] * 10 + [_I] * 8 + [_P],
     "paged_extend": [_I] + [_P] * 10 + [_I] * 9 + [_P],
@@ -61,7 +67,9 @@ _ARGTYPES = {
     "flash_attention": [_I] + [_P] * 6 + [_I] * 6 + [_P],
     "flash_attention_bwd": [_I] + [_P] * 12 + [_I] * 7 + [_P],
     "mamba_scan": [_I] + [_P] * 9 + [_I] * 4 + [_P],
+    "mamba_scan_bwd": [_I] + [_P] * 20 + [_I] * 4 + [_P],
     "rglru_scan": [_P] * 5 + [_I] * 3 + [_P],
+    "rglru_scan_bwd": [_P] * 8 + [_I] * 3 + [_P],
 }
 _FNS: Dict[str, ctypes._CFuncPtr] = {}
 _ERR: Dict[str, ctypes._CFuncPtr] = {}

@@ -9,7 +9,9 @@ full-sequence attention) and its gradient ``flash_attention_bwd_ref``
 dense logical ``[B, NP*ps, K, hd]`` view) all mask by absolute position
 and softmax in float32 through :func:`masked_attention`;
 ``mamba_scan_ref`` and ``rglru_scan_ref`` run the two recurrences as
-sequential float32 loops over time.  They are the CPU path of the port
+sequential float32 loops over time, and ``mamba_scan_bwd_ref`` and
+``rglru_scan_bwd_ref`` write out their gradients as reverse-time loops
+(the reference differentiates XLA scans).  They are the CPU path of the port
 (``kernels/ops.py``) and the oracles ``chip_smoke.py`` holds the CUDA
 kernels against.
 
@@ -214,6 +216,46 @@ def mamba_scan_ref(dt, Bm, Cm, x, A, Dsk, h0):
     return torch.stack(ys, dim=1), h
 
 
+def mamba_scan_bwd_ref(dt, Bm, Cm, x, A, Dsk, h0, dy, dh_last):
+    """Gradients (d_dt, dBm, dCm, dx, dA, dDsk, dh0) of ``mamba_scan_ref``
+    at output gradients ``dy`` [B, S, D] and ``dh_last`` [B, D, N],
+    written out as a reverse-time loop in float32 rather than taken by
+    autograd.  With ``a_t = exp(dt_t A)`` and ``g_t = dL/dh_t = dy_t C_t +
+    a_{t+1} g_{t+1}`` (``g_{S-1} = dy_{S-1} C_{S-1} + dh_last``):
+    ``dC_t = sum_d dy_t h_t``, ``dB_t = sum_d g_t dt_t x_t``, ``dx_t =
+    dt_t sum_n g_t B_t + Dsk dy_t``, ``d_dt_t = sum_n g_t (A a_t h_{t-1} +
+    x_t B_t)``, ``dA = sum_{b,t} g_t dt_t a_t h_{t-1}``, ``dDsk =
+    sum_{b,t} dy_t x_t`` and ``dh0 = a_0 g_0``.  The states are recomputed
+    from ``h0``.  dx takes x's dtype; the rest are float32."""
+    S = dt.shape[1]
+    A, Dsk = A.float(), Dsk.float()
+    xf, dy = x.float(), dy.float()
+    hs = [h0.float()]
+    for t in range(S):
+        a = torch.exp(dt[:, t, :, None] * A[None])               # [B,D,N]
+        hs.append(a * hs[-1] + (dt[:, t] * xf[:, t])[..., None]
+                  * Bm[:, t, None, :])
+    d_dt, dx = torch.empty_like(dt), torch.empty_like(xf)
+    dBm, dCm = torch.empty_like(Bm), torch.empty_like(Cm)
+    dA = torch.zeros_like(A)
+    carry = dh_last.float()                               # a_{t+1} g_{t+1}
+    for t in reversed(range(S)):
+        dtt, xt, dyt = dt[:, t], xf[:, t], dy[:, t]
+        a = torch.exp(dtt[..., None] * A[None])
+        g = dyt[..., None] * Cm[:, t, None, :] + carry
+        dCm[:, t] = torch.einsum("bd,bdn->bn", dyt, hs[t + 1])
+        dBm[:, t] = torch.einsum("bdn,bd->bn", g, dtt * xt)
+        dx[:, t] = dtt * torch.einsum("bdn,bn->bd", g, Bm[:, t]) \
+            + Dsk[None] * dyt
+        ah = a * hs[t]                                    # a_t h_{t-1}
+        d_dt[:, t] = (g * (A[None] * ah + xt[..., None]
+                           * Bm[:, t, None, :])).sum(-1)
+        dA += (g * dtt[..., None] * ah).sum(0)
+        carry = a * g
+    dDsk = (dy * xf).sum((0, 1))
+    return d_dt, dBm, dCm, dx.to(x.dtype), dA, dDsk, carry
+
+
 def rglru_scan_ref(a, b, h0):
     """Sequential linear recurrence ``h_t = a_t * h_{t-1} + b_t``.
     a, b: [B, S, W] float32; h0: [B, W].  Returns (hs [B, S, W], h_last
@@ -224,3 +266,21 @@ def rglru_scan_ref(a, b, h0):
         h = a[:, t] * h + b[:, t]
         hs.append(h)
     return torch.stack(hs, dim=1), h
+
+
+def rglru_scan_bwd_ref(a, hs, h0, dhs, dh_last):
+    """Gradients (da, db, dh0) of ``rglru_scan_ref`` at its output ``hs``
+    and output gradients ``dhs`` [B, S, W] and ``dh_last`` [B, W], written
+    out as a reverse-time loop: ``g_t = dhs_t + a_{t+1} g_{t+1}`` (``g_{S-1}
+    = dhs_{S-1} + dh_last``), ``da_t = g_t h_{t-1}`` (``h_{-1} = h0``),
+    ``db_t = g_t`` and ``dh0 = a_0 g_0``.  Each product and each sum is
+    rounded on its own, in this order, so that the CUDA kernel can give
+    the same bits."""
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    carry = dh_last                                       # a_{t+1} g_{t+1}
+    for t in reversed(range(a.shape[1])):
+        g = dhs[:, t] + carry
+        da[:, t] = g * (hs[:, t - 1] if t else h0)
+        db[:, t] = g
+        carry = a[:, t] * g
+    return da, db, carry

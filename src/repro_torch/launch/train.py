@@ -6,9 +6,10 @@ reduced config with ``--smoke``, else the full one) with seeded random
 weights on ``--device`` (the card unless ``--device cpu``), and trains it
 with AdamW on the synthetic task corpus (``data/lm_data.py``) through
 ``train/loop.py``'s step, printing the loss every 10 steps.  On the card
-attention's forward and backward run in the hand-written flash kernels;
-the recurrent scans have no backward kernel yet, so training a mamba or
-RG-LRU model on the card raises (ROADMAP A16c).  ``--dryrun`` (the
+attention's forward and backward run in the hand-written flash kernels,
+and the mamba and RG-LRU scans' in the hand-written scan kernels
+(``csrc/mamba_scan_bwd.cu``, ``csrc/rglru_scan_bwd.cu``), so every
+registry family (dense, MoE, recurrent) trains there.  ``--dryrun`` (the
 reference's production plan over a device mesh) raises
 ``NotImplementedError``: the mesh tooling is not ported (ROADMAP A17).
 The registry's unported archs (whisper, the VLM) raise as it does.

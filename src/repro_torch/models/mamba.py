@@ -8,8 +8,11 @@ update IN PLACE; full-sequence forward and prefill start from a zero
 state.  The recurrence itself — the reference's chunked
 associative scan over time, and its one-step decode update — goes through
 ``kernels/ops.mamba_scan``: the hand-written CUDA kernel on a card, its
-sequential float32 plain version on the CPU.  The scan's output already
-includes the ``D * x`` skip term.
+sequential float32 plain version on the CPU; under grad mode its
+autograd function, whose backward is the hand-written backward kernel.
+That function keeps its own copy of ``h0``, since the mixers write the
+new state into ``state["h"]`` right after the scan.  The scan's output
+already includes the ``D * x`` skip term.
 
 Pad lanes of a masked extend (``valid`` false) get ``dt = 0``, which makes
 the recurrence the identity on them (exp(0) = 1, 0 * x * B = 0), so the

@@ -11,7 +11,10 @@ Each layer's serving state is a dense per-slot dict ``{"conv": [B, 3, w],
 from a zero state.  The gates run in PyTorch in float32 with
 float32 weight casts, as in the reference; the recurrence ``h_t = a_t *
 h_{t-1} + b_t`` goes through ``kernels/ops.rglru_scan`` (the CUDA kernel
-on a card, its plain version on the CPU).  Pad lanes are masked to a = 1,
+on a card, its plain version on the CPU; under grad mode its autograd
+function with the backward kernel, which keeps its own copy of ``h0``:
+the mixers overwrite ``state["h"]`` right after the call).  Pad lanes
+are masked to a = 1,
 b = 0 before the scan, so the state summarizes exactly the valid prefix.
 """
 from __future__ import annotations

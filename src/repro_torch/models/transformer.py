@@ -170,10 +170,11 @@ class TransformerLM(nn.Module):
         load balancing summed over the MoE layers and divided by
         ``cfg.num_layers``, as in the reference: 0 without MoE blocks.
         Differentiable: on the card attention's backward is the
-        hand-written flash backward kernel; the recurrent scans have no
-        backward kernel yet and raise there.  ``remat`` recomputes each
-        block in the backward pass (``torch.utils.checkpoint``), as the
-        reference's ``jax.checkpoint`` of its scanned unit."""
+        hand-written flash backward kernel and the mamba and RG-LRU
+        scans' are the hand-written scan backward kernels.  ``remat``
+        recomputes each block in the backward pass
+        (``torch.utils.checkpoint``), as the reference's
+        ``jax.checkpoint`` of its scanned unit."""
         tokens = batch["tokens"]
         lengths = batch.get("lengths")
         x = self.embed_tokens(tokens)

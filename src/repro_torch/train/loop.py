@@ -7,7 +7,8 @@ optimizer state in place: the reference's pure ``(params, opt_state,
 batch) -> (params, opt_state, metrics)`` with the parameters living in
 the ``nn.Module``.  Gradients come from ``torch.autograd`` through
 ``TransformerLM.forward``: on the card its attention runs the
-hand-written flash forward and backward kernels.  Metrics are 0-dim
+hand-written flash forward and backward kernels, and its mamba and RG-LRU
+scans the hand-written scan forward and backward kernels.  Metrics are 0-dim
 tensors on the model's device (and the learning rate a float), under the
 reference's keys.
 """

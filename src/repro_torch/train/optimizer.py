@@ -19,8 +19,10 @@ groups every tensor is its own leaf.
 Scalars (step, learning rate, bias corrections, Adafactor's decay) are
 computed in float32 as the reference computes them.  AdamW and the clip
 run as multi-tensor (``torch._foreach_*``) ops, one launch per step of
-the update over all tensors, where a loop over 100-odd parameters would
-launch each of its dozen operations per tensor from the host.
+the update over all tensors (AdamW: over each group of at most 268 M
+elements, which bounds its temporaries), where a loop over 100-odd
+parameters would launch each of its dozen operations per tensor from the
+host.
 """
 from __future__ import annotations
 
@@ -83,17 +85,44 @@ def adamw_init(params: Tensors) -> Dict:
             "step": 0}
 
 
+FOREACH_ELEMENTS = 1 << 28   # elements of a group of AdamW's tensors
+
+
+def _groups(params: Tensors) -> List[List[str]]:
+    """The parameter names in order, cut into groups of at most
+    ``FOREACH_ELEMENTS`` elements (a larger tensor alone): the
+    multi-tensor ops of one group make temporaries the size of the group,
+    so the update's memory stays bounded (recurrentgemma-9b's 2 B
+    embedding and unembedding would otherwise need four temporary copies
+    of every parameter at once)."""
+    groups, size = [[]], 0
+    for name, t in params.items():
+        if groups[-1] and size + t.numel() > FOREACH_ELEMENTS:
+            groups.append([])
+            size = 0
+        groups[-1].append(name)
+        size += t.numel()
+    return groups
+
+
 @torch.no_grad()
 def adamw_update(params: Tensors, grads: Tensors, state: Dict,
                  tcfg: TrainConfig) -> Dict:
     """The reference's per-leaf update as multi-tensor (``_foreach``) ops,
-    one call per elementwise step over every tensor."""
+    one call per elementwise step over every tensor of a group
+    (``_groups``: one group below 268 M parameters)."""
     step = state["step"] + 1
     lr = lr_schedule(tcfg, step)
+    bc1 = _f32(1.0 - _f32(tcfg.beta1) ** _f32(step))
+    bc2 = _f32(1.0 - _f32(tcfg.beta2) ** _f32(step))
+    for names in _groups(params):
+        _adamw_group(names, params, grads, state, tcfg, lr, bc1, bc2)
+    state["step"] = step
+    return {"lr": lr}
+
+
+def _adamw_group(names, params, grads, state, tcfg, lr, bc1, bc2) -> None:
     b1, b2, eps = tcfg.beta1, tcfg.beta2, tcfg.eps
-    bc1 = _f32(1.0 - _f32(b1) ** _f32(step))
-    bc2 = _f32(1.0 - _f32(b2) ** _f32(step))
-    names = list(params)
     p = [params[n] for n in names]
     pf = [x.float() for x in p]
     g = [grads[n].float() for n in names]
@@ -110,8 +139,6 @@ def adamw_update(params: Tensors, grads: Tensors, state: Dict,
     torch._foreach_div_(u, den)
     torch._foreach_add_(u, torch._foreach_mul(pf, tcfg.weight_decay))
     torch._foreach_copy_(p, torch._foreach_sub(pf, torch._foreach_mul(u, lr)))
-    state["step"] = step
-    return {"lr": lr}
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,12 @@ paper's reflection loop (fixed and routed) over a captured engine; the
 loop's backend takes a fault plan, and NaN or inf rows written into a
 captured step's logits, with or without quarantine, leave the context
 serving.  The MoE FFN gives the CPU's expert ids and outputs on the
-card, and the same bits on every call.
+card, and the same bits on every call.  The scans' backward kernels
+match their written-out plain versions (mamba to 1e-4 absolute plus 1e-4
+of each gradient's largest magnitude, the RG-LRU bit for bit) with the
+same bits on a second call, the scans' autograd functions launch them,
+and a 2-layer falcon-mamba-7b and recurrentgemma-9b train step on the
+card matches the CPU's.
 """
 import dataclasses
 
@@ -1214,8 +1219,8 @@ def test_flash_backward_lse_by_dtype(dev):
 
 
 def test_kernels_without_backward_refuse_gradients_on_card(dev):
-    """The paged, ring-decode and scan wrappers raise on CUDA inputs that
-    need a gradient instead of returning detached outputs."""
+    """The paged and ring-decode wrappers raise on CUDA inputs that need a
+    gradient instead of returning detached outputs."""
     (q, kp, vp, pt, pos0), _, _, _ = _inputs(dev, torch.float32, False)
     qd = q[:, 0].contiguous()
     g = torch.Generator().manual_seed(0)
@@ -1229,11 +1234,6 @@ def test_kernels_without_backward_refuse_gradients_on_card(dev):
             t(qd), f(3, 64, 2, 64), f(3, 64, 2, 64),
             torch.arange(64, dtype=torch.int32, device=dev).repeat(3, 1),
             torch.full((3,), 63, dtype=torch.int32, device=dev)),
-        "mamba_scan": lambda t: ops.mamba_scan(
-            t(f(2, 4, 8)), f(2, 4, 16), f(2, 4, 16), f(2, 4, 8),
-            -f(8, 16), f(8), f(2, 8, 16)),
-        "rglru_scan": lambda t: ops.rglru_scan(t(f(2, 4, 8)), f(2, 4, 8),
-                                               f(2, 8)),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match=f"{name} has no backward"):
@@ -1241,6 +1241,190 @@ def test_kernels_without_backward_refuse_gradients_on_card(dev):
         call(lambda x: x)                              # launches as before
         with torch.no_grad():
             call(lambda x: x.clone().requires_grad_(True))
+
+
+def _mamba_bwd_case(dev, B, S, D, N, x_dtype, seed):
+    """Mamba operands and output gradients on the card."""
+    dt, Bm, Cm, x, A, Dsk, h0, _ = _scan_inputs(B, S, D, N, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    dy, dh = (torch.randn(B, S, D, generator=g),
+              torch.randn(B, D, N, generator=g))
+    args = [t.to(dev) for t in (dt, Bm, Cm, x.to(x_dtype), A, Dsk, h0, dy,
+                                dh)]
+    return args
+
+
+def _close_to_plain_mamba(got, want):
+    """1e-4 absolute + 1e-4 of each gradient's largest magnitude (the
+    kernel's exponentials are ex2.approx); a bf16 dx also one bf16
+    rounding of its largest magnitude (each side rounds once)."""
+    for name, a, w in zip(("d_dt", "dBm", "dCm", "dx", "dA", "dDsk", "dh0"),
+                          got, want):
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        scale = float(w.float().abs().max())
+        tol = 1e-4 + 1e-4 * scale + (2 ** -8 * scale if a.dtype ==
+                                      torch.bfloat16 else 0.0)
+        err = float((a.float() - w.float()).abs().max())
+        assert bool(torch.isfinite(a).all()) and err <= tol, (name, err, tol)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,D,N", [(3, 37, 200, 4), (3, 37, 200, 8),
+                                     (3, 37, 65, 16), (2, 16, 64, 16),
+                                     (2, 1, 130, 8), (8, 256, 8192, 16)])
+def test_mamba_scan_bwd_matches_plain(dev, x_dtype, B, S, D, N):
+    """Every state size, S past, at and below one 16-step tile, D past and
+    below one 64-channel block, and falcon-mamba-7b's training shape;
+    the same bits on a second call (no atomics)."""
+    from repro_torch.kernels.mamba_scan import mamba_scan_bwd
+    args = _mamba_bwd_case(dev, B, S, D, N, x_dtype, seed=S + N)
+    got = mamba_scan_bwd(*args)
+    again = mamba_scan_bwd(*args)
+    want = ref.mamba_scan_bwd_ref(*args)
+    torch.cuda.synchronize()
+    _close_to_plain_mamba(got, want)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("B,S,W", [(3, 37, 300), (2, 1, 257), (2, 16, 256),
+                                   (8, 256, 4096)])
+def test_rglru_scan_bwd_matches_plain(dev, B, S, W):
+    """Bit for bit with the plain version (S past, at and below one
+    16-step register tile; W past one 256-channel block; identity pad
+    lanes; recurrentgemma-9b's training shape), and on a second call."""
+    from repro_torch.kernels.rglru_scan import rglru_scan_bwd
+    g = torch.Generator().manual_seed(S + W)
+    a = torch.sigmoid(torch.randn(B, S, W, generator=g))
+    b = torch.randn(B, S, W, generator=g)
+    a[1:, S // 2:], b[1:, S // 2:] = 1.0, 0.0
+    h0, dhs, dh = (torch.randn(B, W, generator=g),
+                   torch.randn(B, S, W, generator=g),
+                   torch.randn(B, W, generator=g))
+    hs, _ = ref.rglru_scan_ref(a, b, h0)
+    args = [t.to(dev) for t in (a, hs, h0, dhs, dh)]
+    got, again = rglru_scan_bwd(*args), rglru_scan_bwd(*args)
+    want = ref.rglru_scan_bwd_ref(a, hs, h0, dhs, dh)
+    for x, y, w in zip(got, again, want):
+        torch.testing.assert_close(x.cpu(), w, atol=0, rtol=0)
+        assert torch.equal(x, y)
+
+
+def test_scan_autograd_on_card_launches_the_backward(dev):
+    """Grad mode on CUDA tensors goes through the scans' autograd
+    functions: each forward kernel once and each backward kernel once,
+    the written-out plain gradients (mamba to the kernel tolerance, the
+    RG-LRU bit for bit), with the state tensor passed as h0 overwritten
+    after the call as the mixers do; without a gradient the call is the
+    bare forward launch."""
+    from repro_torch.kernels import cuda_lib
+    dt, Bm, Cm, x, A, Dsk, h0, dy, dh = _mamba_bwd_case(
+        dev, 2, 37, 130, 16, torch.bfloat16, seed=7)
+    leaves = [t.clone().requires_grad_(True) for t in (dt, Bm, Cm, x, A,
+                                                        Dsk)]
+    state = h0.clone()
+    cuda_lib.reset_launches()
+    y, h = ops.mamba_scan(*leaves, state)
+    state.copy_(h)
+    grads = torch.autograd.grad((y * dy).sum() + (h * dh).sum(), leaves)
+    assert cuda_lib.LAUNCHES["mamba_scan"] == 1
+    assert cuda_lib.LAUNCHES["mamba_scan_bwd"] == 1
+    _close_to_plain_mamba(grads, ref.mamba_scan_bwd_ref(
+        dt, Bm, Cm, x, A, Dsk, h0, dy, dh)[:6])
+    g = torch.Generator().manual_seed(8)
+    a, b, r0, dhs, dr = (torch.rand(*s, generator=g).to(dev) for s in (
+        (2, 37, 300), (2, 37, 300), (2, 300), (2, 37, 300), (2, 300)))
+    al, bl = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    state = r0.clone()
+    hs, hl = ops.rglru_scan(al, bl, state)
+    state.copy_(hl)
+    got = torch.autograd.grad((hs * dhs).sum() + (hl * dr).sum(), (al, bl))
+    want = ref.rglru_scan_bwd_ref(a, ref.rglru_scan_ref(a, b, r0)[0], r0,
+                                  dhs, dr)
+    assert cuda_lib.LAUNCHES["rglru_scan"] == 1
+    assert cuda_lib.LAUNCHES["rglru_scan_bwd"] == 1
+    for x_, w in zip(got, want):
+        assert torch.equal(x_, w)
+    with torch.no_grad():
+        y2, _ = ops.mamba_scan(*leaves, h0)
+        hs2, _ = ops.rglru_scan(al, bl, r0)
+    assert y2.grad_fn is None and hs2.grad_fn is None
+    assert cuda_lib.LAUNCHES["mamba_scan_bwd"] == 1
+    assert cuda_lib.LAUNCHES["rglru_scan_bwd"] == 1
+
+
+@pytest.mark.parametrize("arch,kernels", [
+    ("falcon_mamba_7b", ("mamba_scan", "mamba_scan_bwd")),
+    ("recurrentgemma_9b", ("rglru_scan", "rglru_scan_bwd"))])
+def test_recurrent_train_step_on_card_matches_cpu(dev, arch, kernels):
+    """One float32 loss and gradient of the 2-layer full-width cut (2 x
+    256 tokens of the task corpus) on the card and on the CPU: loss within
+    1e-4 relative, every gradient tensor's cosine at least 0.9999, the
+    scan and its backward launched once a layer."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.lm_data import lm_batches
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.train.loop import (grads_of, make_loss_fn, params_of,
+                                        to_device, trainable)
+    cfg = get_config(arch)
+    cfg = cfg.replace(num_layers=2, block_pattern=cfg.block_pattern[:2],
+                      dtype="float32", param_dtype="float32")
+    tcfg = TrainConfig(remat=False)
+    batch = next(lm_batches(256, 2, 1))
+    state = build_model(cfg).init(torch.Generator().manual_seed(3)) \
+        .state_dict()
+    out = []
+    for d in (torch.device("cpu"), dev):
+        m = build_model(cfg)
+        m.load_state_dict(state)
+        m.to(d)
+        cuda_lib.reset_launches()
+        with trainable(m):
+            loss, _ = make_loss_fn(m, cfg, tcfg)(to_device(batch, d))
+            grads = grads_of(loss, params_of(m))
+        out.append((float(loss.detach()), {k: v.detach().cpu().double()
+                                  for k, v in grads.items()}))
+        del m, grads, loss
+    assert all(cuda_lib.LAUNCHES[k] == 2 for k in kernels)
+    (c_loss, c_g), (g_loss, g_g) = out
+    assert abs(g_loss - c_loss) <= 1e-4 * abs(c_loss)
+    for k in c_g:
+        cos = float((c_g[k] * g_g[k]).sum()
+                    / (c_g[k].norm() * g_g[k].norm()).clamp_min(1e-300))
+        assert cos >= 0.9999, (k, cos)
+
+
+@pytest.mark.parametrize("arch,kind,kernel", [
+    ("falcon_mamba_7b", "mamba", "mamba_scan"),
+    ("recurrentgemma_9b", "rglru", "rglru_scan")])
+def test_recurrent_smoke_train_step_launches_scan_kernels(dev, arch, kind,
+                                                          kernel):
+    """One AdamW step of a recurrent smoke config on the card with remat:
+    finite metrics, the scan's forward launched twice a layer (remat runs
+    it again in the backward pass) and its backward once, and the
+    recurrence's own parameters (mamba's A_log, the RG-LRU's lam)
+    moved."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.lm_data import lm_batches
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch.train import build
+    from repro_torch.models.registry import get_smoke_config
+    from repro_torch.train.loop import init_opt_state, make_train_step
+    cfg = get_smoke_config(arch)
+    model = build(cfg, dev)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    tcfg = TrainConfig(remat=True)
+    cuda_lib.reset_launches()
+    m = make_train_step(model, cfg, tcfg)(init_opt_state(model, cfg, tcfg),
+                                          next(lm_batches(64, 4, 1)))
+    assert all(np.isfinite(float(v)) for v in m.values())
+    n = cfg.block_pattern.count(kind)
+    assert cuda_lib.LAUNCHES[kernel] == 2 * n
+    assert cuda_lib.LAUNCHES[kernel + "_bwd"] == n
+    decay = [k for k in before if k.endswith(("A_log", ".lam"))]
+    assert len(decay) == n
+    assert all(not torch.equal(model.state_dict()[k], before[k])
+               for k in decay)
 
 
 def test_train_step_on_card_launches_both_flash_kernels(dev):

@@ -97,11 +97,12 @@ def test_train_example_imports_no_jax_and_no_repro():
 
 
 def test_kernel_wrappers_without_backward_refuse_gradients():
-    """A CUDA wrapper whose kernel has no backward raises when grad mode is
-    on and an input requires a gradient, before anything else is checked
-    (meta tensors stand in for CUDA ones: they take the kernel branch),
-    and names the ROADMAP item; under ``torch.no_grad()`` the same call
-    goes on to the operand checks."""
+    """A CUDA wrapper whose kernel has no backward (paged decode, paged
+    extend, ring decode) raises when grad mode is on and an input requires
+    a gradient, before anything else is checked (meta tensors stand in for
+    CUDA ones: they take the kernel branch), and names the ROADMAP item;
+    under ``torch.no_grad()`` the same call goes on to the operand
+    checks."""
     from repro_torch.kernels import ops
     m = lambda *s: torch.empty(s, device="meta")
     q4, pool, pt, pos = m(2, 2, 3, 64), m(8, 16, 2, 64), m(2, 4), m(2)
@@ -113,19 +114,54 @@ def test_kernel_wrappers_without_backward_refuse_gradients():
         "decode_attention": lambda g: ops.decode_attention(
             q4.requires_grad_(g), m(2, 32, 2, 64), m(2, 32, 2, 64),
             m(2, 32), pos),
-        "mamba_scan": lambda g: ops.mamba_scan(
-            m(2, 4, 8).requires_grad_(g), m(2, 4, 16), m(2, 4, 16),
-            m(2, 4, 8), m(8, 16), m(8), m(2, 8, 16)),
-        "rglru_scan": lambda g: ops.rglru_scan(
-            m(2, 4, 8).requires_grad_(g), m(2, 4, 8), m(2, 8)),
     }
     for name, call in calls.items():
-        item = "A16c" if name.endswith("scan") else "A16d"
         with pytest.raises(RuntimeError, match=f"{name} has no backward "
-                           f"kernel on the card \\(ROADMAP {item}\\)"):
+                           "kernel on the card \\(ROADMAP A16d\\)"):
             call(True)
         with torch.no_grad(), pytest.raises(ValueError):
             call(True)
+
+
+def test_scan_wrappers_under_grad_reach_their_autograd_functions(
+        monkeypatch):
+    """The two scans have backward kernels: under grad mode a CUDA-side
+    call (meta tensors stand in for CUDA ones) goes through the wrapper's
+    autograd function, whose forward reaches the kernel launch's operand
+    checks (ValueError: meta tensors are not CUDA tensors); under
+    ``torch.no_grad()`` the same call reaches those checks without the
+    function."""
+    from repro_torch.kernels import mamba_scan as MS
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rglru_scan as RS
+    m = lambda *s: torch.empty(s, device="meta")
+    reached = []
+    for mod, fn in ((MS, "_MambaScan"), (RS, "_RGLRUScan")):
+        real = getattr(mod, fn)
+
+        class Spy:
+            @staticmethod
+            def apply(*a, real=real, fn=fn):
+                reached.append(fn)
+                return real.apply(*a)
+
+        monkeypatch.setattr(mod, fn, Spy)
+    calls = {
+        "_MambaScan": lambda g: ops.mamba_scan(
+            m(2, 4, 8).requires_grad_(g), m(2, 4, 16), m(2, 4, 16),
+            m(2, 4, 8), m(8, 16), m(8), m(2, 8, 16)),
+        "_RGLRUScan": lambda g: ops.rglru_scan(
+            m(2, 4, 8).requires_grad_(g), m(2, 4, 8), m(2, 8)),
+    }
+    for fn, call in calls.items():
+        with pytest.raises(ValueError, match="takes CUDA tensors"):
+            call(True)
+        assert reached == [fn]
+        with torch.no_grad(), pytest.raises(ValueError,
+                                            match="takes CUDA tensors"):
+            call(True)
+        assert reached == [fn]
+        reached.clear()
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):

@@ -166,5 +166,6 @@ def test_cpu_dispatch_launches_no_kernel():
     assert ops.LAUNCHES == {"paged_decode": 0, "paged_extend": 0,
                             "decode_attention": 0, "flash_attention": 0,
                             "flash_attention_bwd": 0, "mamba_scan": 0,
-                            "rglru_scan": 0}
+                            "mamba_scan_bwd": 0, "rglru_scan": 0,
+                            "rglru_scan_bwd": 0}
     assert ops.resolve_attn_impl(torch.device("cpu")) == "plain"

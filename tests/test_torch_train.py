@@ -208,6 +208,36 @@ def test_optimizer_matches_reference_over_3_steps(name):
         assert np.abs(naive_leaves[p] - want[p]).max() > 1e-4
 
 
+def test_adamw_groups_give_the_one_group_update(monkeypatch):
+    """AdamW's multi-tensor ops run over groups of at most
+    ``FOREACH_ELEMENTS`` elements (a larger tensor alone), which bounds
+    their temporaries: groups of a few thousand elements give the same
+    bits over 3 steps as one group over every tensor."""
+    _, _, model = _pair()
+    tcfg = TrainConfig(learning_rate=1e-2, warmup_steps=2, weight_decay=0.1)
+    small = build_model(model.cfg)
+    small.load_state_dict(model.state_dict())
+    params, sparams = params_of(model), params_of(small)
+    state, sstate = opt.opt_init(params, tcfg), opt.opt_init(sparams, tcfg)
+    monkeypatch.setattr(opt, "FOREACH_ELEMENTS", 5000)
+    groups = opt._groups(sparams)
+    assert len(groups) > 4 and sum(groups, []) == list(sparams)
+    assert all(len(g) == 1 or sum(sparams[n].numel() for n in g) <= 5000
+               for g in groups)
+    for step in range(3):
+        rng = np.random.default_rng(step)
+        g = {n: torch.from_numpy(rng.standard_normal(p.shape)
+                                 .astype(np.float32))
+             for n, p in params.items()}
+        monkeypatch.setattr(opt, "FOREACH_ELEMENTS", 1 << 40)
+        opt.opt_update(params, g, state, tcfg)
+        monkeypatch.setattr(opt, "FOREACH_ELEMENTS", 5000)
+        opt.opt_update(sparams, g, sstate, tcfg)
+    for n in params:
+        assert torch.equal(params[n], sparams[n]), n
+        assert torch.equal(state["v"][n], sstate["v"][n]), n
+
+
 # ------------------------------------------------ tests/test_train.py's ten
 
 def _setup(arch="reflect_demo_100m", **tkw):
