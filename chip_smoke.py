@@ -57,7 +57,9 @@ Phases, each of which stops the run with a non-zero exit on any error:
      [8, 256, 8192] N 16 with bf16 and float32 x (1e-4 absolute plus 1e-4
      of each gradient's largest magnitude), RG-LRU [8, 256, 4096] bit for
      bit; the same bits on a second call; timed beside their bounds (no
-     PyTorch call computes either).
+     PyTorch call computes either); the mamba backward on the tile states
+     of one forward launch, with bf16 x its device time by kernel and the
+     forward keeping those states against the forward without, in turns.
    The two attention kernels are also timed against one PyTorch call
    computing the same function, ``scaled_dot_product_attention`` with
    ``enable_gqa`` (causal, or a boolean mask for windows, lengths and ring
@@ -2237,11 +2239,16 @@ def scan_bwd_cases(records, dev, flush):
     N 16 with bf16 x (timed) and float32 x, 1e-4 absolute plus 1e-4 of
     each gradient's largest magnitude (``ex2.approx``); the RG-LRU at
     recurrentgemma-9b's [8, 256, 4096], bit for bit; both the same bits on
-    a second call.  Bounds: the bytes each input is read and each output
-    written once; mamba also one exponential a (b, t, d, n) over the SFU
-    rate and 12 float32 operations each."""
+    a second call.  The mamba backward starts from the tile states that
+    one forward launch keeps (as ``_MambaScan`` runs them); with bf16 x
+    (the training runs' dtype) its device time by kernel is printed, and
+    the forward at the same shape is timed with and without keeping those
+    states, in turns.  Bounds: the bytes each
+    input is read and each output written once; mamba also one
+    exponential a (b, t, d, n) over the SFU rate and 12 float32 operations
+    each."""
+    from repro_torch.kernels import mamba_scan as MS
     from repro_torch.kernels import ref
-    from repro_torch.kernels.mamba_scan import mamba_scan_bwd
     from repro_torch.kernels.rglru_scan import rglru_scan_bwd
     g = torch.Generator(device=dev).manual_seed(12)
     rn = lambda *s: torch.randn(*s, generator=g, device=dev)
@@ -2255,9 +2262,10 @@ def scan_bwd_cases(records, dev, flush):
     Dsk, h0, dy, dh = rn(D), rn(B, D, N), rn(B, S, D), rn(B, D, N)
     names = ("d_dt", "dBm", "dCm", "dx", "dA", "dDsk", "dh0")
     for mode, x in (("bfloat16", x32.bfloat16()), ("float32", x32)):
-        kern = lambda: mamba_scan_bwd(dt, Bm, Cm, x, A, Dsk, h0, dy, dh)
-        plain = lambda: ref.mamba_scan_bwd_ref(dt, Bm, Cm, x, A, Dsk, h0,
-                                               dy, dh)
+        fwd = (dt, Bm, Cm, x, A, Dsk, h0)
+        states = MS._launch(*fwd, keep_states=True)[2]
+        kern = lambda: MS.mamba_scan_bwd(*fwd, dy, dh, states=states)
+        plain = lambda: ref.mamba_scan_bwd_ref(*fwd, dy, dh)
         got, again, want = kern(), kern(), plain()
         torch.cuda.synchronize()
         errs = []
@@ -2286,7 +2294,20 @@ def scan_bwd_cases(records, dev, flush):
                           torch.float32, max(errs), exps)
         log_record(f"mamba_scan_bwd train x {mode}", rec)
         records[("mamba_scan_bwd", "train", mode)] = rec
-    del dt, Bm, Cm, x32, A, Dsk, h0, dy, dh
+        if mode == "bfloat16":
+            log(f"[kernels] mamba_scan_bwd train x {mode}: device us a call "
+                f"by kernel (profiler, warm L2): "
+                + ", ".join(f"{k} {v:.1f}" for k, v in
+                            device_us_by_kernel(kern).items()))
+            (ms, lo, hi), (bare, blo, bhi) = interleaved_ms(
+                lambda: MS._launch(*fwd, keep_states=True),
+                lambda: MS._launch(*fwd), flush)
+            log(f"[kernels] mamba_scan [{B},{S},{D}] N={N} x {mode}: keeping "
+                f"the tile states median {ms:.4f} ms (range {lo:.4f}-"
+                f"{hi:.4f}), without {bare:.4f} ms (range {blo:.4f}-"
+                f"{bhi:.4f}), in turns, cold-L2")
+        del states
+    del dt, Bm, Cm, x32, A, Dsk, h0, dy, dh, fwd
     a = torch.sigmoid(rn(B, S, W))
     b = rn(B, S, W)
     a.masked_fill_(~pad[..., None], 1.0)

@@ -13,6 +13,10 @@
 //   h0   [B, D, N] float    state before token 0
 //   y    [B, S, D] float    out: h_t . C_t + Dsk * x_t
 //   h    [B, D, N] float    out: state after token S - 1
+//   states [B, ceil(S / kStateTile), D, N] float   out, optional (null:
+//            not written): the state before every kStateTile-step tile,
+//            which the backward kernel (mamba_scan_bwd.cu) starts each of
+//            its tiles from; entry 0 is h0
 //
 //   h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) * B_t
 //
@@ -51,7 +55,12 @@
 //   the step's dt in shared memory, and the block stores each group's y
 //   coalesced once the next group has started;
 // * a whole group's steps are unrolled, so that every shared-memory offset
-//   is a constant and no step pays for address arithmetic or a branch.
+//   is a constant and no step pays for address arithmetic or a branch;
+// * under training the lanes also store their states at each kStateTile
+//   boundary, from the registers that hold them (67 MB a call at the
+//   training shape B 8, S 256, D 8192, N 16); serving passes no `states`
+//   and stores nothing.  The arithmetic is the same either way, so y and h
+//   are the same bits with and without.
 // The recurrence stays sequential in t; B * ceil(D / 64) blocks (1024 at
 // falcon's shape, eight of 128 threads an SM, 64 registers) cover the
 // card in one wave.  What holds it back now: each step of a lane's 8
@@ -63,12 +72,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mamba_tile.cuh"
+
 namespace {
 
 constexpr int kChannels = 64;  // d channels of a block
 constexpr int kTile = 32;      // time steps staged in shared memory at once
 constexpr int kSub = 8;        // steps of a pipeline stage of the tile
 constexpr int kStages = kTile / kSub;
+// steps between kept states (mamba_tile.cuh; a multiple of kSub)
+constexpr int kStateTile = mamba::kStateTile;
+static_assert(kTile % kStateTile == 0 && kStateTile % kSub == 0,
+              "a kept state falls at the start of a stage");
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <int N>
@@ -192,7 +207,8 @@ __global__ void __launch_bounds__(Geometry<N>::kThreads,
                       const TX* __restrict__ x, const float* __restrict__ A,
                       const float* __restrict__ Dsk,
                       const float* __restrict__ h0, float* __restrict__ y,
-                      float* __restrict__ h_out, int S, int D, bool async) {
+                      float* __restrict__ h_out, float* __restrict__ states,
+                      int S, int D, bool async) {
   using G = Geometry<N>;
   // dt in; the even lane of a channel puts the step's y in place of its dt
   // once both lanes have read it (the shuffle orders the two)
@@ -274,6 +290,17 @@ __global__ void __launch_bounds__(Geometry<N>::kThreads,
       if (s > 0) {
         store_y<G::kThreads>(y, dt_s, b, t0, t_lo - kSub, nt, S, D, d0);
       }
+      if (states != nullptr && t_lo % kStateTile == 0 && live) {
+        // the state before step t0 + t_lo: a boundary of the backward's tiles
+        const size_t row = static_cast<size_t>(b)
+                           * ((S + kStateTile - 1) / kStateTile)
+                           + (t0 + t_lo) / kStateTile;
+#pragma unroll
+        for (int k = 0; k < G::kGroups; ++k) {
+          *reinterpret_cast<float4*>(
+              states + (row * D + d) * N + 4 * (j + G::kLanes * k)) = h[k];
+        }
+      }
       if (t_lo + kSub <= nt) {  // a whole stage: every offset a constant
 #pragma unroll
         for (int tt = t_lo; tt < t_lo + kSub; ++tt) {
@@ -307,8 +334,8 @@ __global__ void __launch_bounds__(Geometry<N>::kThreads,
 template <typename TX, int N>
 cudaError_t launch(const void* dt, const void* Bm, const void* Cm,
                    const void* x, const void* A, const void* Dsk,
-                   const void* h0, void* y, void* h, int B, int S, int D,
-                   cudaStream_t stream) {
+                   const void* h0, void* y, void* h, void* states, int B,
+                   int S, int D, cudaStream_t stream) {
   const dim3 grid((D + kChannels - 1) / kChannels, B);
   const bool async = D % 8 == 0;  // every row of dt and x whole 16-byte chunks
   mamba_scan_kernel<TX, N><<<grid, Geometry<N>::kThreads, 0, stream>>>(
@@ -316,41 +343,43 @@ cudaError_t launch(const void* dt, const void* Bm, const void* Cm,
       static_cast<const float*>(Cm), static_cast<const TX*>(x),
       static_cast<const float*>(A), static_cast<const float*>(Dsk),
       static_cast<const float*>(h0), static_cast<float*>(y),
-      static_cast<float*>(h), S, D, async);
+      static_cast<float*>(h), static_cast<float*>(states), S, D, async);
   return cudaGetLastError();
 }
 
 template <typename TX>
 cudaError_t by_state(const void* dt, const void* Bm, const void* Cm,
                      const void* x, const void* A, const void* Dsk,
-                     const void* h0, void* y, void* h, int B, int S, int D,
-                     int N, cudaStream_t stream) {
+                     const void* h0, void* y, void* h, void* states, int B,
+                     int S, int D, int N, cudaStream_t stream) {
   switch (N) {
-    case 4: return launch<TX, 4>(dt, Bm, Cm, x, A, Dsk, h0, y, h, B, S, D,
-                                 stream);
-    case 8: return launch<TX, 8>(dt, Bm, Cm, x, A, Dsk, h0, y, h, B, S, D,
-                                 stream);
-    case 16: return launch<TX, 16>(dt, Bm, Cm, x, A, Dsk, h0, y, h, B, S, D,
-                                   stream);
+    case 4: return launch<TX, 4>(dt, Bm, Cm, x, A, Dsk, h0, y, h, states, B,
+                                 S, D, stream);
+    case 8: return launch<TX, 8>(dt, Bm, Cm, x, A, Dsk, h0, y, h, states, B,
+                                 S, D, stream);
+    case 16: return launch<TX, 16>(dt, Bm, Cm, x, A, Dsk, h0, y, h, states,
+                                   B, S, D, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// x_dtype: 0 = float x, 1 = bf16 x (every other operand is float).
-// Returns the cudaError_t of the launch (0 = success).
+// x_dtype: 0 = float x, 1 = bf16 x (every other operand is float);
+// states may be null.  Returns the cudaError_t of the launch (0 =
+// success).
 extern "C" int mamba_scan(int x_dtype, const void* dt, const void* Bm,
                           const void* Cm, const void* x, const void* A,
                           const void* Dsk, const void* h0, void* y, void* h,
-                          int B, int S, int D, int N, void* stream) {
+                          void* states, int B, int S, int D, int N,
+                          void* stream) {
   if (B <= 0 || S <= 0 || D <= 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (x_dtype) {
-    case 0: return by_state<float>(dt, Bm, Cm, x, A, Dsk, h0, y, h, B, S, D,
-                                   N, st);
+    case 0: return by_state<float>(dt, Bm, Cm, x, A, Dsk, h0, y, h, states,
+                                   B, S, D, N, st);
     case 1: return by_state<__nv_bfloat16>(dt, Bm, Cm, x, A, Dsk, h0, y, h,
-                                           B, S, D, N, st);
+                                           states, B, S, D, N, st);
     default: return cudaErrorInvalidValue;
   }
 }

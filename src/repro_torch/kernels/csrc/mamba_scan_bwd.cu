@@ -5,13 +5,16 @@
 // mamba layers run, src/repro/models/mamba.py _selective_scan, and JAX
 // differentiates it.
 //
-//   dt, x, Bm, Cm, A, Dsk, h0   as in mamba_scan.cu (x float or bf16)
+//   dt, x, Bm, Cm, A, Dsk   as in mamba_scan.cu (x float or bf16)
+//   states   [B, tiles, D, N] float   the state before every kTile-step
+//            tile (tiles = ceil(S / kTile); entry 0 is h0), as the forward
+//            kernel mamba_scan.cu writes it under training (mamba_tile.cuh)
 //   dy       [B, S, D] float    gradient of y
 //   dh_last  [B, D, N] float    gradient of the state after token S - 1
 //   d_dt [B, S, D] float, dx [B, S, D] (x's type), dBm, dCm [B, S, N]
 //   float, dA [D, N] float, dDsk [D] float, dh0 [B, D, N] float   out
-//   states [B, tiles, D, N], part [B, S, blocks, 2, N], part_a [B, D, N],
-//   part_d [B, D]  float scratch
+//   part [B, S, blocks, 2, N], part_a [B, D, N], part_d [B, D]   float
+//   scratch
 //
 // With a_t = exp(dt_t A) and g_t = dL/dh_t = dy_t C_t + a_{t+1} g_{t+1}
 // (g_{S-1} = dy_{S-1} C_{S-1} + dh_last):
@@ -21,60 +24,83 @@
 //   dDsk = sum_{b,t} dy_t x_t               dh0 = a_0 g_0
 //
 // What bounds it on the H100: at falcon-mamba-7b's training shape (B 8,
-// S 256, D 8192, N 16, bf16 x) the call must read dt, dy (fp32), x (bf16)
-// and write d_dt (fp32) and dx (bf16): about 268 MB, 80 us at 3.35 TB/s.
-// It also needs B * S * D * N = 268 M exponentials a pass over the
-// sequence, 64 us at the SFU's rate; this kernel makes three passes.
+// S 256, D 8192, N 16, bf16 x) the call must read dt, dy (fp32) and x
+// (bf16) and write d_dt (fp32) and dx (bf16): about 283 MB with the small
+// operands, 84 us at 3.35 TB/s.  Each pass over the sequence takes
+// B * S * D * N = 268 M exponentials, 64 us at the SFU's rate, and the walk
+// back does about a dozen float32 operations for each of them and sums
+// over both the states (d_dt, dx) and the channels (dB, dC) at every step.
+// The work a step is sequential in t for a channel and its sums cross
+// lanes, so what binds is the schedulers' instruction rate and the
+// shared-memory and shuffle traffic of those sums
+// (scripts/scan_bwd_variants.py takes each part out in turn: PERF.md), not
+// the bytes.
 //
 // What the design does about it:
-// * the forward's layout: a block of kChannels channels of one sequence, a
-//   channel's N states over kLanes lanes (two at N 8 and 16, one at N 4)
-//   in whole float4 groups, time sequential in each lane;
-// * the states are not saved by the forward (1.07 GB a layer at the
-//   training shape): a first pass runs the forward from h0 and writes the
-//   state at each kTile-step tile boundary to `states`; then the tiles are
-//   walked in reverse, each one's kTile + 1 states recomputed into shared
-//   memory from its boundary before g runs backward through it.  exp(dt A)
-//   is ex2.approx of dt * (A log2 e), as in the forward, so both see the
-//   same a_t; a pad lane (dt = 0) has a = 1 exactly and passes g through;
-// * per-channel sums over n (dx, d_dt) add each lane's states and the two
-//   lanes' sums with one __shfl_xor_sync; the even lane puts them in
-//   place of the step's dt and x in shared memory, and the block stores
-//   each tile's d_dt and dx coalesced;
-// * sums across channels (dC_t, and dB_t from g_t dt_t x_t, which the walk
-//   writes over the state it no longer needs) are added over the block's
-//   channels in shared memory after each tile, in channel order, and
-//   written as float32 partials a block; dA and dDsk are summed over the
-//   sequence in registers and written as partials a sequence.  A second
-//   kernel adds the partials in a fixed order: no atomics, so a second call
-//   gives the same bits.
-// Blocks: B * ceil(D / 64) (1024 at falcon's shape), 85 KB of shared memory
-// at N 16 (two blocks an SM).  What holds it back: three passes of
-// exponentials, the state round trip through shared memory, and the
-// serial reductions over 64 channels after each tile.
+// * the forward keeps the state at every tile boundary (mamba_scan.cu's
+//   `states`, 67 MB at the training shape), so nothing reruns the forward
+//   from h0: each tile's kTile states are recomputed from its boundary into
+//   registers (the one exponential pass besides the walk), and the walk
+//   back takes a_t = ex2(dt_t A log2 e) once more, as the forward does, so
+//   both see the same a_t (keeping the tile's a_t in registers instead
+//   needs more registers, so fewer warps an SM, and is slower:
+//   scripts/scan_bwd_variants.py's keep-a).  a_t h_{t-1} is
+//   h_t - dt_t x_t B_t: no state before the tile is kept and no
+//   exponential is needed for it.  A pad lane (dt = 0) has a = 1 exactly
+//   and passes g through;
+// * a channel's N states lie over N / 4 lanes, a float4 each, so a warp
+//   holds 32 / (N / 4) channels (8 at N 16) and a lane the 4 x kTile
+//   states of a tile in 64 registers;
+// * the sums over channels (dB_t and dC_t) are one butterfly
+//   reduce-scatter of __shfl_xor_sync over the warp's channel bits with
+//   few selects (channel_sums: a lane whose channel has bit 0 set holds
+//   its two pairs of states swapped, which its B and C loads do for free),
+//   7 shuffles a step that leave one value a lane; the warps' values are
+//   added in warp order in shared memory once a tile and written as
+//   float32 partials a block, and a second kernel adds the blocks' in
+//   block order, and dA's and dDsk's (summed over the sequence in
+//   registers) in sequence order: no atomics, and a second call gives the
+//   same bits;
+// * the sums over a channel's states (d_dt, dx) leave the walk: each lane
+//   writes its two parts a step to shared memory, and the block adds the
+//   channel's lanes as a pairwise tree when it stores the tile's rows;
+// * each step's operands are loaded before the step after it stores, so
+//   that the loads need not wait for the stores and two steps overlap;
+// * a tile's dt, x, dy, Bm, Cm and boundary states land in shared memory
+//   by cp.async while the tile after it is walked (two stages; a width
+//   that is not a multiple of 8 stages dt, x and dy through registers).
+// Blocks: B * ceil(D / 128) (512 at falcon's shape) of 32 N threads, held
+// to 128 registers a thread so that at N 16 one block of 512 fills an
+// SM's register file (16 warps, four a scheduler); 164 KB of shared
+// memory at N 16.  Traffic beyond the bound: the states (67 MB read), the
+// block partials (16.8 MB written and read) and dA's (4.2 MB written and
+// read).  What holds it back now: about 100 instructions a step of a
+// lane's four states, 7 shuffles and 13 shared-memory accesses among them,
+// at four warps a scheduler (PERF.md).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mamba_tile.cuh"
+
 namespace {
 
-constexpr int kChannels = 64;  // d channels of a block
-constexpr int kTile = 16;      // steps recomputed and kept at once
+// steps between kept states (mamba_tile.cuh), recomputed at once
+constexpr int kTile = mamba::kStateTile;
+constexpr int kChannels = 128;  // d channels of a block
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr unsigned kAll = 0xffffffffu;
 
 template <int N>
 struct Geometry {
-  static constexpr int kLanes = N == 4 ? 1 : 2;        // lanes a channel
-  static constexpr int kGroups = N / 4 / kLanes;       // float4s a lane
-  static constexpr int kThreads = kChannels * kLanes;  // threads a block
-  // float4s a row of the state buffer, one row per (step, group): padded
-  // so that the reductions over channels, whose threads read one state
-  // each of neighbouring rows, hit distinct banks
-  static constexpr int kRow = kThreads + 2;
-  static constexpr int kRows = (kTile + 1) * kGroups;
-  static constexpr size_t kSmem =
-      sizeof(float4) * kRows * kRow + sizeof(float) * kTile
-      * (3 * kChannels + 2 * N);
+  static constexpr int kLanes = N / 4;                   // lanes a channel
+  static constexpr int kWarpChannels = 32 / kLanes;      // channels a warp
+  static constexpr int kWarps = kChannels / kWarpChannels;
+  static constexpr int kThreads = 32 * kWarps;           // threads a block
+  // blocks an SM at 128 registers a thread
+  static constexpr int kMinBlocks = 512 / kThreads;
+  static constexpr int kLaneBits = N == 16 ? 2 : N == 8 ? 1 : 0;
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -100,288 +126,328 @@ __device__ __forceinline__ float ex2(float x) {
 __device__ __forceinline__ float& at(float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
-__device__ __forceinline__ float at(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+
+// 16 bytes from global to shared memory without a register, or (full =
+// false) 16 zero bytes.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// The shared-memory buffers of a block.
-template <int N>
-struct Smem {
-  float4* hs;                // [kRows][kRow]: states, then g dt x
-  float (*dt_s)[kChannels];  // [kTile]: dt, then d_dt
-  float (*x_s)[kChannels];   // [kTile]: x, then dx
-  float (*dy_s)[kChannels];  // [kTile]
-  float (*b_s)[N];           // [kTile]
-  float (*c_s)[N];           // [kTile]
-
-  __device__ explicit Smem(unsigned char* raw) {
-    using G = Geometry<N>;
-    hs = reinterpret_cast<float4*>(raw);
-    float* f = reinterpret_cast<float*>(hs + G::kRows * G::kRow);
-    dt_s = reinterpret_cast<float (*)[kChannels]>(f);
-    x_s = dt_s + kTile;
-    dy_s = x_s + kTile;
-    b_s = reinterpret_cast<float (*)[N]>(dy_s + kTile);
-    c_s = b_s + kTile;
-  }
-  // the float4 of states of thread `tid`, group k, at tile step `step`
-  // (step 0: the state before the tile)
-  __device__ float4& state(int step, int k, int tid) {
-    return hs[(step * Geometry<N>::kGroups + k) * Geometry<N>::kRow + tid];
-  }
-  // state n of channel cc at tile step `step`
-  __device__ float state_n(int step, int cc, int n) {
-    using G = Geometry<N>;
-    const int g = n / 4;
-    return reinterpret_cast<const float*>(
-        &state(step, g / G::kLanes, cc * G::kLanes + g % G::kLanes))[n % 4];
-  }
+// One stage: a tile's inputs, and the state before it.
+template <typename TX, int N>
+struct Stage {
+  float4 h[kChannels * N / 4];  // [channel][N]: the state before the tile
+  float dt[kTile][kChannels];
+  float dy[kTile][kChannels];
+  TX x[kTile][kChannels];
+  float b[kTile][N];
+  float c[kTile][N];
 };
 
-// Rows [t0, t0 + nt) of a tile into shared memory (float), zero past nt
-// and past D: dt, x and Bm, and with `full` also dy and Cm.  Every load of
-// a thread is issued before the first store, so that a tile's loads are in
-// flight together.
-template <typename TX, int N, bool full>
-__device__ __forceinline__ void stage(Smem<N>& sm, const float* dt,
-                                      const TX* x, const float* dy,
-                                      const float* Bm, const float* Cm,
-                                      int b, int t0, int nt, int S, int D,
-                                      int d0) {
-  constexpr int kThreads = Geometry<N>::kThreads;
-  constexpr int kPer = kTile * kChannels / kThreads;  // (t, c) a thread
-  constexpr int kPerN = kTile * N / kThreads;         // (t, n) a thread
-  static_assert(kTile * kChannels % kThreads == 0 && kTile * N % kThreads == 0,
-                "a tile splits evenly over the block");
-  float rdt[kPer], rx[kPer], rdy[kPer], rb[kPerN], rc[kPerN];
-#pragma unroll
-  for (int r = 0; r < kPer; ++r) {
-    const int i = threadIdx.x + r * kThreads;
-    const int t = i / kChannels, cc = i % kChannels;
-    const bool in = t < nt && d0 + cc < D;
-    const size_t off = (static_cast<size_t>(b) * S + t0 + t) * D + d0 + cc;
-    rdt[r] = in ? dt[off] : 0.f;
-    rx[r] = in ? to_float(x[off]) : 0.f;
-    rdy[r] = full && in ? dy[off] : 0.f;
-  }
-#pragma unroll
-  for (int r = 0; r < kPerN; ++r) {
-    const int i = threadIdx.x + r * kThreads;
-    const size_t src = (static_cast<size_t>(b) * S + t0) * N + i;
-    rb[r] = i / N < nt ? Bm[src] : 0.f;
-    rc[r] = full && i / N < nt ? Cm[src] : 0.f;
-  }
-#pragma unroll
-  for (int r = 0; r < kPer; ++r) {
-    const int i = threadIdx.x + r * kThreads;
-    const int t = i / kChannels, cc = i % kChannels;
-    sm.dt_s[t][cc] = rdt[r];
-    sm.x_s[t][cc] = rx[r];
-    if (full) sm.dy_s[t][cc] = rdy[r];
-  }
-#pragma unroll
-  for (int r = 0; r < kPerN; ++r) {
-    const int i = threadIdx.x + r * kThreads;
-    sm.b_s[i / N][i % N] = rb[r];
-    if (full) sm.c_s[i / N][i % N] = rc[r];
-  }
+template <typename TX, int N>
+struct Smem {
+  Stage<TX, N> stage[2];
+  float part[Geometry<N>::kWarps][kTile][2 * N];  // the warps' dB, dC
+  // each lane's (sa + x sb, sb) of a step: d_dt and dx are their sums over
+  // the channel's lanes
+  float2 lanes[kTile][kChannels][Geometry<N>::kLanes];
+};
+
+// A lane's float4 of states in its order: the two pairs swapped when its
+// channel's bit 0 (c0, channel_sums) is set.
+__device__ __forceinline__ float4 in_order(float4 v, int c0) {
+  return c0 ? make_float4(v.z, v.w, v.x, v.y) : v;
 }
 
-// One forward step of a lane's states (as mamba_scan.cu's step).
+// Row tt of B or C at the lane's states in its order: two 8-byte loads at
+// the lane's own pair offsets, so that a warp's load reads only the row.
 template <int N>
-__device__ __forceinline__ void advance(float4 (&h)[Geometry<N>::kGroups],
-                                        const float4 (&a2)[Geometry<N>::kGroups],
-                                        float dtv, float xv,
-                                        const float* b_row, int j) {
-  using G = Geometry<N>;
-  const float dx = dtv * xv;
+__device__ __forceinline__ float4 row_in_order(const float (&row)[N], int j,
+                                               int c0) {
+  const float2* pairs = reinterpret_cast<const float2*>(row) + 2 * j;
+  const float2 lo = pairs[c0], hi = pairs[c0 ^ 1];
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// A step's operands of a lane's channel, and B and C in its order.
+struct Step {
+  float dt, x, dy;
+  float4 b, c;
+};
+
+template <typename TX, int N>
+__device__ __forceinline__ Step load_step(const Stage<TX, N>& st, int tt,
+                                          int c, int j, int c0) {
+  return {st.dt[tt][c], to_float(st.x[tt][c]), st.dy[tt][c],
+          row_in_order(st.b[tt], j, c0), row_in_order(st.c[tt], j, c0)};
+}
+
+// Rows [0, kTile) of a [B, S, W] array from row0 = b * S + t0, columns
+// [w0, w0 + kCols), into dst by 16-byte cp.async chunks; rows at or past
+// nt and columns at or past W are zero-filled (W a multiple of the chunk).
+template <typename T, int kCols, int kThreads>
+__device__ __forceinline__ void stage_rows(T (*dst)[kCols],
+                                           const T* __restrict__ src,
+                                           size_t row0, int nt, int W,
+                                           int w0) {
+  constexpr int kPer = 16 / sizeof(T);  // elements a chunk
+  constexpr int kRow = kCols / kPer;    // chunks a row
+  constexpr int kChunks = kTile * kRow;
 #pragma unroll
-  for (int k = 0; k < G::kGroups; ++k) {
-    const float4 bq = reinterpret_cast<const float4*>(b_row)[j + G::kLanes * k];
-    h[k].x = fmaf(ex2(dtv * a2[k].x), h[k].x, dx * bq.x);
-    h[k].y = fmaf(ex2(dtv * a2[k].y), h[k].y, dx * bq.y);
-    h[k].z = fmaf(ex2(dtv * a2[k].z), h[k].z, dx * bq.z);
-    h[k].w = fmaf(ex2(dtv * a2[k].w), h[k].w, dx * bq.w);
+  for (int r = 0; r < (kChunks + kThreads - 1) / kThreads; ++r) {
+    const int q = threadIdx.x + r * kThreads;
+    if (kChunks % kThreads == 0 || q < kChunks) {
+      const int t = q / kRow, col = (q % kRow) * kPer;
+      const bool full = t < nt && w0 + col < W;
+      cp_async16(&dst[t][col], full ? src + (row0 + t) * W + w0 + col : src,
+                 full);
+    }
   }
 }
 
-// Sum over the block's channels, in channel order, of each (step, state)
-// of the tile: with `weigh`, dy_t[c] * h_t[c, n] (dC), else the g dt x the
-// walk left in the state buffer (dB); written to part[b, t, blk, q, n].
-template <int N, bool weigh>
-__device__ __forceinline__ void channel_sums(Smem<N>& sm,
-                                             float* __restrict__ part, int b,
-                                             int t0, int nt, int S,
-                                             int blocks, int q) {
-  constexpr int kThreads = Geometry<N>::kThreads;
-  for (int o = threadIdx.x; o < nt * N; o += kThreads) {
-    const int tt = o / N, n = o % N;
-    float s = 0.f;
-    for (int cc = 0; cc < kChannels; ++cc) {
-      const float v = sm.state_n(tt + 1, cc, n);
-      s = weigh ? fmaf(sm.dy_s[tt][cc], v, s) : s + v;
-    }
-    part[((static_cast<size_t>(b) * S + t0 + tt) * blocks + blockIdx.x) * 2
-             * N + q * N + n] = s;
+// The same through registers, for a width that is not a multiple of 8.
+template <typename T, int kCols, int kThreads>
+__device__ __forceinline__ void load_rows(T (*dst)[kCols],
+                                          const T* __restrict__ src,
+                                          size_t row0, int nt, int W,
+                                          int w0) {
+  for (int i = threadIdx.x; i < kTile * kCols; i += kThreads) {
+    const int t = i / kCols, col = i % kCols;
+    dst[t][col] = t < nt && w0 + col < W ? src[(row0 + t) * W + w0 + col]
+                                         : T(0.f);
   }
+}
+
+// Start the copies of tile `tile`'s inputs and boundary into `st`, one
+// cp.async group.
+template <typename TX, int N>
+__device__ __forceinline__ void stage_tile(
+    Stage<TX, N>& st, const float* __restrict__ dt,
+    const TX* __restrict__ x, const float* __restrict__ dy,
+    const float* __restrict__ Bm, const float* __restrict__ Cm,
+    const float* __restrict__ states, int b, int tile, int tiles, int S,
+    int D, int d0, bool async) {
+  constexpr int kThreads = Geometry<N>::kThreads;
+  const int t0 = tile * kTile, nt = min(kTile, S - t0);
+  const size_t row0 = static_cast<size_t>(b) * S + t0;
+  if (async) {
+    stage_rows<float, kChannels, kThreads>(st.dt, dt, row0, nt, D, d0);
+    stage_rows<float, kChannels, kThreads>(st.dy, dy, row0, nt, D, d0);
+    stage_rows<TX, kChannels, kThreads>(st.x, x, row0, nt, D, d0);
+  } else {
+    load_rows<float, kChannels, kThreads>(st.dt, dt, row0, nt, D, d0);
+    load_rows<float, kChannels, kThreads>(st.dy, dy, row0, nt, D, d0);
+    load_rows<TX, kChannels, kThreads>(st.x, x, row0, nt, D, d0);
+  }
+  stage_rows<float, N, kThreads>(st.b, Bm, row0, nt, N, 0);
+  stage_rows<float, N, kThreads>(st.c, Cm, row0, nt, N, 0);
+  // the boundary: the block's channels of one [D, N] row, contiguous
+  constexpr int kChunks = kChannels * N / 4;
+  const float* row = states + ((static_cast<size_t>(b) * tiles + tile) * D
+                               + d0) * N;
+#pragma unroll
+  for (int r = 0; r < (kChunks + kThreads - 1) / kThreads; ++r) {
+    const int q = threadIdx.x + r * kThreads;
+    if (kChunks % kThreads == 0 || q < kChunks) {
+      const bool full = d0 + q * 4 / N < D;
+      cp_async16(&st.h[q], full ? row + 4 * q : states, full);
+    }
+  }
+  cp_async_commit();
+}
+
+// Sums over the warp's channels of dtx_c g_c[n] (dB) and dy_c h_c[n] (dC)
+// for one of the lane's states n.  A channel c's lane holds its states
+// 4 j .. 4 j + 3 with the two pairs swapped when c0 is set (c0, c1, c2:
+// bits 0-2 of c within the warp, lane bits kLanes, 2 kLanes, 4 kLanes), so
+// the partner across c0 holds in places 2 and 3 the states this lane holds
+// in places 0 and 1: the first step of the butterfly reduce-scatter needs
+// no selects, and its products are fused into its adds.  The second keeps
+// place c1, the third keeps dB (c2 clear) or dC (c2 set), and (N < 16) the
+// rest add over the higher bits.  The lane ends with dB or dC of its state
+// 4 j + 2 c0 + c1, each channel pair (c, c ^ 1) added as (c, c ^ 2), then
+// (c, c ^ 4) and up, the same bits in every lane that holds it.
+template <int kLanes>
+__device__ __forceinline__ float channel_sums(float dtx, float4 g, float dy,
+                                              float4 h, int lane) {
+  const float db0 = fmaf(g.x, dtx, __shfl_xor_sync(kAll, g.z * dtx, kLanes));
+  const float db1 = fmaf(g.y, dtx, __shfl_xor_sync(kAll, g.w * dtx, kLanes));
+  const float dc0 = fmaf(h.x, dy, __shfl_xor_sync(kAll, h.z * dy, kLanes));
+  const float dc1 = fmaf(h.y, dy, __shfl_xor_sync(kAll, h.w * dy, kLanes));
+  bool up = lane & (2 * kLanes);
+  const float bs = (up ? db1 : db0)
+                   + __shfl_xor_sync(kAll, up ? db0 : db1, 2 * kLanes);
+  const float cs = (up ? dc1 : dc0)
+                   + __shfl_xor_sync(kAll, up ? dc0 : dc1, 2 * kLanes);
+  up = lane & (4 * kLanes);
+  float r = (up ? cs : bs) + __shfl_xor_sync(kAll, up ? bs : cs, 4 * kLanes);
+#pragma unroll
+  for (int m = 8 * kLanes; m < 32; m *= 2) r += __shfl_xor_sync(kAll, r, m);
+  return r;
 }
 
 template <typename TX, int N>
-__global__ void __launch_bounds__(Geometry<N>::kThreads)
+__global__ void __launch_bounds__(Geometry<N>::kThreads,
+                                  Geometry<N>::kMinBlocks)
     mamba_scan_bwd_kernel(const float* __restrict__ dt,
                           const float* __restrict__ Bm,
                           const float* __restrict__ Cm,
                           const TX* __restrict__ x,
                           const float* __restrict__ A,
                           const float* __restrict__ Dsk,
-                          const float* __restrict__ h0,
+                          const float* __restrict__ states,
                           const float* __restrict__ dy,
                           const float* __restrict__ dh_last,
                           float* __restrict__ d_dt, TX* __restrict__ dx,
                           float* __restrict__ dh0,
-                          float* __restrict__ states,
                           float* __restrict__ part,
                           float* __restrict__ part_a,
-                          float* __restrict__ part_d, int S, int D) {
+                          float* __restrict__ part_d, int S, int D,
+                          bool async) {
   using G = Geometry<N>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem<N> sm(smem_raw);
+  Smem<TX, N>& sm = *reinterpret_cast<Smem<TX, N>*>(smem_raw);
   const int b = blockIdx.y;
   const int blocks = gridDim.x;
   const int d0 = blockIdx.x * kChannels;
-  const int tid = threadIdx.x;
-  const int c = tid / G::kLanes;  // channel within the block
-  const int j = tid % G::kLanes;  // lane within the channel
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int cw = lane / G::kLanes;              // channel within the warp
+  const int j = lane % G::kLanes;               // the lane's float4 of states
+  const int c = warp * G::kWarpChannels + cw;   // channel within the block
   const int d = d0 + c;
   const bool live = d < D;
   const int tiles = (S + kTile - 1) / kTile;
-  // offset of this lane's group k in a [.., D, N] array at (row, d)
-  auto at_dn = [&](size_t row, int k) {
-    return (row * D + d) * N + 4 * (j + G::kLanes * k);
-  };
+  // the lane's order of its states (channel_sums), the warp sum it ends
+  // with, dB or dC of state 4 j + 2 c0 + c1, and whether it writes it (no
+  // channel bit above c2 set)
+  const int c0 = cw & 1;
+  const int slot = ((cw >> 2) & 1) * N + 4 * j + 2 * c0 + ((cw >> 1) & 1);
+  const bool writer = (lane >> (G::kLaneBits + 3)) == 0;
 
-  float4 h[G::kGroups], a2[G::kGroups], av[G::kGroups];
-  float dsk = 0.f;
-#pragma unroll
-  for (int k = 0; k < G::kGroups; ++k) {
-    h[k] = a2[k] = av[k] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  if (live) {
-#pragma unroll
-    for (int k = 0; k < G::kGroups; ++k) {
-      h[k] = *reinterpret_cast<const float4*>(h0 + at_dn(b, k));
-      av[k] = *reinterpret_cast<const float4*>(A + at_dn(0, k));
-      a2[k] = make_float4(av[k].x * kLog2e, av[k].y * kLog2e,
-                          av[k].z * kLog2e, av[k].w * kLog2e);
-    }
-    dsk = Dsk[d];
-  }
-
-  // pass 1: the forward from h0, keeping the state before every tile
-  for (int tile = 0; tile < tiles; ++tile) {
-    if (live) {
-#pragma unroll
-      for (int k = 0; k < G::kGroups; ++k) {
-        *reinterpret_cast<float4*>(
-            states + at_dn(static_cast<size_t>(b) * tiles + tile, k)) = h[k];
-      }
-    }
-    if (tile == tiles - 1) break;
-    __syncthreads();  // the previous tile's inputs have been consumed
-    stage<TX, N, false>(sm, dt, x, dy, Bm, Cm, b, tile * kTile, kTile, S, D,
-                        d0);
-    __syncthreads();
-    for (int tt = 0; tt < kTile; ++tt) {
-      advance<N>(h, a2, sm.dt_s[tt][c], sm.x_s[tt][c], sm.b_s[tt], j);
-    }
-  }
-
-  // pass 2: the tiles in reverse, g carried backwards through each
-  float4 carry[G::kGroups], dacc[G::kGroups];
-#pragma unroll
-  for (int k = 0; k < G::kGroups; ++k) {
-    carry[k] = dacc[k] = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (live) {
-      carry[k] = *reinterpret_cast<const float4*>(dh_last + at_dn(b, k));
-    }
-  }
+  float4 a2 = make_float4(0.f, 0.f, 0.f, 0.f), carry = a2, dacc = a2;
   float dd = 0.f;  // sum over t of dy x (the skip's gradient)
+  if (live) {
+    const size_t dn = static_cast<size_t>(d) * N + 4 * j;
+    const float4 av = in_order(*reinterpret_cast<const float4*>(A + dn), c0);
+    a2 = make_float4(av.x * kLog2e, av.y * kLog2e, av.z * kLog2e,
+                     av.w * kLog2e);
+    carry = in_order(*reinterpret_cast<const float4*>(
+        dh_last + static_cast<size_t>(b) * D * N + dn), c0);
+  }
+
+  stage_tile<TX, N>(sm.stage[(tiles - 1) & 1], dt, x, dy, Bm, Cm, states, b,
+                    tiles - 1, tiles, S, D, d0, async);
+  cp_async_wait_all();
   for (int tile = tiles - 1; tile >= 0; --tile) {
+    Stage<TX, N>& st = sm.stage[tile & 1];
     const int t0 = tile * kTile, nt = min(kTile, S - t0);
-    if (live) {
-#pragma unroll
-      for (int k = 0; k < G::kGroups; ++k) {
-        h[k] = *reinterpret_cast<const float4*>(
-            states + at_dn(static_cast<size_t>(b) * tiles + tile, k));
-      }
+    __syncthreads();  // this tile has landed; the other stage is stored
+    if (tile > 0) {
+      stage_tile<TX, N>(sm.stage[(tile - 1) & 1], dt, x, dy, Bm, Cm, states,
+                        b, tile - 1, tiles, S, D, d0, async);
     }
-    __syncthreads();  // the previous tile's shared memory has been read
-    stage<TX, N, true>(sm, dt, x, dy, Bm, Cm, b, t0, nt, S, D, d0);
+
+    // the tile's states h_t, recomputed from its boundary as the forward
+    // computed them (rows past nt are zero: a = 1, the state unchanged)
+    float4 hs[kTile];
+    float4 h = in_order(st.h[c * G::kLanes + j], c0);
 #pragma unroll
-    for (int k = 0; k < G::kGroups; ++k) sm.state(0, k, tid) = h[k];
-    __syncthreads();
-    for (int tt = 0; tt < nt; ++tt) {  // the tile's states, recomputed
-      advance<N>(h, a2, sm.dt_s[tt][c], sm.x_s[tt][c], sm.b_s[tt], j);
-#pragma unroll
-      for (int k = 0; k < G::kGroups; ++k) sm.state(tt + 1, k, tid) = h[k];
+    for (int tt = 0; tt < kTile; ++tt) {
+      const float dtv = st.dt[tt][c];
+      const float dtx = dtv * to_float(st.x[tt][c]);
+      const float4 bq = row_in_order(st.b[tt], j, c0);
+      const float4 a = make_float4(ex2(dtv * a2.x), ex2(dtv * a2.y),
+                                   ex2(dtv * a2.z), ex2(dtv * a2.w));
+      h.x = fmaf(a.x, h.x, dtx * bq.x);
+      h.y = fmaf(a.y, h.y, dtx * bq.y);
+      h.z = fmaf(a.z, h.z, dtx * bq.z);
+      h.w = fmaf(a.w, h.w, dtx * bq.w);
+      hs[tt] = h;
     }
-    __syncthreads();
-    channel_sums<N, true>(sm, part, b, t0, nt, S, blocks, 1);  // dC
-    __syncthreads();  // the walk overwrites the states the sums read
-    for (int tt = nt - 1; tt >= 0; --tt) {
-      const float dtv = sm.dt_s[tt][c], xv = sm.x_s[tt][c];
-      const float dyv = sm.dy_s[tt][c], dtx = dtv * xv;
-      float sdt = 0.f, sdx = 0.f;
+
+    // g walked back through the tile, with dB_t = sum_d g_t dt_t x_t and
+    // dC_t = sum_d dy_t h_t over the warp's channels.  Each step's
+    // operands are loaded before the step after it stores its results, so
+    // that the loads need not wait for those stores.
+    Step cur = load_step(st, kTile - 1, c, j, c0);
 #pragma unroll
-      for (int k = 0; k < G::kGroups; ++k) {
-        const int g4 = j + G::kLanes * k;
-        const float4 hp = sm.state(tt, k, tid);  // h_{t-1}
-        const float4 bq = reinterpret_cast<const float4*>(sm.b_s[tt])[g4];
-        const float4 cq = reinterpret_cast<const float4*>(sm.c_s[tt])[g4];
-        float4 w;
+    for (int tt = kTile - 1; tt >= 0; --tt) {
+      const Step next = load_step(st, tt > 0 ? tt - 1 : 0, c, j, c0);
+      const float dtv = cur.dt, xv = cur.x, dyv = cur.dy, dtx = dtv * xv;
+      float4 g;
+      // sums over the lane's states of A log2(e) a h_{t-1} g (A log2 e:
+      // the exponent's scale, kept in place of A) and of g B
+      float sa = 0.f, sb = 0.f;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float a = ex2(dtv * at(a2[k], i));
-          const float g = fmaf(dyv, at(cq, i), at(carry[k], i));
-          const float ah = a * at(hp, i);
-          const float bn = at(bq, i);
-          sdt = fmaf(g, fmaf(at(av[k], i), ah, xv * bn), sdt);
-          sdx = fmaf(g, bn, sdx);
-          at(dacc[k], i) = fmaf(g * dtv, ah, at(dacc[k], i));
-          at(carry[k], i) = a * g;
-          at(w, i) = g * dtx;
-        }
-        sm.state(tt + 1, k, tid) = w;  // h_t is no longer needed
+      for (int i = 0; i < 4; ++i) {
+        const float a = ex2(dtv * at(a2, i));
+        at(g, i) = fmaf(dyv, at(cur.c, i), at(carry, i));
+        // g a_t h_{t-1} = g (h_t - dt_t x_t B_t)
+        const float u = at(g, i) * fmaf(-dtx, at(cur.b, i), at(hs[tt], i));
+        sa = fmaf(at(a2, i), u, sa);
+        sb = fmaf(at(g, i), at(cur.b, i), sb);
+        at(dacc, i) = fmaf(dtv, u, at(dacc, i));
+        at(carry, i) = a * at(g, i);
       }
-      if (G::kLanes == 2) {  // both lanes have read this step's dt and x
-        sdt += __shfl_xor_sync(0xffffffffu, sdt, 1);
-        sdx += __shfl_xor_sync(0xffffffffu, sdx, 1);
-      }
-      if (j == 0) {
-        sm.dt_s[tt][c] = sdt;
-        sm.x_s[tt][c] = fmaf(dtv, sdx, dsk * dyv);
-      }
+      // d_dt = sum over the channel's lanes of (sa + x sb), dx = dt sum(sb)
+      // + Dsk dy: added once the tile is walked
+      sm.lanes[tt][c][j] = make_float2(fmaf(xv, sb, sa * kLn2), sb);
+      const float sum = channel_sums<G::kLanes>(dtx, g, dyv, hs[tt], lane);
+      if (writer) sm.part[warp][tt][slot] = sum;
       dd = fmaf(dyv, xv, dd);
+      cur = next;
     }
-    __syncthreads();
-    channel_sums<N, false>(sm, part, b, t0, nt, S, blocks, 0);  // dB
+    cp_async_wait_all();  // the next tile's inputs, this thread's copies
+    __syncthreads();      // everyone's, and the walk's results
+
+    // dB and dC of the tile: the warps' sums added in warp order
+    for (int o = tid; o < kTile * 2 * N; o += G::kThreads) {
+      const int tt = o / (2 * N), qn = o % (2 * N);
+      float s = sm.part[0][tt][qn];
+#pragma unroll
+      for (int w = 1; w < G::kWarps; ++w) s += sm.part[w][tt][qn];
+      if (tt < nt) {
+        part[((static_cast<size_t>(b) * S + t0 + tt) * blocks + blockIdx.x)
+                 * 2 * N + qn] = s;
+      }
+    }
+    // d_dt and dx of the tile: the lanes' parts added as a pairwise tree
     for (int i = tid; i < kTile * kChannels; i += G::kThreads) {
       const int t = i / kChannels, cc = i % kChannels;
       if (t < nt && d0 + cc < D) {
+        float2 s[G::kLanes];
+#pragma unroll
+        for (int k = 0; k < G::kLanes; ++k) s[k] = sm.lanes[t][cc][k];
+#pragma unroll
+        for (int w = 1; w < G::kLanes; w *= 2) {
+#pragma unroll
+          for (int k = 0; k < G::kLanes; k += 2 * w) {
+            s[k] = make_float2(s[k].x + s[k + w].x, s[k].y + s[k + w].y);
+          }
+        }
         const size_t off = (static_cast<size_t>(b) * S + t0 + t) * D + d0
                            + cc;
-        d_dt[off] = sm.dt_s[t][cc];
-        dx[off] = from_float<TX>(sm.x_s[t][cc]);
+        d_dt[off] = s[0].x;
+        dx[off] = from_float<TX>(fmaf(st.dt[t][cc], s[0].y,
+                                      Dsk[d0 + cc] * st.dy[t][cc]));
       }
     }
   }
 
   if (live) {
-#pragma unroll
-    for (int k = 0; k < G::kGroups; ++k) {
-      *reinterpret_cast<float4*>(dh0 + at_dn(b, k)) = carry[k];
-      *reinterpret_cast<float4*>(part_a + at_dn(b, k)) = dacc[k];
-    }
+    const size_t bdn = (static_cast<size_t>(b) * D + d) * N + 4 * j;
+    *reinterpret_cast<float4*>(dh0 + bdn) = in_order(carry, c0);
+    *reinterpret_cast<float4*>(part_a + bdn) = in_order(dacc, c0);
     if (j == 0) part_d[static_cast<size_t>(b) * D + d] = dd;
   }
 }
@@ -425,13 +491,15 @@ template <typename TX, int N>
 cudaError_t launch(const void* const* in, void* const* out, void* const* tmp,
                    int B, int S, int D, cudaStream_t stream) {
   using G = Geometry<N>;
+  constexpr size_t kSmem = sizeof(Smem<TX, N>);
   auto kernel = mamba_scan_bwd_kernel<TX, N>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(G::kSmem));
+      static_cast<int>(kSmem));
   if (err != cudaSuccess) return err;
   const int blocks = (D + kChannels - 1) / kChannels;
-  kernel<<<dim3(blocks, B), G::kThreads, G::kSmem, stream>>>(
+  const bool async = D % 8 == 0;  // rows of dt, x, dy in whole 16-byte chunks
+  kernel<<<dim3(blocks, B), G::kThreads, kSmem, stream>>>(
       static_cast<const float*>(in[0]), static_cast<const float*>(in[1]),
       static_cast<const float*>(in[2]), static_cast<const TX*>(in[3]),
       static_cast<const float*>(in[4]), static_cast<const float*>(in[5]),
@@ -439,15 +507,15 @@ cudaError_t launch(const void* const* in, void* const* out, void* const* tmp,
       static_cast<const float*>(in[8]), static_cast<float*>(out[0]),
       static_cast<TX*>(out[3]), static_cast<float*>(out[6]),
       static_cast<float*>(tmp[0]), static_cast<float*>(tmp[1]),
-      static_cast<float*>(tmp[2]), static_cast<float*>(tmp[3]), S, D);
+      static_cast<float*>(tmp[2]), S, D, async);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t total = 2 * static_cast<size_t>(B) * S * N
                        + static_cast<size_t>(D) * N + D;
   mamba_scan_bwd_sum<<<static_cast<unsigned>((total + 255) / 256), 256, 0,
                        stream>>>(
-      static_cast<const float*>(tmp[1]), static_cast<const float*>(tmp[2]),
-      static_cast<const float*>(tmp[3]), static_cast<float*>(out[1]),
+      static_cast<const float*>(tmp[0]), static_cast<const float*>(tmp[1]),
+      static_cast<const float*>(tmp[2]), static_cast<float*>(out[1]),
       static_cast<float*>(out[2]), static_cast<float*>(out[4]),
       static_cast<float*>(out[5]), B, S, D, N, blocks);
   return cudaGetLastError();
@@ -471,16 +539,16 @@ cudaError_t by_state(const void* const* in, void* const* out,
 // Returns the cudaError_t of the launches (0 = success).
 extern "C" int mamba_scan_bwd(int x_dtype, const void* dt, const void* Bm,
                               const void* Cm, const void* x, const void* A,
-                              const void* Dsk, const void* h0,
+                              const void* Dsk, const void* states,
                               const void* dy, const void* dh_last,
                               void* d_dt, void* dBm, void* dCm, void* dx,
-                              void* dA, void* dDsk, void* dh0, void* states,
-                              void* part, void* part_a, void* part_d, int B,
-                              int S, int D, int N, void* stream) {
+                              void* dA, void* dDsk, void* dh0, void* part,
+                              void* part_a, void* part_d, int B, int S,
+                              int D, int N, void* stream) {
   if (B <= 0 || S <= 0 || D <= 0) return cudaErrorInvalidValue;
-  const void* in[] = {dt, Bm, Cm, x, A, Dsk, h0, dy, dh_last};
+  const void* in[] = {dt, Bm, Cm, x, A, Dsk, states, dy, dh_last};
   void* out[] = {d_dt, dBm, dCm, dx, dA, dDsk, dh0};
-  void* tmp[] = {states, part, part_a, part_d};
+  void* tmp[] = {part, part_a, part_d};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (x_dtype) {
     case 0: return by_state<float>(in, out, tmp, B, S, D, N, st);

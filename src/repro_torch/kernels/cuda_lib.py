@@ -35,7 +35,13 @@ SOURCES = {"paged_decode": "paged_decode.cu",
            "mamba_scan_bwd": "mamba_scan_bwd.cu",
            "rglru_scan": "rglru_scan.cu",
            "rglru_scan_bwd": "rglru_scan_bwd.cu"}
-HEADERS = ("paged_common.cuh", "flash_tc.cuh")
+HEADERS = ("paged_common.cuh", "flash_tc.cuh", "mamba_tile.cuh")
+# Steps between the mamba scan's kept tile states (``mamba_tile.cuh``'s
+# kStateTile): both mamba libraries export theirs as ``mamba_state_tile()``,
+# held against this one when they are loaded.
+MAMBA_STATE_TILE = 16
+_EXPORTED = {"mamba_scan": ("mamba_state_tile", MAMBA_STATE_TILE),
+             "mamba_scan_bwd": ("mamba_state_tile", MAMBA_STATE_TILE)}
 
 # Kernel launches per kernel since the last reset: each wrapper adds one
 # where it launches its kernel, and nowhere else; a CUDA graph's replay adds
@@ -53,11 +59,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #                window, stream)
 #   flash_attention_bwd: (dtype, q, k, v, o, dout, lengths, lse, delta, dq,
 #                dk, dv, part, B, K, G, hd, S, window, splits, stream)
-#   mamba_scan: (x_dtype, dt, Bm, Cm, x, A, Dsk, h0, y, h, B, S, D, N,
-#                stream)
-#   mamba_scan_bwd: (x_dtype, dt, Bm, Cm, x, A, Dsk, h0, dy, dh_last,
-#                d_dt, dBm, dCm, dx, dA, dDsk, dh0, states, part, part_a,
-#                part_d, B, S, D, N, stream)
+#   mamba_scan: (x_dtype, dt, Bm, Cm, x, A, Dsk, h0, y, h, states, B, S,
+#                D, N, stream)
+#   mamba_scan_bwd: (x_dtype, dt, Bm, Cm, x, A, Dsk, states, dy, dh_last,
+#                d_dt, dBm, dCm, dx, dA, dDsk, dh0, part, part_a, part_d, B,
+#                S, D, N, stream)
 #   rglru_scan: (a, b, h0, hs, h, B, S, W, stream)
 #   rglru_scan_bwd: (a, hs, h0, dhs, dh_last, da, db, dh0, B, S, W, stream)
 _ARGTYPES = {
@@ -66,8 +72,8 @@ _ARGTYPES = {
     "decode_attention": [_I] + [_P] * 10 + [_I] * 7 + [_P],
     "flash_attention": [_I] + [_P] * 6 + [_I] * 6 + [_P],
     "flash_attention_bwd": [_I] + [_P] * 12 + [_I] * 7 + [_P],
-    "mamba_scan": [_I] + [_P] * 9 + [_I] * 4 + [_P],
-    "mamba_scan_bwd": [_I] + [_P] * 20 + [_I] * 4 + [_P],
+    "mamba_scan": [_I] + [_P] * 10 + [_I] * 4 + [_P],
+    "mamba_scan_bwd": [_I] + [_P] * 19 + [_I] * 4 + [_P],
     "rglru_scan": [_P] * 5 + [_I] * 3 + [_P],
     "rglru_scan_bwd": [_P] * 8 + [_I] * 3 + [_P],
 }
@@ -136,6 +142,13 @@ def _function(name: str):
         err = lib.cuda_error_string
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
+        if name in _EXPORTED:
+            symbol, want = _EXPORTED[name]
+            got = getattr(lib, symbol)()
+            if got != want:
+                raise RuntimeError(f"{SOURCES[name]} was built with "
+                                   f"{symbol} {got}, the Python side "
+                                   f"expects {want}")
         _FNS[name], _ERR[name] = fn, err
     return fn
 

@@ -9,9 +9,11 @@ full-sequence attention) and its gradient ``flash_attention_bwd_ref``
 dense logical ``[B, NP*ps, K, hd]`` view) all mask by absolute position
 and softmax in float32 through :func:`masked_attention`;
 ``mamba_scan_ref`` and ``rglru_scan_ref`` run the two recurrences as
-sequential float32 loops over time, and ``mamba_scan_bwd_ref`` and
-``rglru_scan_bwd_ref`` write out their gradients as reverse-time loops
-(the reference differentiates XLA scans).  They are the CPU path of the port
+sequential float32 loops over time (``mamba_scan_states_ref`` returns the
+mamba loop's state at tile boundaries, which the forward kernel keeps
+for the backward), and ``mamba_scan_bwd_ref`` and ``rglru_scan_bwd_ref``
+write out their gradients as reverse-time loops (the reference
+differentiates XLA scans).  They are the CPU path of the port
 (``kernels/ops.py``) and the oracles ``chip_smoke.py`` holds the CUDA
 kernels against.
 
@@ -214,6 +216,25 @@ def mamba_scan_ref(dt, Bm, Cm, x, A, Dsk, h0):
         y = torch.einsum("bdn,bn->bd", h, Cm[:, t].float())
         ys.append(y + Dsk[None] * xt)
     return torch.stack(ys, dim=1), h
+
+
+def mamba_scan_states_ref(dt, Bm, x, A, h0, tile: int):
+    """The state before every ``tile``-step tile of ``mamba_scan_ref``'s
+    loop, [B, ceil(S / tile), D, N] float32: entry k is the state after
+    the first k * tile tokens (entry 0 is h0), computed as that loop
+    computes it.  The forward kernel stores these under training
+    (``mamba_scan._launch(..., keep_states=True)``) and the backward kernel
+    recomputes each tile from its entry."""
+    h = h0.float().clone()
+    A = A.float()
+    states = []
+    for t in range(dt.shape[1]):
+        if t % tile == 0:
+            states.append(h)
+        dtt, xt = dt[:, t].float(), x[:, t].float()
+        a = torch.exp(dtt[..., None] * A[None])                  # [B,D,N]
+        h = a * h + (dtt * xt)[..., None] * Bm[:, t, None, :].float()
+    return torch.stack(states, dim=1)
 
 
 def mamba_scan_bwd_ref(dt, Bm, Cm, x, A, Dsk, h0, dy, dh_last):

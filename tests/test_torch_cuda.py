@@ -22,7 +22,9 @@ serving.  The MoE FFN gives the CPU's expert ids and outputs on the
 card, and the same bits on every call.  The scans' backward kernels
 match their written-out plain versions (mamba to 1e-4 absolute plus 1e-4
 of each gradient's largest magnitude, the RG-LRU bit for bit) with the
-same bits on a second call, the scans' autograd functions launch them,
+same bits on a second call; the mamba forward keeps the tile states its
+backward starts from only when a training call asks, with the same y and
+h bits; the scans' autograd functions launch them,
 and a 2-layer falcon-mamba-7b and recurrentgemma-9b train step on the
 card matches the CPU's.
 """
@@ -1271,19 +1273,83 @@ def _close_to_plain_mamba(got, want):
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,D,N", [(3, 37, 200, 4), (3, 37, 200, 8),
                                      (3, 37, 65, 16), (2, 16, 64, 16),
-                                     (2, 1, 130, 8), (8, 256, 8192, 16)])
+                                     (2, 1, 130, 8), (3, 37, 150, 4),
+                                     (3, 37, 150, 8), (3, 37, 150, 16),
+                                     (8, 256, 8192, 16)])
 def test_mamba_scan_bwd_matches_plain(dev, x_dtype, B, S, D, N):
     """Every state size, S past, at and below one 16-step tile, D past and
-    below one 64-channel block, and falcon-mamba-7b's training shape;
-    the same bits on a second call (no atomics)."""
-    from repro_torch.kernels.mamba_scan import mamba_scan_bwd
+    below one 128-channel block (D 150, 65, 130: not a multiple of 8, so
+    dt, x and dy are staged through registers), pad lanes and a nonzero
+    h0, and falcon-mamba-7b's training shape, on the states the forward
+    kernel keeps, which the card's call requires; the same bits on a
+    second call (no atomics)."""
+    from repro_torch.kernels import mamba_scan as MS
     args = _mamba_bwd_case(dev, B, S, D, N, x_dtype, seed=S + N)
-    got = mamba_scan_bwd(*args)
-    again = mamba_scan_bwd(*args)
+    states = MS._launch(*args[:7], keep_states=True)[2]
+    got = MS.mamba_scan_bwd(*args, states=states)
+    again = MS.mamba_scan_bwd(*args, states=states)
     want = ref.mamba_scan_bwd_ref(*args)
     torch.cuda.synchronize()
     _close_to_plain_mamba(got, want)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+    with pytest.raises(ValueError, match="tile states"):
+        MS.mamba_scan_bwd(*args)       # on the card it needs the states
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,D,N", [(3, 37, 150, 4), (3, 37, 150, 8),
+                                     (3, 37, 150, 16), (2, 40, 256, 16),
+                                     (8, 256, 8192, 16)])
+def test_mamba_forward_keeps_states_with_the_same_bits(dev, x_dtype, B, S,
+                                                       D, N):
+    """The forward kernel asked for its tile states gives the same bits
+    of y and h as without; entry 0 is h0 exactly, and every entry is the
+    plain boundary state (``ref.mamba_scan_states_ref``) to the scan's
+    tolerance."""
+    from repro_torch.kernels import mamba_scan as MS
+    args = _mamba_bwd_case(dev, B, S, D, N, x_dtype, seed=S + D)[:7]
+    y, h = MS._launch(*args)
+    y2, h2, states = MS._launch(*args, keep_states=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    assert states.shape == (B, -(-S // MS.BWD_TILE), D, N)
+    assert torch.equal(states[:, 0], args[6])
+    dt, Bm, _, x, A, _, h0 = args
+    torch.testing.assert_close(
+        states, ref.mamba_scan_states_ref(dt, Bm, x, A, h0, MS.BWD_TILE),
+        atol=1e-4, rtol=1e-4)
+
+
+def test_mamba_serving_call_keeps_no_states(dev, monkeypatch):
+    """Without a gradient the scan is one bare forward launch whose states
+    pointer is null, as before; a training call passes one, then launches
+    the backward once."""
+    from repro_torch.kernels import cuda_lib
+    calls = []
+    real = cuda_lib.launch
+
+    def spy(name, *a):
+        calls.append((name, a))
+        return real(name, *a)
+
+    monkeypatch.setattr(cuda_lib, "launch", spy)
+    args = _mamba_bwd_case(dev, 2, 37, 256, 16, torch.bfloat16, seed=3)[:7]
+    cuda_lib.reset_launches()
+    with torch.no_grad():
+        ops.mamba_scan(*[t.clone().requires_grad_(i < 6)
+                         for i, t in enumerate(args)])
+    ops.mamba_scan(*args)
+    assert [n for n, _ in calls] == ["mamba_scan"] * 2
+    assert all(a[10] == 0 for _, a in calls)      # states: after y and h
+    assert cuda_lib.LAUNCHES["mamba_scan"] == 2
+    calls.clear()
+    leaves = [t.clone().requires_grad_(i < 6) for i, t in enumerate(args)]
+    y, h = ops.mamba_scan(*leaves)
+    torch.autograd.grad(y.sum() + h.sum(), leaves[:6])
+    assert [n for n, _ in calls] == ["mamba_scan", "mamba_scan_bwd"]
+    assert calls[0][1][10] != 0
+    assert cuda_lib.LAUNCHES["mamba_scan"] == 3
+    assert cuda_lib.LAUNCHES["mamba_scan_bwd"] == 1
 
 
 @pytest.mark.parametrize("B,S,W", [(3, 37, 300), (2, 1, 257), (2, 16, 256),

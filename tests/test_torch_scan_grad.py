@@ -10,9 +10,12 @@ last state): a nonzero ``h0``, pad lanes (``dt = 0``; ``a = 1, b = 0``),
 every state size the kernel takes, bf16 ``x``, and S not a multiple of
 the backward kernel's tile (``mamba_scan.BWD_TILE``) nor of the
 reference's ``SCAN_CHUNK``.  A plain mirror of the mamba kernel's walk
-(the states kept at tile boundaries, each tile recomputed, channel sums
-a block of ``BWD_CHANNELS`` added in block order) must give the same
-gradients.  The autograd functions the wrappers use under grad mode give
+(each tile recomputed from the state the forward kept before it, g walked
+back, the sums over a channel's states in its lanes' orders and over the
+channels as a butterfly tree in each warp, then in warp and block order)
+must give the same gradients, and the kept states
+(``ref.mamba_scan_states_ref``) are the JAX oracle's last state on each
+prefix of whole tiles.  The autograd functions the wrappers use under grad mode give
 the written-out gradients on CPU tensors and keep their own copy of
 ``h0``, which the mixers overwrite right after the call.
 
@@ -125,75 +128,118 @@ def test_mamba_bwd_ref_matches_autograd(B, S, D, N, x_dtype):
             _close(g.detach(), w, name)
 
 
-def _mamba_bwd_tiled(dt, Bm, Cm, x, A, Dsk, h0, dy, dh_last):
-    """A plain mirror of csrc/mamba_scan_bwd.cu's walk: the forward from h0
-    keeps the state before each tile of ``BWD_TILE`` steps; the tiles are
-    walked in reverse, each recomputed from its boundary; dC and dB are
-    summed over each block of ``BWD_CHANNELS`` channels and the blocks'
-    partials added in block order, dA and dDsk summed a sequence and the
-    sequences added in order."""
-    T, C = MS.BWD_TILE, MS.BWD_CHANNELS
-    B, S, D = dt.shape
-    xf = x.float()
-    a_all = torch.exp(dt[..., None] * A)                    # [B,S,D,N]
-    bounds, h = [], h0.clone()
-    for t in range(S):
-        if t % T == 0:
-            bounds.append(h)
-        h = a_all[:, t] * h + (dt[:, t] * xf[:, t])[..., None] * Bm[:, t, None]
-    d_dt, dx = torch.empty_like(dt), torch.empty_like(xf)
+def _tree(v, dim):
+    """Sum over ``dim`` (a power of two long) as a pairwise tree of
+    neighbours, (v0 + v1) + (v2 + v3) ..., as a butterfly of shuffles adds
+    it."""
+    v = v.movedim(dim, -1)
+    while v.shape[-1] > 1:
+        v = v[..., 0::2] + v[..., 1::2]
+    return v[..., 0]
+
+
+def _in_order(v, dim):
+    """Sum over ``dim`` from its first entry to its last."""
+    s = v.select(dim, 0)
+    for k in range(1, v.shape[dim]):
+        s = s + v.select(dim, k)
+    return s
+
+
+def _channel_sums(w):
+    """[B, D, N] -> [B, N] summed over d as the kernel adds dB_t and dC_t:
+    a pairwise tree over each warp's channels (32 / (N / 4) of them:
+    channel c with c ^ 1, then ^ 2, ...), the warps of a
+    ``BWD_CHANNELS``-channel block in warp order, the blocks in block
+    order (channels past D are zeros)."""
+    B, D, N = w.shape
+    C, per_warp = MS.BWD_CHANNELS, 32 // (N // 4)
     blocks = -(-D // C)
-    part = torch.zeros(B, S, blocks, 2, Bm.shape[-1])
-    part_a = torch.zeros(B, *A.shape)
+    w = torch.nn.functional.pad(w, (0, 0, 0, blocks * C - D))
+    w = _tree(w.reshape(B, blocks, C // per_warp, per_warp, N), 3)
+    return _in_order(_in_order(w, 2), 1)
+
+
+def _mamba_bwd_tiled(dt, Bm, Cm, x, A, Dsk, h0, dy, dh_last):
+    """A plain mirror of csrc/mamba_scan_bwd.cu's walk: the tiles of
+    ``BWD_TILE`` steps in reverse, each recomputed from the state the
+    forward kept before it (``ref.mamba_scan_states_ref``); g walked back
+    with a_t h_{t-1} taken as h_t - dt_t x_t B_t; d_dt and dx summed over
+    each lane's 4 states in the lane's order (its two pairs swapped when
+    its channel's bit 0 is set), A scaled by log2 e and the sum by ln 2,
+    and over a channel's N / 4 lanes as a tree; dB and dC over channels as
+    ``_channel_sums`` (the kernel fuses one product of each first add);
+    dA and dDsk summed over the sequence from its end, and the sequences
+    added in order."""
+    T = MS.BWD_TILE
+    B, S, D = dt.shape
+    N = A.shape[-1]
+    xf = x.float()
+    bounds = ref.mamba_scan_states_ref(dt, Bm, xf, A, h0, T)
+    d_dt, dx = torch.empty_like(dt), torch.empty_like(xf)
+    dBm, dCm = torch.empty_like(Bm), torch.empty_like(Cm)
+    dacc, dd = torch.zeros(B, D, N), torch.zeros(B, D)
     carry = dh_last.clone()
-    for tile in reversed(range(len(bounds))):
+    a2 = A * torch.tensor(1.4426950408889634, dtype=torch.float32)
+    ln2 = torch.tensor(0.6931471805599453, dtype=torch.float32)
+    swap = (torch.arange(D) % (32 // (N // 4)) % 2 == 1)[None, :, None, None]
+
+    def by_lane(w):      # [B, D, N] -> [B, D, N / 4]: a lane's 4 in order
+        w = w.reshape(B, D, N // 4, 4)
+        return _in_order(torch.where(swap, w[..., [2, 3, 0, 1]], w), 3)
+
+    for tile in reversed(range(bounds.shape[1])):
         t0, nt = tile * T, min(T, S - tile * T)
-        hs = [bounds[tile]]
+        hs, h = [], bounds[:, tile]
         for t in range(t0, t0 + nt):
-            hs.append(a_all[:, t] * hs[-1] + (dt[:, t] * xf[:, t])[..., None]
-                      * Bm[:, t, None])
-        for blk in range(blocks):
-            sl = slice(blk * C, (blk + 1) * C)
-            for tt in range(nt):
-                part[:, t0 + tt, blk, 1] = torch.einsum(
-                    "bd,bdn->bn", dy[:, t0 + tt, sl], hs[tt + 1][:, sl])
-        w = [None] * nt
+            a = torch.exp(dt[:, t, :, None] * A)
+            h = a * h + (dt[:, t] * xf[:, t])[..., None] * Bm[:, t, None]
+            hs.append(h)
         for tt in reversed(range(nt)):
             t = t0 + tt
+            dtx = (dt[:, t] * xf[:, t])[..., None]
             g = dy[:, t, :, None] * Cm[:, t, None] + carry
-            ah = a_all[:, t] * hs[tt]
-            d_dt[:, t] = (g * (A * ah + xf[:, t, :, None] * Bm[:, t, None])) \
-                .sum(-1)
-            dx[:, t] = dt[:, t] * (g * Bm[:, t, None]).sum(-1) \
-                + Dsk * dy[:, t]
-            part_a += g * dt[:, t, :, None] * ah
-            carry = a_all[:, t] * g
-            w[tt] = g * (dt[:, t] * xf[:, t])[..., None]
-        for blk in range(blocks):
-            sl = slice(blk * C, (blk + 1) * C)
-            for tt in range(nt):
-                part[:, t0 + tt, blk, 0] = w[tt][:, sl].sum(1)
-    dBm, dCm = part[:, :, 0, 0].clone(), part[:, :, 0, 1].clone()
-    for blk in range(1, blocks):
-        dBm += part[:, :, blk, 0]
-        dCm += part[:, :, blk, 1]
-    dA, dDsk = part_a[0].clone(), (dy[0] * xf[0]).sum(0)
-    for b in range(1, B):
-        dA += part_a[b]
-        dDsk += (dy[b] * xf[b]).sum(0)
-    return d_dt, dBm, dCm, dx.to(x.dtype), dA, dDsk, carry
+            u = g * (hs[tt] - dtx * Bm[:, t, None])      # g a_t h_{t-1}
+            sa, sb = by_lane(a2 * u), by_lane(g * Bm[:, t, None])
+            d_dt[:, t] = _tree(xf[:, t, :, None] * sb + sa * ln2, 2)
+            dx[:, t] = dt[:, t] * _tree(sb, 2) + Dsk * dy[:, t]
+            dacc = dacc + dt[:, t, :, None] * u
+            carry = torch.exp(dt[:, t, :, None] * A) * g
+            dBm[:, t] = _channel_sums(g * dtx)
+            dCm[:, t] = _channel_sums(dy[:, t, :, None] * hs[tt])
+            dd = dd + dy[:, t] * xf[:, t]
+    return (d_dt, dBm, dCm, dx.to(x.dtype), _in_order(dacc, 0),
+            _in_order(dd, 0), carry)
 
 
 @pytest.mark.parametrize("B,S,D,N", [(2, 37, 150, 8), (3, 16, 64, 16),
-                                     (1, 5, 65, 4)])
+                                     (1, 5, 65, 4), (2, 37, 300, 16)])
 def test_mamba_kernel_walk_mirror_matches_ref(B, S, D, N):
-    """Tiles past, at and below one tile; D past one block, at one block
-    and one channel past it."""
+    """Tiles past, at and below one tile; D past one block (two and three
+    blocks), within one block, and one channel past a warp's."""
     args, cts = _mamba_inputs(D, B, S, D, N)
     got = _mamba_bwd_tiled(*map(_t, args), *map(_t, cts))
     want = _written_out(args, cts, torch.float32)
     for name, g, w in zip(MAMBA_NAMES, got, want):
         _close(g, w, name)
+
+
+@pytest.mark.parametrize("B,S,D,N,x_dtype", MAMBA_CASES[:4])
+def test_mamba_states_ref_matches_jax_prefixes(B, S, D, N, x_dtype):
+    """``ref.mamba_scan_states_ref``'s entry k is the JAX oracle's last
+    state after the first k * ``BWD_TILE`` tokens (entry 0: h0 itself)."""
+    args, _ = _mamba_inputs(N + S, B, S, D, N)
+    args[3] = _t(args[3]).to(x_dtype).float().numpy()
+    dt, Bm, Cm, x, A, Dsk, h0 = args
+    T = MS.BWD_TILE
+    got = ref.mamba_scan_states_ref(_t(dt), _t(Bm), _t(x).to(x_dtype),
+                                    _t(A), _t(h0), T)
+    assert got.shape == (B, -(-S // T), D, N) and got.dtype == torch.float32
+    assert torch.equal(got[:, 0], _t(h0))     # the oracle takes no empty scan
+    for k in range(1, got.shape[1]):
+        pre = [jnp.asarray(v[:, :k * T]) for v in (dt, Bm, Cm, x)]
+        _, want = jref.mamba_scan_ref(*pre, *map(jnp.asarray, (A, Dsk, h0)))
+        _close(got[:, k], want, f"state before tile {k}")
 
 
 def _rglru_ref_args(a, b, h0, dhs, dh_last):
