@@ -40,13 +40,20 @@ Phases, each of which stops the run with a non-zero exit on any error:
      64, S 2048; window None and 48; float32 and bfloat16), at
      granite-moe-1b-a400m's (B 8, H 16, K 8, S 2048, bfloat16), at
      recurrentgemma-9b's (B 4, H 16, K 1, hd 256, S 4096, window 2048,
-     bfloat16) and at a ragged S 1000 with per-row lengths;
+     bfloat16) and at a ragged S 1000 with per-row lengths; and in its
+     bidirectional-prefix mode at whisper-tiny's encoder (B 8, H = K 6,
+     S 1500, hd 64, prefix 1500: every frame attends every frame; bfloat16
+     and float32), at internvl2-76b's prefill (B 4, H 64, K 8, S 2048, hd
+     128, prefix 256) and at a ragged S 1000 with prefix 300;
    * the flash-attention backward kernel (``csrc/flash_attention_bwd.cu``)
      against ``flash_attention_bwd_ref`` at examples/torch_train_100m.py's
      shape (B 8, H 12, K 4, S 256, hd 64; bfloat16 and float32), at
      recurrentgemma-9b's local attention (B 1, H 16, K 1, S 4096, hd 256,
      window 2048), at a ragged S 1000 with an empty row, and at hd 32 and
-     128 with a window and lengths (checked only), the same bits on a
+     128 with a window and lengths (checked only), in the prefix mode at
+     whisper's encoder in training (B 8, H 6, S 1500, prefix 1500;
+     bfloat16 and float32) and at internvl2-76b's (B 1, H 64, K 8, S 2048,
+     hd 128, prefix 256), the same bits on a
      second call; bfloat16 takes the lse of a forward launch made outside
      the timed call; timed beside its bound and SDPA's backward; and the
      bf16 forward with its lse output against the forward without it, in
@@ -99,7 +106,8 @@ Phases, each of which stops the run with a non-zero exit on any error:
      ``prefill`` of [8, 2048] (rows of 2048 tokens route one group per
      row), 16 ``decode_step``s and ``forward``, whose aux loss must be
      finite and positive: flash attention and ring decode; then the
-     logits check and a 2-layer engine check against the CPU (below),
+     logits check (2 layers) and a 1-layer engine check against the CPU
+     (below; at 2 layers its CPU side took a minute of the script's time),
      the routers scaled by 8 so that a flipped expert is not a near tie,
      printing the smallest gap between the k-th and (k+1)-th router
      probability seen;
@@ -115,7 +123,9 @@ Phases, each of which stops the run with a non-zero exit on any error:
    a profiler summary of device time by kernel gives the idle share, and
    a check holds the model's logits on the card against the plain path on
    the CPU, through chunked paged prefill and through ``prefill`` and
-   ring ``decode_step`` (the recurrent models at a cut depth).
+   ring ``decode_step`` (the recurrent models at a cut depth; each model
+   of the check is built once a device and dtype and walks both
+   paths).
    ``[reflect]``: on the full-width demo model, the paper's reflection
    loop through ``repro_torch/core`` — the strategy grid of
    ``examples/torch_reflection_serving.py`` (0, 1 and 3 rounds x no or
@@ -152,6 +162,24 @@ Phases, each of which stops the run with a non-zero exit on any error:
    fault counters and fires identical), and the fleet trace through 2
    replicas of those two layers on the card and on the CPU (identical
    assignments, and completions apart from their times).
+   whisper   — whisper-tiny at full width and depth (4 encoder and 4
+   decoder layers, d_model 384, 1500 frames, vocab 51,865): ``[full]``
+   ``prefill`` of [8, 448] tokens after seeded frames [8, 1500, 384], 16
+   ring decode steps and ``forward`` (flash in the prefix mode for the
+   encoder, P = 1500, causal for the decoder; ring decode); a ring serve
+   (whisper has no paged layout and no verify step, so no speculation, as
+   in the reference), eagerly and captured; one float32 step of the
+   whole model on the card against the CPU (q/k softened x 0.125), and 20
+   AdamW steps of 8 x 256 with seeded frames through ``launch/train.py``:
+   the flash forward and backward launched once a layer (encoder layers
+   included) and step.
+   internvl2 — internvl2-76b's language backbone at full width, 8 of its
+   80 layers (17.9 GB of bf16 weights): ``[full]`` ``prefill`` of [4,
+   1792] tokens after 256 seeded patch embeddings (S 2048, prefix 256),
+   16 decode steps from position 256 + length and ``forward`` with the
+   patches; a paged serve of the text decoder, eagerly and captured (2
+   rounds of 32); the logits check at 2 layers with 256 patches before
+   the prompt of the full-sequence walk (q/k x 1/16).
 5. train   — training on the card (``[train]``):
    * one float32 loss and gradient of the full-width 2-layer demo on the
      card and on the CPU (loss to 1e-4 relative, gradient cosines at
@@ -742,10 +770,13 @@ def ring_cases(records, dev, flush):
                 records[("decode_attention", tag, mode)] = rec
 
 
-def flash_valid(S, window, lengths, dev):
-    """[B or 1, S, S] mask of the (query, key) pairs flash attends."""
+def flash_valid(S, window, lengths, dev, prefix=0):
+    """[B or 1, S, S] mask of the (query, key) pairs flash attends (with
+    a bidirectional prefix of ``prefix`` tokens)."""
     i = torch.arange(S, device=dev)
     valid = (i[None, :] <= i[:, None])[None]
+    if prefix:
+        valid = valid | ((i[:, None] < prefix) & (i[None, :] < prefix))[None]
     if window is not None:
         valid = valid & (i[None, None, :] > i[None, :, None] - window)
     if lengths is not None:
@@ -753,46 +784,60 @@ def flash_valid(S, window, lengths, dev):
     return valid
 
 
+# (tag, (B, H, K, S, hd), window, dtype, ragged lengths, prefix): the
+# full-sequence runs' shapes; whisper's encoder (P = S = 1500 frames, MHA)
+# and internvl2-76b's patches (P 256) run the prefix mode
+FLASH_CASES = (
+    ("demo", (8, 12, 4, 2048, 64), None, torch.float32, False, 0),
+    ("demo", (8, 12, 4, 2048, 64), None, torch.bfloat16, False, 0),
+    ("demo", (8, 12, 4, 2048, 64), 48, torch.float32, False, 0),
+    ("demo", (8, 12, 4, 2048, 64), 48, torch.bfloat16, False, 0),
+    ("granite", (8, 16, 8, 2048, 64), None, torch.bfloat16, False, 0),
+    ("rg", (4, 16, 1, 4096, 256), 2048, torch.bfloat16, False, 0),
+    ("ragged", (8, 12, 4, 1000, 64), None, torch.bfloat16, True, 0),
+    ("whisper", (8, 6, 6, 1500, 64), None, torch.bfloat16, False, 1500),
+    ("whisper", (8, 6, 6, 1500, 64), None, torch.float32, False, 1500),
+    ("internvl2", (4, 64, 8, 2048, 128), None, torch.bfloat16, False, 256),
+    ("prefix-ragged", (8, 12, 4, 1000, 64), None, torch.bfloat16, True,
+     300),
+)
+
+
 def flash_cases(records, dev, flush):
-    """Flash attention at the full-sequence runs' shapes against the plain
-    version, timed beside its bound and one SDPA call (causal, or a
-    boolean mask for a window or lengths)."""
+    """Flash attention at the full-sequence runs' shapes (``FLASH_CASES``)
+    against the plain version, timed beside its bound and one SDPA call
+    (causal, or a boolean mask for a window, lengths or a prefix)."""
     from repro_torch.kernels import ops, ref
     F = torch.nn.functional
     g = torch.Generator().manual_seed(7)
-    for tag, (B, H, K, S, hd), window, dtype, ragged in (
-            ("demo", (8, 12, 4, 2048, 64), None, torch.float32, False),
-            ("demo", (8, 12, 4, 2048, 64), None, torch.bfloat16, False),
-            ("demo", (8, 12, 4, 2048, 64), 48, torch.float32, False),
-            ("demo", (8, 12, 4, 2048, 64), 48, torch.bfloat16, False),
-            ("granite", (8, 16, 8, 2048, 64), None, torch.bfloat16, False),
-            ("rg", (4, 16, 1, 4096, 256), 2048, torch.bfloat16, False),
-            ("ragged", (8, 12, 4, 1000, 64), None, torch.bfloat16, True)):
+    for tag, (B, H, K, S, hd), window, dtype, ragged, P in FLASH_CASES:
         q = torch.randn(B, H, S, hd, generator=g).to(dev, dtype)
         k = torch.randn(B, K, S, hd, generator=g).to(dev, dtype)
         v = torch.randn(B, K, S, hd, generator=g).to(dev, dtype)
         lengths = (torch.randint(S // 2, S + 1, (B,), generator=g)
                    .to(dev, torch.int32) if ragged else None)
         kern = lambda: ops.flash_attention(q, k, v, window=window,
-                                           lengths=lengths)
+                                           lengths=lengths, prefix_len=P)
         got = kern()
         torch.cuda.synchronize()
         want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
-                                       window=window, lengths=lengths)
+                                       window=window, lengths=lengths,
+                                       prefix_len=P)
         bf16 = dtype == torch.bfloat16
         mode = "bfloat16" if bf16 else "float32"
         label = (f"{tag} flash_attention B={B} H={H} K={K} S={S} hd={hd} "
-                 f"{mode} window={window} lengths={ragged}")
+                 f"{mode} window={window} lengths={ragged} prefix={P}")
         err = check_record(label, got, want, 2e-2 if bf16 else 1e-4, bf16)
         del want
         plain = lambda: ref.flash_attention_ref(q, k, v, window=window,
-                                                lengths=lengths)
-        valid = flash_valid(S, window, lengths, dev)
+                                                lengths=lengths,
+                                                prefix_len=P)
+        valid = flash_valid(S, window, lengths, dev, P)
         pairs = int(valid.sum()) * (B if valid.shape[0] == 1 else 1) * H
         kv_rows = (B * S if lengths is None
                    else int(lengths.clamp_max(S).sum()))
         nbytes = (2 * q.numel() + 2 * kv_rows * K * hd) * q.element_size()
-        if window is None and lengths is None:
+        if window is None and lengths is None and not P:
             lib = lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True)
         else:
@@ -801,11 +846,13 @@ def flash_cases(records, dev, flush):
                 q, k, v, attn_mask=mask, enable_gqa=True)
         rec = time_record(kern, plain, flush, nbytes, 4 * hd * pairs, dtype,
                           err, pairs, lib=lib)
-        log_record(f"{tag} flash_attention {mode} window={window}", rec)
-        log(f"[flash] {tag} {mode} window={window} lengths={ragged}: "
-            f"{rec['ops'] / rec['ms'] / 1e9:.1f} TFLOP/s achieved "
-            f"({rec['ops']} FLOP in {rec['ms']:.4f} ms), library "
-            f"{rec['ops'] / rec['library_ms'] / 1e9:.1f} TFLOP/s")
+        log_record(f"{tag} flash_attention {mode} window={window} "
+                   f"prefix={P}", rec)
+        log(f"[flash] {tag} {mode} window={window} lengths={ragged} "
+            f"prefix={P}: {rec['ops'] / rec['ms'] / 1e9:.1f} TFLOP/s "
+            f"achieved ({rec['ops']} FLOP in {rec['ms']:.4f} ms), library "
+            f"{rec['ops'] / rec['library_ms'] / 1e9:.1f} TFLOP/s; bound "
+            f"share {rec['bound_ms'] / rec['ms']:.3f}")
         records[("flash_attention", tag, mode, window)] = rec
         del q, k, v, valid
         torch.cuda.empty_cache()
@@ -1723,19 +1770,28 @@ def replay_split(eng, kinds, wall_s):
         f"(wall {wall_s * 1e3 / steps:.3f})")
 
 
-def full_sequence(model, B, S, lengths, steps, forward, path):
+def full_sequence(model, B, S, lengths, steps, forward, path, extra=None):
     """The full-sequence entry points: ``prefill`` of B seeded prompts
     padded to S (valid up to ``lengths``), ``steps`` greedy
     ``decode_step``s on the primed rings, then (``forward``) teacher
-    forcing on all [B, S] tokens.  Every kernel of ``path`` must launch;
-    flash once per attention (or MoE) layer and call, ring decode once
-    per such layer and step.  With MoE blocks, ``forward``'s aux loss
-    must be finite and positive.  Returns the launch counts."""
+    forcing on all [B, S] tokens.  ``extra`` holds the model's other
+    inputs, passed to ``prefill`` and in ``forward``'s batch: whisper's
+    ``frames`` [B, F, d] (its encoder runs the flash kernel in the prefix
+    mode, P = F) or the VLM's ``patch_embeds`` [B, P, d] (a prefix of P
+    before the tokens, so decoding starts at P + lengths and the rings
+    hold P + S slots).  Every kernel of ``path`` must launch; flash once
+    per attention (or MoE) layer, encoder layers included, and call, ring
+    decode once per such decoder layer and step.  With MoE blocks,
+    ``forward``'s aux loss must be finite and positive.  Returns the
+    launch counts."""
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import KV_KINDS
     cfg = model.cfg
     dev = model.embed.device
+    extra = extra or {}
     n_attn = sum(k in KV_KINDS for k in cfg.block_pattern)
+    n_flash = n_attn + (cfg.encoder_layers if "frames" in extra else 0)
+    P = extra["patch_embeds"].shape[1] if "patch_embeds" in extra else 0
     g = torch.Generator(device=dev).manual_seed(5)
     tokens = torch.randint(3, cfg.vocab_size, (B, S), generator=g,
                            device=dev)
@@ -1745,12 +1801,12 @@ def full_sequence(model, B, S, lengths, steps, forward, path):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
-    logits, cache = model.prefill(tokens, lens, max_seq=S)
+    logits, cache = model.prefill(tokens, lens, max_seq=P + S, **extra)
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     outs = [logits]
     nxt = logits.argmax(-1, keepdim=True).to(torch.int32)
-    pos = lens.clone()
+    pos = lens + P
     t0 = time.perf_counter()
     for _ in range(steps):
         logits, cache = model.decode_step(cache, nxt, pos)
@@ -1762,7 +1818,7 @@ def full_sequence(model, B, S, lengths, steps, forward, path):
     t_fwd = aux = None
     if forward:
         t0 = time.perf_counter()
-        lf, aux = model.forward({"tokens": tokens})
+        lf, aux = model.forward({"tokens": tokens, **extra})
         torch.cuda.synchronize()
         t_fwd = time.perf_counter() - t0
         if lf.shape != (B, S, cfg.vocab_size) or not bool(
@@ -1780,12 +1836,14 @@ def full_sequence(model, B, S, lengths, steps, forward, path):
                                                        .all()) for o in outs):
         raise AssertionError("prefill / decode logits are not finite [B, V]")
     log(f"[full] {cfg.name}: prefill [{B}, {S}] (lengths "
-        f"{lens.min().item()}-{lens.max().item()}) {t_prefill:.3f}s; "
+        f"{lens.min().item()}-{lens.max().item()}"
+        + "".join(f"; {k} {list(v.shape)}" for k, v in extra.items())
+        + f") {t_prefill:.3f}s; "
         f"{steps} decode steps {t_decode / steps * 1e3:.2f} ms each; "
         f"forward {'not run' if t_fwd is None else f'{t_fwd:.3f}s'} (aux "
         f"loss {aux}); rings of {rings} slots; launches {launches}; peak "
         f"memory {peak} B")
-    want_flash = n_attn * (1 + bool(forward))
+    want_flash = n_flash * (1 + bool(forward))
     if launches["flash_attention"] != want_flash:
         raise AssertionError(f"flash launched {launches['flash_attention']} "
                              f"times, not {want_flash}")
@@ -1825,22 +1883,26 @@ def _walk(m, prompt, feed):
     return torch.cat(logits)
 
 
-def _walk_prefill(m, prompt, feed):
+def _walk_prefill(m, prompt, feed, patches=None):
     """Logits [5, V] of the same walk as ``_walk`` through the
     full-sequence entry points: ``prefill`` of the 45-token prompt (its
-    length passed as ``lengths``), then four ring ``decode_step``s fed
-    ``feed``, or the model's own greedy tokens (appended to ``feed``)."""
+    length passed as ``lengths``; after the VLM's ``patches`` [1, P, d],
+    a bidirectional prefix, when given), then four ring ``decode_step``s
+    fed ``feed``, or the model's own greedy tokens (appended to
+    ``feed``)."""
     d = m.embed.device
     own = not feed
     i32 = dict(dtype=torch.int32, device=d)
+    P = 0 if patches is None else patches.shape[1]
+    kw = {} if patches is None else {"patch_embeds": patches.to(d)}
     lg, cache = m.prefill(prompt.to(d), torch.tensor([45], **i32),
-                          max_seq=64)
+                          max_seq=64 + P, **kw)
     logits = [lg.float().cpu()]
     for i in range(4):
         if own:
             feed.append(int(logits[-1].argmax()))
         lg, cache = m.decode_step(cache, torch.tensor([[feed[i]]], **i32),
-                                  torch.tensor([45 + i], **i32))
+                                  torch.tensor([45 + P + i], **i32))
         logits.append(lg.float().cpu())
     return torch.cat(logits)
 
@@ -1889,11 +1951,14 @@ def router_gaps():
         moe.route = route
 
 
-def check_logits(cfg, state, dev, soften=None, sharpen=None):
+def check_logits(cfg, state, dev, soften=None, sharpen=None, patches=None):
     """The model's entry points on the card against the plain path on the
     CPU, on a small input (chunked paged prefill, and full-sequence
     ``prefill``, each followed by greedy decode steps fed the CPU's
-    tokens), at full width; ``state`` is a CPU state dict.
+    tokens), at full width; ``state`` is a state dict on either device.
+    With ``patches`` (the VLM's [1, P, d] patch embeddings) the
+    full-sequence walk runs them as its prefix, and the chunked paged walk
+    serves the text decoder alone, as the engine does.
 
     The seeded weights follow the reference's init recipe, whose q/k
     projections (normal over fan_in = H for wq [d, H, hd]) make attention
@@ -1905,13 +1970,15 @@ def check_logits(cfg, state, dev, soften=None, sharpen=None):
     ones.  An MoE router's init (scale 0.1) leaves the gaps between the
     k-th and (k+1)-th expert small, so that a flipped expert is a near tie,
     not a fault: ``sharpen`` scales the routers too, and the smallest such
-    gap the walks saw is printed."""
+    gap the walks saw is printed.  Each model is built once on each device
+    and dtype and walks both paths (each walk makes its own cache)."""
     from repro_torch.models.registry import build_model
     # float32 activations and parameters (bf16-stored weights upcast
     # exactly), so that a 1e-6 change of the weights is not rounded away
     cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
     g = torch.Generator().manual_seed(7)
     prompt = torch.randint(3, cfg.vocab_size, (1, 45), generator=g)
+    noise = torch.Generator(device=dev).manual_seed(7)
     variants = [("served", state)]
     if soften is not None or sharpen is not None:
         state = scaled(state, soften, sharpen)
@@ -1920,32 +1987,56 @@ def check_logits(cfg, state, dev, soften=None, sharpen=None):
             if f is not None), state))
     label = variants[-1][0]
 
-    def run(c, st, d, feed, walk=_walk):
-        m = build_model(c)
+    def load(c, st, d):
+        with torch.device(d):
+            m = build_model(c)
         m.load_state_dict(st)
-        return walk(m.to(d), prompt, feed)
+        return m
 
+    t0 = time.perf_counter()
+    feeds = {}
     for name, st in variants:
-        noisy = {k: v.float() * (1 + 1e-6 * torch.randn(v.shape,
-                                                        generator=g))
-                 for k, v in st.items()}
+        a = load(cfg32, st, dev)
         feed = []
-        a = run(cfg32, st, dev, feed)
-        b = run(cfg32, noisy, dev, feed)
+        out_a = _walk(a, prompt, feed)
+        del a
+        noisy = {k: v.to(dev, torch.float32) * (1 + 1e-6 * torch.randn(
+            v.shape, generator=noise, device=dev)) for k, v in st.items()}
+        b = load(cfg32, noisy, dev)
         del noisy
+        out_b = _walk(b, prompt, feed)
+        del b
+        release()
         log(f"[check] {cfg.name}: sensitivity, {name} weights, cuda fp32: "
             f"a 1e-6 relative weight change moves logits by "
-            f"{float((a - b).abs().max()):.3e} (logit scale "
-            f"{float(a.abs().max()):.3f})")
-    for path, walk in (("chunked paged prefill + paged decode", _walk),
-                       ("prefill + ring decode", _walk_prefill)):
-        feed = []
-        with router_gaps() as gaps:          # fp32: bf16 logits tie often
-            ref = run(cfg32, state, torch.device("cpu"), feed, walk)
-            out32 = run(cfg32, state, dev, feed, walk)
-        out16 = run(cfg, state, dev, feed, walk)
-        if "moe" in cfg.block_pattern and not gaps:
-            raise AssertionError("no MoE routing was recorded")
+            f"{float((out_a - out_b).abs().max()):.3e} (logit scale "
+            f"{float(out_a.abs().max()):.3f})")
+    walks = (("chunked paged prefill + paged decode", _walk),
+             ("prefill" + (" with the patches" if patches is not None
+                           else "") + " + ring decode",
+              lambda m, p, f: _walk_prefill(m, p, f, patches)))
+    outs = {}
+    with router_gaps() as gaps:              # fp32: bf16 logits tie often
+        t_cpu = time.perf_counter()
+        m = load(cfg32, state, torch.device("cpu"))
+        for path, walk in walks:
+            feeds[path] = []
+            outs[path] = [walk(m, prompt, feeds[path])]
+        del m
+        t_cpu = time.perf_counter() - t_cpu
+        m = load(cfg32, state, dev)
+        for path, walk in walks:
+            outs[path].append(walk(m, prompt, feeds[path]))
+        del m
+    release()
+    m = load(cfg, state, dev)
+    for path, walk in walks:
+        outs[path].append(walk(m, prompt, feeds[path]))
+    del m
+    release()
+    if "moe" in cfg.block_pattern and not gaps:
+        raise AssertionError("no MoE routing was recorded")
+    for path, (ref, out32, out16) in outs.items():
         if not all(torch.isfinite(v).all() for v in (ref, out32, out16)):
             raise AssertionError("non-finite logits")
         err32 = float((out32 - ref).abs().max())
@@ -1961,6 +2052,9 @@ def check_logits(cfg, state, dev, soften=None, sharpen=None):
                f"{min(gaps):.3e}" if gaps else ""))
         if err32 > 1e-3 or err16 > 0.1 or cos < 0.999:
             raise AssertionError("logits on the card disagree with the CPU")
+    log(f"[check] {cfg.name}: {time.perf_counter() - t0:.1f}s, of which the "
+        f"CPU's model and walks {t_cpu:.1f}s")
+    return t_cpu
 
 
 def build_on_card(cfg, seed):
@@ -2030,7 +2124,10 @@ def phase_granite(dev):
     with timed("granite logits check"):
         check_logits(cut(cfg, 2), state, dev, soften=0.125, sharpen=8.0)
     with timed("granite engine check"):
-        check_engine(cut(cfg, 2), state, dev, 0.125, sharpen=8.0)
+        # one layer (an MoE block): the CPU engine's side of two took a
+        # minute of the script's limit
+        check_engine(cut(cfg, 1), first_layers(state, 1), dev, 0.125,
+                     sharpen=8.0)
     del state
     release()
     return runs
@@ -2088,44 +2185,143 @@ def phase_serve(dev):
             ("recurrentgemma_9b", ("rglru_scan", "paged_extend",
                                    "paged_decode"), 3, 1 / 32)):
         cfg = get_config(arch)
-        model = build_on_card(cfg, 0)
-        runs[arch], runs[arch + " captured"] = serve_pair(
-            model, "model", 3, 32, 3, path, profile=8)
+        with timed(f"{arch} serves"):
+            model = build_on_card(cfg, 0)
+            runs[arch], runs[arch + " captured"] = serve_pair(
+                model, "model", 3, 32, 3, path, profile=8)
         if arch == "recurrentgemma_9b":
-            runs[arch + " ring"], runs[arch + " ring captured"] = serve_pair(
-                model, "model", 3, 32, 3, ("rglru_scan", "decode_attention"),
-                paged=False, profile=8)
-            runs[arch + " full-sequence"] = full_sequence(
-                model, B=4, S=4096, lengths=None, steps=16, forward=False,
-                path=("flash_attention", "decode_attention", "rglru_scan"))
+            with timed(f"{arch} ring serves"):
+                runs[arch + " ring"], runs[arch + " ring captured"] = \
+                    serve_pair(model, "model", 3, 32, 3,
+                               ("rglru_scan", "decode_attention"),
+                               paged=False, profile=8)
+            with timed(f"{arch} full-sequence"):
+                runs[arch + " full-sequence"] = full_sequence(
+                    model, B=4, S=4096, lengths=None, steps=16,
+                    forward=False, path=("flash_attention",
+                                         "decode_attention", "rglru_scan"))
         del model
         release()
-        small = build_model(cut(cfg, n_cut)).init(
-            torch.Generator().manual_seed(0))
-        check_logits(small.cfg, small.state_dict(), dev, soften)
-        del small
+        with timed(f"{arch} logits check"):
+            small = build_model(cut(cfg, n_cut)).init(
+                torch.Generator().manual_seed(0))
+            check_logits(small.cfg, small.state_dict(), dev, soften)
+            del small
         log(f"[time] {arch}: {time.perf_counter() - t0:.1f}s")
         t0 = time.perf_counter()
     ops.reset_launches()
     return runs
 
 
+def phase_whisper(dev, smi):
+    """whisper-tiny at full width and depth (4 encoder and 4 decoder
+    layers, d_model 384, 1500 frames, vocab 51,865; bf16 activations, fp32
+    parameters): ``[full]`` ``prefill`` of [8, 448] tokens after seeded
+    frames [8, 1500, 384] (the encoder through flash attention in the
+    prefix mode, P = 1500), 16 ring ``decode_step``s (cross-attention over
+    the primed cross K/V) and ``forward``; ``[serve]`` on rings (whisper
+    has no paged layout and no verify step, so no speculation, as in the
+    reference), eagerly and captured, rounds 2 and 3 hitting the prefix
+    cache (its cross K/V, zeros as the engine never passes frames, ride in
+    the slot snapshots); ``[train]`` 20 AdamW steps of 8 x 256 with
+    seeded random frames, and one float32 step of the whole model on the
+    card against the CPU.  Returns the launch counts of its runs."""
+    from repro_torch.models.registry import get_config
+    runs = {}
+    cfg = get_config("whisper_tiny")
+    model = build_on_card(cfg, 0)
+    frames = torch.randn(8, cfg.encoder_seq, cfg.d_model, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(
+                             9)).to(torch.bfloat16)
+    with timed("whisper full-sequence"):
+        runs["whisper_tiny full-sequence"] = full_sequence(
+            model, B=8, S=448, lengths=np.linspace(300, 448, 8).astype(int),
+            steps=16, forward=True,
+            path=("flash_attention", "decode_attention"),
+            extra={"frames": frames})
+    with timed("whisper serves"):
+        runs["whisper_tiny ring"], runs["whisper_tiny ring captured"] = \
+            serve_pair(model, "model", 3, 32, 4, ("decode_attention",),
+                       paged=False, profile=8)
+    del model, frames
+    release()
+    with timed("whisper train card vs cpu"):
+        # 1500 frames through 8 layers of random-init attention, near
+        # one-hot: q/k softened, as the logits checks do
+        train_card_vs_cpu(cfg, batch=2, n_layers=None,
+                          launches_each=cfg.num_layers + cfg.encoder_layers,
+                          soften=0.125)
+    with timed("whisper train full width"):
+        runs["whisper_tiny train"] = train_full_width(
+            "whisper_tiny", None, {"attn": "flash_attention"}, dev, smi)
+    return runs
+
+
+def phase_internvl2(dev):
+    """internvl2-76b's language backbone at full width (d_model 8192, 64 q
+    and 8 KV heads, hd 128, d_ff 28672, vocab 128,256; bf16 parameters)
+    cut to 8 of its 80 layers (17.9 GB of weights; 80 would not fit one
+    card): ``[full]`` ``prefill`` of [4, 1792] tokens after 256 seeded
+    patch embeddings (S 2048; flash attention in the prefix mode, P 256),
+    16 ``decode_step``s from position 256 + length, and a no-grad
+    ``forward`` with the patches; a paged serve of the text decoder (the
+    engine passes no patches, as the reference's), eagerly and captured,
+    8 conversations, 2 rounds of 32; then ``check_logits`` at 2 layers of
+    full width, the full-sequence walk with 256 patches: card against the
+    CPU.  Returns the launch counts of its runs."""
+    from repro_torch.models.registry import get_config
+    runs = {}
+    full = get_config("internvl2_76b")
+    cfg = cut(full, 8)
+    model = build_on_card(cfg, 0)
+    g = torch.Generator(device=dev).manual_seed(10)
+    patches = torch.randn(4, cfg.num_patches, cfg.d_model, device=dev,
+                          generator=g).to(torch.bfloat16)
+    with timed("internvl2 full-sequence"):
+        runs["internvl2_76b full-sequence"] = full_sequence(
+            model, B=4, S=1792,
+            lengths=np.linspace(1500, 1792, 4).astype(int), steps=16,
+            forward=True, path=("flash_attention", "decode_attention"),
+            extra={"patch_embeds": patches})
+    with timed("internvl2 serves"):
+        runs["internvl2_76b"], runs["internvl2_76b captured"] = serve_pair(
+            model, "model", 2, 32, 5, ("paged_decode", "paged_extend"),
+            profile=8)
+    state = {k: v.cpu()
+             for k, v in first_layers(model.state_dict(), 2).items()}
+    del model, patches
+    release()
+    with timed("internvl2 logits check"):
+        one = torch.randn(1, cfg.num_patches, cfg.d_model,
+                          generator=torch.Generator().manual_seed(11))
+        check_logits(cut(full, 2), state, dev, soften=1 / 16, patches=one)
+    del state
+    release()
+    return runs
+
+
 # ---------------------------------------------------------------- [train]
 
-# (tag, (B, H, K, S, hd), window, dtypes, lengths, timed): the training
-# shape of examples/torch_train_100m.py (reflect_demo_100m, 8 x 256),
-# recurrentgemma-9b's local attention (hd 256, window 2048) at S 4096, a
-# ragged batch with an empty row, and hd 32 / 128 checked only
+# (tag, (B, H, K, S, hd), window, dtypes, lengths, timed, prefix): the
+# training shape of examples/torch_train_100m.py (reflect_demo_100m, 8 x
+# 256), recurrentgemma-9b's local attention (hd 256, window 2048) at S
+# 4096, a ragged batch with an empty row, hd 32 / 128 checked only, and the
+# prefix mode at whisper's encoder in training (8 x 1500 frames, P = S)
+# and at internvl2-76b's patches (S 2048, P 256)
 BWD_CASES = (
     ("demo", (8, 12, 4, 256, 64), None, (torch.bfloat16, torch.float32),
-     None, True),
-    ("rg", (1, 16, 1, 4096, 256), 2048, (torch.bfloat16,), None, True),
+     None, True, 0),
+    ("rg", (1, 16, 1, 4096, 256), 2048, (torch.bfloat16,), None, True, 0),
     ("ragged", (8, 12, 4, 1000, 64), None, (torch.bfloat16,),
-     (0, 1000, 517, 1, 999, 64, 700, 333), True),
+     (0, 1000, 517, 1, 999, 64, 700, 333), True, 0),
     ("hd32", (2, 8, 2, 300, 32), 100, (torch.float32, torch.bfloat16),
-     (300, 77), False),
+     (300, 77), False, 0),
     ("hd128", (2, 8, 4, 300, 128), 100, (torch.float32, torch.bfloat16),
-     (300, 77), False),
+     (300, 77), False, 0),
+    ("whisper", (8, 6, 6, 1500, 64), None, (torch.bfloat16, torch.float32),
+     None, True, 1500),
+    ("internvl2", (1, 64, 8, 2048, 128), None, (torch.bfloat16,), None,
+     True, 256),
 )
 
 
@@ -2144,7 +2340,8 @@ def bwd_cases(records, dev, flush):
     from repro_torch.kernels.flash_attention import flash_attention_bwd
     F = torch.nn.functional
     g = torch.Generator().manual_seed(11)
-    for tag, (B, H, K, S, hd), window, dtypes, lengths, timed in BWD_CASES:
+    for tag, (B, H, K, S, hd), window, dtypes, lengths, timed, P in \
+            BWD_CASES:
         for dtype in dtypes:
             mk = lambda *s: torch.randn(*s, generator=g).to(dev, dtype)
             q, k, v = mk(B, H, S, hd), mk(B, K, S, hd), mk(B, K, S, hd)
@@ -2152,15 +2349,17 @@ def bwd_cases(records, dev, flush):
             ln = (None if lengths is None else
                   torch.tensor(lengths, dtype=torch.int32, device=dev))
             o, lse = FA._launch(q, k, v, window, ln,
-                                with_lse=dtype == torch.bfloat16)
+                                with_lse=dtype == torch.bfloat16,
+                                prefix_len=P)
             kern = lambda: flash_attention_bwd(q, k, v, o, do, lse=lse,
-                                               window=window, lengths=ln)
+                                               window=window, lengths=ln,
+                                               prefix_len=P)
             got = kern()
             again = kern()
             torch.cuda.synchronize()
             want = ref.flash_attention_bwd_ref(
                 q.float(), k.float(), v.float(), o.float(), do.float(),
-                window=window, lengths=ln)
+                window=window, lengths=ln, prefix_len=P)
             bf16 = dtype == torch.bfloat16
             mode = "bfloat16" if bf16 else "float32"
             tol = 2e-2 if bf16 else 1e-4
@@ -2173,7 +2372,8 @@ def bwd_cases(records, dev, flush):
                 errs.append(err)
                 log(f"[kernels] {tag} flash_attention_bwd B={B} H={H} K={K} "
                     f"S={S} hd={hd} {mode} window={window} lengths="
-                    f"{lengths is not None} {name}: max_abs_err={err:.3e} "
+                    f"{lengths is not None} prefix={P} {name}: "
+                    f"max_abs_err={err:.3e} "
                     f"(tol {tol} x max(|grad|, 1) = {tol * max(scale, 1):.3e})"
                     f"; same bits on a second call {torch.equal(x, y)} "
                     f"{'ok' if ok else 'MISMATCH'}")
@@ -2188,14 +2388,14 @@ def bwd_cases(records, dev, flush):
             if not timed:
                 continue
             plain = lambda: ref.flash_attention_bwd_ref(
-                q, k, v, o, do, window=window, lengths=ln)
-            valid = flash_valid(S, window, ln, dev)
+                q, k, v, o, do, window=window, lengths=ln, prefix_len=P)
+            valid = flash_valid(S, window, ln, dev, P)
             pairs = int(valid.sum()) * (B if valid.shape[0] == 1 else 1) * H
             kv_rows = B * S if ln is None else int(ln.clamp_max(S).sum())
             nbytes = (4 * q.numel() + 2 * kv_rows * K * hd
                       + 2 * k.numel()) * q.element_size()
             qa, ka, va = (t.detach().requires_grad_(True) for t in (q, k, v))
-            if window is None and ln is None:
+            if window is None and ln is None and not P:
                 out = F.scaled_dot_product_attention(qa, ka, va,
                                                      is_causal=True,
                                                      enable_gqa=True)
@@ -2206,8 +2406,8 @@ def bwd_cases(records, dev, flush):
                                               retain_graph=True)
             rec = time_record(kern, plain, flush, nbytes, 10 * hd * pairs,
                               dtype, max(errs), pairs, lib=lib)
-            log_record(f"{tag} flash_attention_bwd {mode} window={window}",
-                       rec)
+            log_record(f"{tag} flash_attention_bwd {mode} window={window} "
+                       f"prefix={P}", rec)
             if bf16:
                 # one cold-L2 call between two events also holds the
                 # wrapper's host enqueue, which at the demo shape exceeds
@@ -2353,55 +2553,76 @@ def lse_forward_ms(q, k, v, flush):
 
 
 def train_card_vs_cpu(cfg, batch=8, kernels=("flash_attention",
-                                               "flash_attention_bwd")):
-    """One float32 loss and gradient of the 2-layer full-width cut on the
-    card and on the CPU, on one seeded weight set and one batch of
-    ``batch`` x 256 of the task corpus: loss within 1e-4 relative, every
+                                               "flash_attention_bwd"),
+                      n_layers=2, launches_each=2, soften=None):
+    """One float32 loss and gradient of the full-width cut to
+    ``n_layers`` layers (None: the whole model) on the card and on the
+    CPU, on one seeded weight set (q/k scaled by ``soften``, as
+    ``check_logits`` does, where random-init attention is near one-hot)
+    and one batch of ``batch`` x 256 of the task corpus (with seeded
+    frames [batch, F, d] for whisper): loss within 1e-4 relative, every
     gradient tensor's cosine with the CPU's at least 0.9999.  The card's
-    run must launch each of ``kernels`` once a layer (the forward and the
-    backward kernel of the cut's attention or scan)."""
+    run must launch each of ``kernels`` (the forward and the backward
+    kernel of the model's attention or scan) ``launches_each`` times:
+    once a layer."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data.lm_data import lm_batches
     from repro_torch.kernels import ops
     from repro_torch.models.registry import build_model
     from repro_torch.train.loop import (grads_of, make_loss_fn, params_of,
                                         to_device, trainable)
-    cfg32 = cut(cfg, 2).replace(dtype="float32", param_dtype="float32")
+    cfg32 = (cfg if n_layers is None else cut(cfg, n_layers)).replace(
+        dtype="float32", param_dtype="float32")
     tcfg = TrainConfig(remat=False)
-    data = next(lm_batches(256, batch, 1))
-    state = build_model(cfg32).init(torch.Generator().manual_seed(3)) \
-        .state_dict()
+    data = dict(next(lm_batches(256, batch, 1)))
+    if cfg.arch_type == "audio":
+        data["frames"] = torch.randn(
+            batch, cfg.encoder_seq, cfg.d_model,
+            generator=torch.Generator().manual_seed(4))
+    # the weights are drawn on the card (a host draw of a 256K-vocab cut
+    # took most of this check), each device's model loads them, and the
+    # cosines are taken on the card in float64
+    with torch.device("cuda"):
+        state = scaled(build_model(cfg32).init(
+            torch.Generator(device="cuda").manual_seed(3)).state_dict(),
+            soften)
     out = []
     for d in (torch.device("cpu"), torch.device("cuda")):
-        m = build_model(cfg32)
+        with torch.device(d):
+            m = build_model(cfg32)
         m.load_state_dict(state)
-        m.to(d)
         ops.reset_launches()
         with trainable(m):
             loss, metrics = make_loss_fn(m, cfg32, tcfg)(to_device(data, d))
             grads = grads_of(loss, params_of(m))
         launches = dict(ops.LAUNCHES)
-        out.append((float(loss.detach()), {k: v.detach().cpu().double()
+        out.append((float(loss.detach()), {k: v.detach().cuda()
                                            for k, v in grads.items()},
                     launches))
         del m, grads, loss
     del state
     (c_loss, c_g, _), (g_loss, g_g, launches) = out
-    cos = {k: float((c_g[k] * g_g[k]).sum()
-                    / (c_g[k].norm() * g_g[k].norm()).clamp_min(1e-300))
-           for k in c_g}
+    cos = {}
+    for k in c_g:
+        a, b = c_g[k].double(), g_g[k].double()
+        cos[k] = float((a * b).sum() / (a.norm() * b.norm()).clamp_min(
+            1e-300))
+    del c_g, g_g
     worst = min(cos, key=cos.get)
     rel = abs(g_loss - c_loss) / abs(c_loss)
-    log(f"[train] {cfg.name}, 2 layers fp32, one batch of {batch} x 256: "
+    depth = ("all" if n_layers is None else n_layers)
+    log(f"[train] {cfg.name}, {depth} layers fp32"
+        + ("" if soften is None else f" (q/k x {soften})")
+        + f", one batch of {batch} x 256: "
         f"loss cpu {c_loss:.7f} cuda {g_loss:.7f} (relative {rel:.2e}, tol "
         f"1e-4); smallest gradient cosine {cos[worst]:.7f} ({worst}, tol "
         f"0.9999) over {len(cos)} tensors; cuda launches {launches}")
     if rel > 1e-4 or cos[worst] < 0.9999:
         raise AssertionError(f"the {cfg.name} train step on the card "
                              "disagrees with the CPU")
-    if any(launches[k] != 2 for k in kernels):
-        raise AssertionError(f"the 2-layer step did not launch {kernels} "
-                             f"once a layer: {launches}")
+    if any(launches[k] != launches_each for k in kernels):
+        raise AssertionError(f"the {depth}-layer step did not launch "
+                             f"{kernels} once a layer: {launches}")
     release()
 
 
@@ -2410,11 +2631,11 @@ class _KernelForwardPlainBackward(torch.autograd.Function):
     its backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window, lengths):
+    def forward(ctx, q, k, v, window, lengths, prefix_len):
         from repro_torch.kernels import flash_attention as FA
-        out, _ = FA._launch(q, k, v, window, lengths)
+        out, _ = FA._launch(q, k, v, window, lengths, prefix_len=prefix_len)
         ctx.save_for_backward(q, k, v, out, lengths)
-        ctx.window = window
+        ctx.window, ctx.prefix_len = window, prefix_len
         return out
 
     @staticmethod
@@ -2422,20 +2643,25 @@ class _KernelForwardPlainBackward(torch.autograd.Function):
         from repro_torch.kernels import ref
         q, k, v, out, lengths = ctx.saved_tensors
         return (*ref.flash_attention_bwd_ref(
-            q, k, v, out, do, window=ctx.window, lengths=lengths), None, None)
+            q, k, v, out, do, window=ctx.window, lengths=lengths,
+            prefix_len=ctx.prefix_len), None, None, None)
 
 
-def kernel_forward_plain_backward(q, k, v, window=None, lengths=None):
-    return _KernelForwardPlainBackward.apply(q, k, v, window, lengths)
+# Stand-ins for ops.flash_attention, with its signature
+def kernel_forward_plain_backward(q, k, v, window=None, lengths=None,
+                                  prefix_len=0):
+    return _KernelForwardPlainBackward.apply(q, k, v, window, lengths,
+                                             prefix_len)
 
 
-def plain_attention(q, k, v, window=None, lengths=None):
+def plain_attention(q, k, v, window=None, lengths=None, prefix_len=0):
     """Autograd of the flash kernels' plain version."""
     from repro_torch.kernels import ref
-    return ref.flash_attention_ref(q, k, v, window=window, lengths=lengths)
+    return ref.flash_attention_ref(q, k, v, window=window, lengths=lengths,
+                                   prefix_len=prefix_len)
 
 
-def plain_bf16_p(q, k, v, window=None, lengths=None):
+def plain_bf16_p(q, k, v, window=None, lengths=None, prefix_len=0):
     """Plain attention in float32 under autograd whose P V product takes
     P as the bf16 forward kernel does (``flash_tc::softmax_tile``): p =
     exp(s - the row's max) rounded to bf16 (its gradient passed through),
@@ -2444,7 +2670,8 @@ def plain_bf16_p(q, k, v, window=None, lengths=None):
     size; an empty row gives zeros."""
     B, H, S, hd = q.shape
     K = k.shape[1]
-    valid = flash_valid(S, window, lengths, q.device)[:, None, None]
+    valid = flash_valid(S, window, lengths, q.device, prefix_len)[
+        :, None, None]
     s = torch.einsum("bkgid,bkjd->bkgij",
                      q.float().reshape(B, K, H // K, S, hd),
                      k.float()) * hd ** -0.5
@@ -2490,11 +2717,12 @@ def train_bf16_kernels_vs_plain(cfg, dev):
     kern = A.ops.flash_attention
     first = []  # the first layer's q, k, v on the raw init
 
-    def kernels(q, k, v, window=None, lengths=None):
+    def kernels(q, k, v, window=None, lengths=None, prefix_len=0):
         if not first:
             first.append((q.detach().clone(), k.detach().clone(),
                           v.detach().clone(), window, lengths))
-        return kern(q, k, v, window=window, lengths=lengths)
+        return kern(q, k, v, window=window, lengths=lengths,
+                    prefix_len=prefix_len)
 
     ways = {"kernels": kernels,
             "kernel forward, plain backward": kernel_forward_plain_backward,
@@ -2640,34 +2868,48 @@ RECURRENT_TRAIN = (
                               "rg_attn": "flash_attention"}))
 
 
-def train_recurrent(arch, n_layers, kernels, dev, smi):
+def train_full_width(arch, n_layers, kernels, dev, smi):
     """20 AdamW steps of 8 x 256 of the task corpus through
     ``launch/train.py``'s ``build`` and ``train`` (``train/loop.py``'s
-    step) at full width and ``n_layers`` layers: bf16 activations, fp32
-    parameters (AdamW's moments need them), no remat.  The loss must be
-    finite and fall, and each block kind's forward and backward kernels
-    launch once a layer and step.  Returns the run's launches."""
+    step) at full width and ``n_layers`` layers (None: all): bf16
+    activations, fp32 parameters (AdamW's moments need them), no remat;
+    whisper with seeded random frames [8, F, d] beside every batch (zero
+    frames, the launcher's default, would leave its encoder's attention
+    nothing to compute).  The loss must be finite and fall, and each block
+    kind's forward and backward kernels launch once a layer (encoder
+    layers included) and step.  Returns the run's launches."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.kernels import ops
     from repro_torch.launch.train import build, train
     from repro_torch.models.registry import get_config
     steps = 20
-    cfg = cut(get_config(arch), n_layers).replace(dtype="bfloat16",
-                                                  param_dtype="float32")
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = cut(cfg, n_layers)
+    cfg = cfg.replace(dtype="bfloat16", param_dtype="float32")
     model = build(cfg, dev, seed=0)
     n_params = sum(p.numel() for p in model.parameters())
     tcfg = TrainConfig(total_steps=steps, warmup_steps=5,
                        learning_rate=1e-3, remat=False)
+    extra = None
+    if cfg.arch_type == "audio":
+        extra = {"frames": torch.randn(
+            8, cfg.encoder_seq, cfg.d_model, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(6)).to(
+                torch.bfloat16)}
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launches()
     out = train(model, cfg, tcfg, steps, 8, 256, log_every=5,
-                log=lambda m: log(f"[train] {cfg.name} {m}"))
+                log=lambda m: log(f"[train] {cfg.name} {m}"), extra=extra)
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
     first, last = (float(np.mean(out["losses"][:5])),
                    float(np.mean(out["losses"][-5:])))
-    log(f"[train] {cfg.name} full width, {n_layers} layers "
-        f"({' '.join(cfg.block_pattern)}), {n_params} fp32 parameters, bf16 "
+    log(f"[train] {cfg.name} full width, {n_layers or 'all'} layers "
+        f"({' '.join(cfg.block_pattern)}"
+        + (f"; {cfg.encoder_layers} encoder layers over frames "
+           f"{list(extra['frames'].shape)}" if extra else "")
+        + f"), {n_params} fp32 parameters, bf16 "
         f"activations, {steps} AdamW steps of 8 x 256: loss {first:.4f} -> "
         f"{last:.4f} (means of the first and last 5); "
         f"{out['ms_per_step']:.2f} ms a step, {out['tokens_per_s']:.0f} "
@@ -2677,7 +2919,8 @@ def train_recurrent(arch, n_layers, kernels, dev, smi):
         raise AssertionError(f"{cfg.name}: the training loss is not finite "
                              "or did not fall")
     for kind, kernel in kernels.items():
-        want = steps * cfg.block_pattern.count(kind)
+        want = steps * (cfg.block_pattern.count(kind) + (
+            cfg.encoder_layers if extra and kind == "attn" else 0))
         if launches[kernel] != want or launches[kernel + "_bwd"] != want:
             raise AssertionError(f"{cfg.name}: {kernel} and its backward "
                                  f"did not launch once a {kind} layer and "
@@ -2737,7 +2980,8 @@ def fitted_engine_check(cfg, dev, lr=0.5, max_steps=None):
     state = {k: v.cpu() for k, v in model.state_dict().items()}
     del model
     release()
-    check_engine(cut(cfg, 2), state, dev, None, label="port-fitted")
+    with timed(f"{cfg.name} fitted engine check"):
+        check_engine(cut(cfg, 2), state, dev, None, label="port-fitted")
 
 
 def phase_train(dev, smi):
@@ -2810,8 +3054,8 @@ def phase_train(dev, smi):
             train_card_vs_cpu(rcfg, batch=1,
                               kernels=scans + [k + "_bwd" for k in scans])
         with timed(f"train {arch} full width"):
-            runs[f"{arch} train"] = train_recurrent(arch, n_layers, kernels,
-                                                    dev, smi)
+            runs[f"{arch} train"] = train_full_width(arch, n_layers,
+                                                     kernels, dev, smi)
     with timed("train falcon_mamba_7b C2 check"):
         # the reference's lr 0.5 collapses this full-width cut's logits,
         # and at 0.1 its margin stays below 0 through all 720 steps
@@ -2864,6 +3108,10 @@ def main() -> int:
         records = phase_kernels(dev)
     with timed("serve"):
         runs = phase_serve(dev)
+    with timed("whisper"):
+        runs.update(phase_whisper(dev, smi))
+    with timed("internvl2"):
+        runs.update(phase_internvl2(dev))
     with timed("train"):
         runs.update(phase_train(dev, smi))
     ring_reread(dev)

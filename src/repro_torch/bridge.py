@@ -10,9 +10,11 @@ layer unit along a leading ``layers`` axis under ``params["scan"]`` (a
 tuple over the unit's positions), followed by unstacked ``params["tail"]``
 blocks; here every layer is its own ``blocks.<i>`` module, for any mix of
 attention, mamba and RG-LRU blocks (recurrentgemma-9b: a stacked
-(rglru, rglru, rg_attn) unit and a (rglru, rglru) tail).  Leaves keep
-their dtypes: mamba's ``A_log`` and ``D`` and RG-LRU's ``lam`` stay
-float32 under bfloat16 parameters.
+(rglru, rglru, rg_attn) unit and a (rglru, rglru) tail).  Whisper's tree
+stacks its encoder and decoder blocks under ``enc`` and ``dec`` (always
+with the ``layers`` axis), which become ``enc.<i>`` and ``dec.<i>``
+(``STACKS``).  Leaves keep their dtypes: mamba's ``A_log`` and ``D`` and
+RG-LRU's ``lam`` stay float32 under bfloat16 parameters.
 
 ``params_to_jax`` is the inverse: the port's ``state_dict`` back in the
 reference's tree, each ``scan`` leaf re-stacked from its layers.
@@ -30,6 +32,9 @@ import torch
 
 MAX_UNIT = 6
 Path = Tuple[Any, ...]
+# whisper's stacked block lists: every leaf under them has a leading
+# ``layers`` axis, whatever the number of layers
+STACKS = ("enc", "dec")
 
 
 def _flatten(tree: Any, prefix: str, out: Dict[str, np.ndarray]) -> None:
@@ -67,10 +72,20 @@ def params_from_jax(params_np: Mapping) -> Dict[str, torch.Tensor]:
     for name in ("embed", "unembed"):
         if name in params_np:
             state[name] = np.asarray(params_np[name])
-    _flatten(params_np["ln_f"], "ln_f", state)
-    for i, blk in enumerate(_unstack_blocks(params_np["scan"],
-                                            params_np.get("tail", ()))):
-        _flatten(blk, f"blocks.{i}", state)
+    for name in ("ln_f", "enc_ln"):
+        if name in params_np:
+            _flatten(params_np[name], name, state)
+    if "enc" in params_np:                              # whisper
+        for name in STACKS:
+            flat: Dict[str, np.ndarray] = {}
+            _flatten(params_np[name], "", flat)
+            for key, leaf in flat.items():
+                for i in range(leaf.shape[0]):
+                    state[f"{name}.{i}.{key}"] = leaf[i]
+    else:
+        for i, blk in enumerate(_unstack_blocks(params_np["scan"],
+                                                params_np.get("tail", ()))):
+            _flatten(blk, f"blocks.{i}", state)
     return {k: _tensor(v) for k, v in state.items()}
 
 
@@ -115,7 +130,9 @@ def reference_groups(names, cfg) -> Dict[Path, List[str]]:
     groups: Dict[Path, List[str]] = {}
     for name in names:
         parts = name.split(".")
-        if parts[0] != "blocks":
+        if parts[0] in STACKS:
+            path = (parts[0],) + tuple(parts[2:])
+        elif parts[0] != "blocks":
             path = tuple(parts)
         else:
             i, keys = int(parts[1]), tuple(parts[2:])
@@ -124,7 +141,7 @@ def reference_groups(names, cfg) -> Dict[Path, List[str]]:
                     else ("tail", i - n_unit)) + keys
         groups.setdefault(path, []).append(name)
     for path, members in groups.items():
-        if path[0] == "scan" and repeats > 1:
+        if path[0] in STACKS or (path[0] == "scan" and repeats > 1):
             members.sort(key=lambda n: int(n.split(".")[1]))
         elif len(members) != 1:
             raise ValueError(f"{path} maps to {members}")
@@ -135,18 +152,24 @@ def _sort_key(path: Path):
     return tuple((0, k) if isinstance(k, int) else (1, k) for k in path)
 
 
+def is_stacked(names: List[str]) -> bool:
+    """Does a group's reference leaf carry the ``layers`` axis: a
+    repeated unit's leaf, or any leaf of whisper's ``enc``/``dec``."""
+    return len(names) > 1 or names[0].split(".")[0] in STACKS
+
+
 def stacked(state: Mapping[str, torch.Tensor],
             names: List[str]) -> torch.Tensor:
     """The reference leaf of a group: its members stacked along a new
-    leading axis (a repeated unit's leaf), or the one member itself."""
-    if len(names) > 1:
+    leading axis, or the one member itself."""
+    if is_stacked(names):
         return torch.stack([state[n] for n in names])
     return state[names[0]]
 
 
 def unstacked(leaf: torch.Tensor, names: List[str]) -> Dict[str, torch.Tensor]:
     """Inverse of ``stacked``: each member's slice of a reference leaf."""
-    if len(names) > 1:
+    if is_stacked(names):
         return dict(zip(names, leaf.unbind(0)))
     return {names[0]: leaf}
 
@@ -179,7 +202,7 @@ def params_to_jax(state: Mapping[str, torch.Tensor], cfg) -> Dict:
     numpy leaves (bfloat16 as ``ml_dtypes.bfloat16``, the type JAX
     gives numpy): the inverse of ``params_from_jax``."""
     tree = reference_tree(state, cfg)
-    if "tail" not in tree:
+    if "tail" not in tree and "enc" not in tree:
         tree["tail"] = ()
     return _numpy(tree)
 

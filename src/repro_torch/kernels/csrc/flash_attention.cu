@@ -17,12 +17,17 @@
 //                            forward keeps for flash_attention_bwd.cu
 //
 // Query token p attends tokens t <= p (and t > p - window when a window is
-// set, and t < lengths[b] when lengths are given).  It runs in every
-// attention layer of TransformerLM.forward and .prefill.
+// set, and t < lengths[b] when lengths are given).  With a prefix P > 0 the
+// first P tokens also attend each other both ways: p attends t when t <= p
+// or both are below P (and still t > p - window, t < lengths[b]), the mask
+// of the reference's bidirectional prefix (a VLM's image patches; whisper's
+// encoder, P = S).  It runs in every attention layer of
+// TransformerLM.forward and .prefill, of the VLM's, and of whisper's
+// encoder and decoder.
 //
 // What bounds it on the H100: operations.  A (b, kv head) does 4 * HD FLOP
 // for each of its G * S * (S + 1) / 2 (query, key) pairs (S * window with a
-// window) against 2 * S * HD elements of K and V: hundreds of FLOP per
+// window, G * S * S with P = S) against 2 * S * HD elements of K and V: hundreds of FLOP per
 // byte at S = 2048, far above the ~295 FLOP/byte ridge of bf16.
 //
 // What the design does about it: the body is chosen by dtype, and neither
@@ -44,7 +49,8 @@
 //   each K/V stage is staged into shared memory once for the G heads of
 //   the group and every row of the tile.  A tile walks only the slots
 //   between its first row's window start and its last row's diagonal
-//   (capped at the sequence's length); the last tile's padding rows are
+//   (or the prefix's last token, for a tile with a row in the prefix;
+//   capped at the sequence's length); the last tile's padding rows are
 //   masked; blocks are issued longest tile first.
 #include "flash_tc.cuh"
 #include "paged_common.cuh"
@@ -123,18 +129,20 @@ cudaError_t by_head_dim_tc(int hd, const flash_tc::Args& a,
 
 // dtype: 0 = f32, 1 = bf16 (q, k, v and out alike).  lengths may be null.
 // lse may be null, and must be with dtype 0 (the fp32 backward computes its
-// own).  window <= 0 means no window.  Returns the cudaError_t of the
-// launch (0 = success).
+// own).  window <= 0 means no window; prefix 0 means none (0 <= prefix <=
+// S).  Returns the cudaError_t of the launch (0 = success).
 extern "C" int flash_attention(int dtype, const void* q, const void* k,
                                const void* v, const void* lengths,
                                void* out, void* lse, int B, int K, int G,
-                               int hd, int S, int window, void* stream) {
+                               int hd, int S, int window, int prefix,
+                               void* stream) {
+  if (prefix < 0 || prefix > S) return cudaErrorInvalidValue;
   const paged::Args a{q, k, v, nullptr, nullptr, nullptr, nullptr, out,
                       B, S, K, G, window,
                       // q, out [B, K * G, S, HD]: row (b, token, h, g)
                       static_cast<long long>(K) * G * S, 1,
                       static_cast<long long>(G) * S, S};
-  const paged::Dense w{static_cast<const int32_t*>(lengths), S};
+  const paged::Dense w{static_cast<const int32_t*>(lengths), S, prefix};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
@@ -148,7 +156,8 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k,
                          static_cast<const __nv_bfloat16*>(v),
                          static_cast<const int32_t*>(lengths),
                          static_cast<__nv_bfloat16*>(out),
-                         static_cast<float*>(lse), B, K, G, S, window},
+                         static_cast<float*>(lse), B, K, G, S, window,
+                         prefix},
           st);
     default: return cudaErrorInvalidValue;
   }

@@ -1,6 +1,7 @@
 // Flash-attention backward for Hopper (sm_90a): the gradients dq, dk, dv of
 // flash_attention.cu's causal grouped-query attention, with its optional
-// sliding window and per-sequence lengths.
+// sliding window, per-sequence lengths and bidirectional prefix (query i
+// attends key j iff j <= i or both are below the prefix P).
 //
 // Replaces no TPU kernel: the Pallas flash kernel
 // (src/repro/kernels/flash_attention.py) had no backward, and the reference
@@ -44,12 +45,13 @@
 //   (b) dk/dv, a block per (b, kv head, tile of 64 keys, head group): the
 //       tile's K and V are staged once and the Q and dO tiles of BM queries
 //       (with their rows' lse and D) of the group's heads stream through
-//       the two-stage ring, from the diagonal to the window's end.  The
+//       the two-stage ring, from the diagonal (from query 0 for a key tile
+//       that starts below P) to the window's end.  The
 //       keys are wgmma's M rows, so nothing is transposed in registers:
 //         S^T = K Q^T        (ss)
 //         P^T = 2^(S^T scale log2e - lse log2e), masked only on tiles
-//               that straddle the diagonal, the window's edge, the
-//               length or S
+//               that straddle the diagonal (or the prefix's edge), the
+//               window's edge, the length or S
 //         dV += P^T dO       (rs: P^T packed to bf16 in registers, dO read
 //                             MN-major from the same tile bytes)
 //         dP^T = V dO^T      (ss)
@@ -77,11 +79,13 @@
 //   (a) pre-pass, a block per (b, head, query tile): recomputes each row's
 //       lse over its valid keys (online max and sum) and D = rowsum(do*o);
 //   (b) dk/dv, a block per (b, kv head, key tile): walks the query tiles
-//       of all G heads from the tile's diagonal to its window's end,
-//       accumulating dk and dv in registers;
+//       of all G heads from the tile's diagonal (from 0 for a key tile
+//       that starts below P) to its window's end, accumulating dk and dv
+//       in registers;
 //   (c) dq, a block per (b, head, query tile): walks the key tiles from
-//       the window's start to the diagonal (capped at the length),
-//       accumulating dq in registers, longest tiles first.
+//       the window's start to the diagonal (to P - 1 at least, for a
+//       tile that starts below P; capped at the length), accumulating dq
+//       in registers, longest tiles first.
 // Tiles of TL rows (64 at HD <= 64, 32 at 128, 16 at 256) are staged in
 // shared memory as fp32 with a row stride of HD + 1, so a warp reading one
 // column of K across 32 rows hits 32 banks.  A thread of a score tile owns
@@ -115,7 +119,7 @@ struct Args {
   void* dq;
   void* dk;
   void* dv;
-  int B, K, G, S, window;
+  int B, K, G, S, window, prefix;
   float scale;
 };
 
@@ -134,7 +138,15 @@ __device__ __forceinline__ int key_len(const Args& a, int b) {
 
 __device__ __forceinline__ bool attends(const Args& a, int i, int j,
                                         int len) {
-  return i < a.S && j <= i && j < len && (a.window <= 0 || j > i - a.window);
+  return i < a.S && (j <= i || (i < a.prefix && j < a.prefix)) && j < len &&
+         (a.window <= 0 || j > i - a.window);
+}
+
+// One past the last key a query tile starting at i0 and ending before
+// i_end can attend: its diagonal, or the prefix's end for a tile that
+// starts in the prefix.
+__device__ __forceinline__ int key_end(const Args& a, int i0, int i_end) {
+  return max(i_end, i0 < a.prefix ? a.prefix : 0);
 }
 
 // Rows [r0, r0 + TL) of a [S, HD] matrix into a TL x (HD + 1) fp32 tile;
@@ -262,7 +274,7 @@ __global__ void __launch_bounds__(kThreads) bwd_prepass(Args a) {
   float run_m = -INFINITY, run_l = 0.f;
   const int i_end = min(i0 + TL, a.S);
   const int j_lo = a.window > 0 ? max(0, i0 - a.window + 1) : 0;
-  const int j_hi = min(i_end, len);
+  const int j_hi = min(key_end(a, i0, i_end), len);
   const int j = threadIdx.x % TL, ir = threadIdx.x / TL;
   for (int j0 = j_lo / TL * TL; j0 < j_hi; j0 += TL) {
     __syncthreads();
@@ -352,7 +364,9 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv(Args a) {
                          a.S);
     load_tile<T, HD, TL>(v_s, static_cast<const T*>(a.v) + krow * HD, j0,
                          a.S);
-    // query i sees key j iff j <= i < j + window
+    // query i sees key j iff j <= i < j + window, or both are in the
+    // prefix
+    const int i_start = j0 < a.prefix ? 0 : j0;
     const int i_end =
         a.window > 0 ? min(a.S, j0 + TL - 1 + a.window) : a.S;
     for (int g = 0; g < a.G; ++g) {
@@ -360,7 +374,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv(Args a) {
       const long long qrow = (static_cast<long long>(b) * H + h) * a.S;
       const T* q = static_cast<const T*>(a.q) + qrow * HD;
       const T* dout = static_cast<const T*>(a.dout) + qrow * HD;
-      for (int i0 = j0; i0 < i_end; i0 += TL) {
+      for (int i0 = i_start; i0 < i_end; i0 += TL) {
         __syncthreads();
         load_tile<T, HD, TL>(q_s, q, i0, a.S);
         load_tile<T, HD, TL>(do_s, dout, i0, a.S);
@@ -407,7 +421,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dq(Args a) {
 #pragma unroll
   for (int m = 0; m < MA; ++m) acc[m] = 0.f;
   const int j_lo = a.window > 0 ? max(0, i0 - a.window + 1) : 0;
-  const int j_hi = min(min(i0 + TL, a.S), len);
+  const int j_hi = min(key_end(a, i0, min(i0 + TL, a.S)), len);
   for (int j0 = j_lo / TL * TL; j0 < j_hi; j0 += TL) {
     __syncthreads();
     load_tile<T, HD, TL>(k_s, k, j0, a.S);
@@ -492,7 +506,7 @@ struct Args {
   __nv_bfloat16* dk;
   __nv_bfloat16* dv;
   float* part;                // [NS, 2, B, K, S, HD] with NS > 1, else null
-  int B, K, G, S, window, splits;
+  int B, K, G, S, window, prefix, splits;
   float scale;
 };
 
@@ -599,12 +613,14 @@ __global__ void __launch_bounds__(tc::kWG * dkdv_groups<HD>())
   const int j0 = blockIdx.y * kKeys;  // longest tiles (low j0) first
   const int len = a.lengths ? min(max(a.lengths[b], 0), a.S) : a.S;
   const int g0 = a.G * grp / ns, g1 = a.G * (grp + 1) / ns;
-  // query i sees key j iff j <= i < j + window; a tile past the length
-  // has no query
-  const int i_end = j0 >= len ? j0
+  // query i sees key j iff j <= i < j + window, or both are in the
+  // prefix (so a key tile that starts there takes queries from 0); a tile
+  // past the length has no query
+  const int i_start = j0 < a.prefix ? 0 : j0;
+  const int i_end = j0 >= len ? i_start
                     : a.window > 0 ? min(a.S, j0 + kKeys - 1 + a.window)
                                    : a.S;
-  const int nt = (i_end - j0 + BM - 1) / BM;  // query tiles a head
+  const int nt = (i_end - i_start + BM - 1) / BM;  // query tiles a head
   const int steps = (g1 - g0) * nt;
   const size_t kv_off = (static_cast<size_t>(b) * a.K + kv) * a.S * HD;
 
@@ -616,7 +632,7 @@ __global__ void __launch_bounds__(tc::kWG * dkdv_groups<HD>())
   // group (empty past the last step); rows past S are zeros
   auto load_q = [&](int t) {
     if (t < steps) {
-      const int h = kv * a.G + g0 + t / nt, i0 = j0 + t % nt * BM;
+      const int h = kv * a.G + g0 + t / nt, i0 = i_start + t % nt * BM;
       const size_t qrow = (static_cast<size_t>(b) * H + h) * a.S;
       tc::load_tile<HD, BM, THREADS>(stage(t), a.q + qrow * HD, i0, a.S);
       tc::load_tile<HD, BM, THREADS>(stage(t) + QT_BYTES,
@@ -657,14 +673,16 @@ __global__ void __launch_bounds__(tc::kWG * dkdv_groups<HD>())
     // whose stage the load of step t + kAhead overwrites
     __syncthreads();
     load_q(t + tc::kAhead);
-    const int i0 = j0 + t % nt * BM;
+    const int i0 = i_start + t % nt * BM;
     const uint32_t q_s = stage(t), do_s = q_s + QT_BYTES;
     const float* lse_s = rows_of(t);
     const float* d_s = lse_s + BM;
 
     tc::score_tile<HD, BM>(st, k_s, q_s);  // S^T = K Q^T, each wg in full
     // st[4 j + 2 i + e] is key j0 + r0 + 8 i, query i0 + 8 j + c0 + e
-    if (!(i0 >= j0 + kKeys - 1 && j0 + kKeys <= len && i0 + BM <= a.S &&
+    if (!((i0 >= j0 + kKeys - 1 ||
+           (i0 + BM <= a.prefix && j0 + kKeys <= a.prefix)) &&
+          j0 + kKeys <= len && i0 + BM <= a.S &&
           (a.window <= 0 || j0 > i0 + BM - 1 - a.window))) {
 #pragma unroll
       for (int j = 0; j < BM / 8; ++j)
@@ -672,8 +690,9 @@ __global__ void __launch_bounds__(tc::kWG * dkdv_groups<HD>())
         for (int e = 0; e < 4; ++e) {
           const int key = j0 + r0 + 8 * (e >> 1);
           const int qi = i0 + 8 * j + c0 + (e & 1);
-          if (!(qi < a.S && key <= qi && key < len &&
-                (a.window <= 0 || key > qi - a.window)))
+          if (!(qi < a.S &&
+                (key <= qi || (qi < a.prefix && key < a.prefix)) &&
+                key < len && (a.window <= 0 || key > qi - a.window)))
             st[4 * j + e] = -INFINITY;
         }
     }
@@ -772,13 +791,16 @@ __global__ void __launch_bounds__(tc::kWG * kDqGroups)
   const int hq = blockIdx.x, b = blockIdx.y, H = a.K * a.G, kv = hq / a.G;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * QR;  // longest first
   const int len = a.lengths ? min(max(a.lengths[b], 0), a.S) : a.S;
-  // Keys any row of the block can attend: [t_lo, t_hi], in tiles n0..n1.
-  const int t_hi = min(q0 + QR - 1, len - 1);
+  // Keys any row of the block can attend: [t_lo, t_hi], in tiles n0..n1;
+  // rows in the prefix reach its last key as well as their diagonal.
+  const int t_hi =
+      min(max(q0 + QR - 1, q0 < a.prefix ? a.prefix - 1 : 0), len - 1);
   const int t_lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
   const int n0 = t_lo / BN, n1 = t_hi >= t_lo ? t_hi / BN : n0 - 1;
   // ... and the keys of this warpgroup's 64 rows
   const int qw = q0 + tc::kRows * wg;
-  const int w_hi = min(qw + tc::kRows - 1, len - 1);
+  const int w_hi = min(
+      max(qw + tc::kRows - 1, qw < a.prefix ? a.prefix - 1 : 0), len - 1);
   const int w_lo = a.window > 0 ? max(0, qw - a.window + 1) : 0;
 
   const size_t qrow = (static_cast<size_t>(b) * H + hq) * a.S;
@@ -834,7 +856,9 @@ __global__ void __launch_bounds__(tc::kWG * kDqGroups)
     tc::fence_regs<BN / 2>(s);
     tc::fence_regs<BN / 2>(dp);
     // s[4 j + 2 i + e] is row r0 + 8 i, key k0 + 8 j + c0 + e
-    if (!(k0 + BN - 1 <= qw && k0 + BN <= len &&
+    if (!((k0 + BN - 1 <= qw ||
+           (qw + tc::kRows <= a.prefix && k0 + BN <= a.prefix)) &&
+          k0 + BN <= len &&
           (a.window <= 0 || k0 > qw + tc::kRows - 1 - a.window))) {
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j)
@@ -842,8 +866,8 @@ __global__ void __launch_bounds__(tc::kWG * kDqGroups)
         for (int e = 0; e < 4; ++e) {
           const int row = r0 + 8 * (e >> 1);
           const int key = k0 + 8 * j + c0 + (e & 1);
-          if (!(key <= row && key < len &&
-                (a.window <= 0 || key > row - a.window)))
+          if (!((key <= row || (row < a.prefix && key < a.prefix)) &&
+                key < len && (a.window <= 0 || key > row - a.window)))
             s[4 * j + e] = -INFINITY;
         }
     }
@@ -926,9 +950,9 @@ cudaError_t by_head_dim(int hd, const Args& a, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 = f32, 1 = bf16 (q, k, v, o, dout, dq, dk and dv alike).
-// lengths may be null; window <= 0 means no window; delta is float [B, H,
-// S] scratch; lse is float [B, H, S]: the forward's with dtype 1, scratch
-// with dtype 0.  splits is NS, the head groups of the bf16 dk/dv kernel
+// lengths may be null; window <= 0 means no window; prefix 0 means none
+// (0 <= prefix <= S); delta is float [B, H, S] scratch; lse is float [B,
+// H, S]: the forward's with dtype 1, scratch with dtype 0.  splits is NS, the head groups of the bf16 dk/dv kernel
 // (1 to G; 1 with dtype 0), and part its float [NS, 2, B, K, S, HD]
 // scratch when NS > 1, else null.  Returns the cudaError_t of the
 // launches (0 = success).
@@ -937,18 +961,19 @@ extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k,
                                    const void* dout, const void* lengths,
                                    void* lse, void* delta, void* dq, void* dk,
                                    void* dv, void* part, int B, int K, int G,
-                                   int hd, int S, int window, int splits,
-                                   void* stream) {
+                                   int hd, int S, int window, int prefix,
+                                   int splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float scale = 1.f / sqrtf(static_cast<float>(hd));
-  if (splits < 1 || splits > G || (splits > 1) != (part != nullptr))
+  if (splits < 1 || splits > G || (splits > 1) != (part != nullptr) ||
+      prefix < 0 || prefix > S)
     return cudaErrorInvalidValue;
   switch (dtype) {
     case 0: {
       if (splits != 1) return cudaErrorInvalidValue;
       const Args a{q, k, v, o, dout, static_cast<const int32_t*>(lengths),
                    static_cast<float*>(lse), static_cast<float*>(delta), dq,
-                   dk, dv, B, K, G, S, window, scale};
+                   dk, dv, B, K, G, S, window, prefix, scale};
       return by_head_dim<float>(hd, a, st);
     }
     case 1: {
@@ -960,8 +985,8 @@ extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k,
                         static_cast<const float*>(lse),
                         static_cast<float*>(delta), static_cast<bf*>(dq),
                         static_cast<bf*>(dk), static_cast<bf*>(dv),
-                        static_cast<float*>(part), B, K, G, S, window, splits,
-                        scale};
+                        static_cast<float*>(part), B, K, G, S, window, prefix,
+                        splits, scale};
       return tcb::by_head_dim(hd, a, st);
     }
     default: return cudaErrorInvalidValue;

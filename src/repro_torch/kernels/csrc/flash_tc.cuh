@@ -11,17 +11,21 @@
 // backwards (longest tiles first).  The block walks the key tiles of BN
 // keys (64, or 32 at HD 256) between its first query's window start and
 // its last query's diagonal, capped at the sequence's length; a
-// warpgroup skips the tiles none of its rows can attend.  Per tile and
-// warpgroup:
+// warpgroup skips the tiles none of its rows can attend.  With a
+// bidirectional prefix of P tokens (Args::prefix: a VLM's image patches,
+// a whisper encoder's frames with P = S), query i attends key j iff
+// j <= i or both are below P, so a block with a row below P walks on to
+// key P - 1; the key range still only grows with the tile index, so the
+// order stays longest first.  Per tile and warpgroup:
 //
 //   S = Q K^T   wgmma m64nBNk16, Q and K from shared memory, fp32 in
 //               registers (the accumulator layout: thread t of a
 //               warpgroup holds rows 16 (t / 32) + (t % 32) / 4 and 8
 //               more, two columns of every 8);
-//   softmax     masked (causal, window, length) only on tiles that need
-//               it, online in fp32 in the log2 domain (one FFMA and one
-//               ex2 a score), row max and sum over the 4 threads of a row
-//               with shuffles;
+//   softmax     masked (causal or prefix, window, length) only on tiles
+//               that need it, online in fp32 in the log2 domain (one FFMA
+//               and one ex2 a score), row max and sum over the 4 threads
+//               of a row with shuffles;
 //   O += P V    P rounded to bf16 in registers, used in place as the
 //               register A operand of wgmma m64n64k16 (m64n32k16 at HD 32)
 //               against V in shared memory; O stays in fp32 registers.
@@ -74,6 +78,8 @@ struct Args {
   __nv_bfloat16* out;      // [B, H, S, HD]
   float* lse;              // [B, H, S] each row's log-sum-exp, or null
   int B, K, G, S, window;  // window <= 0: no window
+  int prefix;              // tokens t < prefix attend each other both
+                           // ways (0: none)
 };
 
 // Keys of a tile: 64, and 32 at HD 256 (two blocks fit an SM).
@@ -371,13 +377,17 @@ __global__ void __launch_bounds__(kWG * WG)
   const int hq = blockIdx.x, b = blockIdx.y, h = hq / a.G;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * kRows * WG;  // longest first
   const int len = a.lengths ? min(a.lengths[b], a.S) : a.S;
-  // Keys any row of the block can attend: [t_lo, t_hi], in tiles n0..n1.
-  const int t_hi = min(q0 + kRows * WG - 1, len - 1);
+  // Keys any row of the block can attend: [t_lo, t_hi], in tiles n0..n1;
+  // rows in the prefix reach its last key as well as their diagonal.
+  const int t_hi =
+      min(max(q0 + kRows * WG - 1, q0 < a.prefix ? a.prefix - 1 : 0),
+          len - 1);
   const int t_lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
   const int n0 = t_lo / BN, n1 = t_hi >= t_lo ? t_hi / BN : n0 - 1;
   // ... and the keys of this warpgroup's 64 rows
   const int qw = q0 + kRows * wg;
-  const int w_hi = min(qw + kRows - 1, len - 1);
+  const int w_hi =
+      min(max(qw + kRows - 1, qw < a.prefix ? a.prefix - 1 : 0), len - 1);
   const int w_lo = a.window > 0 ? max(0, qw - a.window + 1) : 0;
 
   const size_t q_off =
@@ -430,8 +440,11 @@ __global__ void __launch_bounds__(kWG * WG)
     score_tile<HD, BN>(s, qw_s, k_s);
 
     // s[4 j + 2 i + e] is row r0 + 8 i, key k0 + 8 j + c0 + e.  Mask only
-    // a tile that straddles the diagonal, the window's edge or the length.
-    if (!(k0 + BN - 1 <= qw && k0 + BN <= len &&
+    // a tile that straddles the diagonal (or the prefix's edge), the
+    // window's edge or the length.
+    if (!((k0 + BN - 1 <= qw ||
+           (qw + kRows <= a.prefix && k0 + BN <= a.prefix)) &&
+          k0 + BN <= len &&
           (a.window <= 0 || k0 > qw + kRows - 1 - a.window))) {
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j)
@@ -439,8 +452,8 @@ __global__ void __launch_bounds__(kWG * WG)
         for (int e = 0; e < 4; ++e) {
           const int row = r0 + 8 * (e >> 1);
           const int key = k0 + 8 * j + c0 + (e & 1);
-          if (!(key <= row && key < len &&
-                (a.window <= 0 || key > row - a.window)))
+          if (!((key <= row || (row < a.prefix && key < a.prefix)) &&
+                key < len && (a.window <= 0 || key > row - a.window)))
             s[4 * j + e] = -INFINITY;
         }
     }

@@ -280,10 +280,13 @@ struct Ring {
 };
 
 // Contiguous K/V rows [B, K, S, HD] of full sequences; slot t holds token
-// t.  Slots at or past the sequence's length are never read.
+// t.  Slots at or past the sequence's length are never read.  Tokens below
+// ``prefix`` (0: none) also attend the later tokens below it: a
+// bidirectional prefix, so a tile with a row there walks on to slot
+// prefix - 1.
 struct Dense {
   const int32_t* lengths;     // [B] valid tokens of each sequence, or null
-  int S;
+  int S, prefix;
   int t_first, t_last, window;
   long long base;             // first row of (b, h)
 
@@ -292,12 +295,15 @@ struct Dense {
     window = a.window;
     base = (static_cast<long long>(b) * a.K + h) * S;
     const int len = lengths ? min(lengths[b], S) : S;
-    t_last = min(p_last, len - 1);      // tiles past the diagonal: skipped
+    // tiles past the diagonal (and the prefix): skipped
+    t_last = min(max(p_last, p_first < prefix ? prefix - 1 : 0), len - 1);
     t_first = window > 0 ? max(0, p_first - window + 1) : 0;
   }
   __device__ long long row(int t) const { return base + t; }
   __device__ bool attendable(int t, int pos) const {
-    return slot_valid(t, pos, window);
+    return slot_valid(t, pos, window) ||
+           (pos >= 0 && pos < prefix && t < prefix &&
+            (window <= 0 || t > pos - window));
   }
 };
 

@@ -56,9 +56,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #   decode_attention: (dtype, q, k, v, ks, kz, vs, tok, pos, out, part,
 #                B, K, G, hd, C, window, splits, stream)
 #   flash_attention:  (dtype, q, k, v, lengths, out, lse, B, K, G, hd, S,
-#                window, stream)
+#                window, prefix, stream)
 #   flash_attention_bwd: (dtype, q, k, v, o, dout, lengths, lse, delta, dq,
-#                dk, dv, part, B, K, G, hd, S, window, splits, stream)
+#                dk, dv, part, B, K, G, hd, S, window, prefix, splits,
+#                stream)
 #   mamba_scan: (x_dtype, dt, Bm, Cm, x, A, Dsk, h0, y, h, states, B, S,
 #                D, N, stream)
 #   mamba_scan_bwd: (x_dtype, dt, Bm, Cm, x, A, Dsk, states, dy, dh_last,
@@ -70,8 +71,8 @@ _ARGTYPES = {
     "paged_decode": [_I] + [_P] * 10 + [_I] * 8 + [_P],
     "paged_extend": [_I] + [_P] * 10 + [_I] * 9 + [_P],
     "decode_attention": [_I] + [_P] * 10 + [_I] * 7 + [_P],
-    "flash_attention": [_I] + [_P] * 6 + [_I] * 6 + [_P],
-    "flash_attention_bwd": [_I] + [_P] * 12 + [_I] * 7 + [_P],
+    "flash_attention": [_I] + [_P] * 6 + [_I] * 7 + [_P],
+    "flash_attention_bwd": [_I] + [_P] * 12 + [_I] * 8 + [_P],
     "mamba_scan": [_I] + [_P] * 10 + [_I] * 4 + [_P],
     "mamba_scan_bwd": [_I] + [_P] * 19 + [_I] * 4 + [_P],
     "rglru_scan": [_P] * 5 + [_I] * 3 + [_P],

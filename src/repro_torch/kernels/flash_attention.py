@@ -18,8 +18,11 @@ rows of the G heads of that kv head)); both walk only the keys between a
 tile's window start and its diagonal.  See the notes at the top of the
 sources.
 Token i attends j <= i (and j > i - window with a window, and j <
-lengths[b] with lengths); the output takes q's dtype.  A row with no
-attendable token is zeros.
+lengths[b] with lengths); with ``prefix_len`` P > 0 the first P tokens
+also attend each other both ways (j <= i or both below P, still cut by
+the window and the lengths): the bidirectional prefix of the VLM's image
+patches and of whisper's encoder (P = S).  The output takes q's dtype.  A
+row with no attendable token is zeros.
 
 Gradients: on a CPU tensor autograd differentiates the plain version.  On
 a CUDA tensor that needs a gradient (grad mode on and q, k or v requiring
@@ -46,7 +49,7 @@ from repro_torch.kernels.ref import flash_attention_bwd_ref
 from repro_torch.kernels.ref import flash_attention_ref as plain
 
 
-def _check(q, k, v, lengths, window, extra=()) -> int:
+def _check(q, k, v, lengths, window, prefix_len=0, extra=()) -> int:
     """Validate a forward or backward launch; returns the dtype code."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q must be [B, H, S, hd] and k [B, K, S, hd], got "
@@ -77,13 +80,20 @@ def _check(q, k, v, lengths, window, extra=()) -> int:
                          "aligned")
     if window is not None and window <= 0:
         raise ValueError("window must be positive")
+    _check_prefix(prefix_len, S)
     return code
 
 
-def _launch(q, k, v, window, lengths, with_lse=False):
+def _check_prefix(prefix_len: int, S: int) -> None:
+    if not 0 <= prefix_len <= S:
+        raise ValueError(f"prefix_len must lie in [0, S = {S}], got "
+                         f"{prefix_len}")
+
+
+def _launch(q, k, v, window, lengths, with_lse=False, prefix_len=0):
     """The forward kernel: (out, lse), lse float32 [B, H, S] when
     ``with_lse`` (bfloat16 only), else None."""
-    code = _check(q, k, v, lengths, window)
+    code = _check(q, k, v, lengths, window, prefix_len)
     if with_lse and code != 1:
         raise ValueError("the forward kernel stores lse in bfloat16 only")
     B, H, S, hd = q.shape
@@ -94,7 +104,7 @@ def _launch(q, k, v, window, lengths, with_lse=False):
     cuda_lib.launch(
         "flash_attention", code, q.data_ptr(), k.data_ptr(),
         v.data_ptr(), cuda_lib.pointer(lengths), out.data_ptr(),
-        cuda_lib.pointer(lse), B, K, H // K, hd, S, window or 0,
+        cuda_lib.pointer(lse), B, K, H // K, hd, S, window or 0, prefix_len,
         torch.cuda.current_stream(q.device).cuda_stream)
     return out, lse
 
@@ -103,7 +113,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, *,
                         lse: Optional[torch.Tensor] = None,
                         window: Optional[int] = None,
-                        lengths: Optional[torch.Tensor] = None):
+                        lengths: Optional[torch.Tensor] = None,
+                        prefix_len: int = 0):
     """(dq, dk, dv) of ``flash_attention(q, k, v)`` at output ``o`` and
     output gradient ``do``, in the inputs' dtype: the kernel on a CUDA
     tensor, ``ref.flash_attention_bwd_ref`` on a CPU tensor (which
@@ -111,9 +122,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``lse`` (float32 [B, H, S], ``_launch(..., with_lse=True)``) and
     raises without it; float32 takes none (its pre-pass computes it)."""
     if q.device.type == "cpu":
+        _check_prefix(prefix_len, q.shape[2])
         return flash_attention_bwd_ref(q, k, v, o, do, window=window,
-                                       lengths=lengths)
-    code = _check(q, k, v, lengths, window, extra=(o, do))
+                                       lengths=lengths, prefix_len=prefix_len)
+    code = _check(q, k, v, lengths, window, prefix_len, extra=(o, do))
     B, H, S, hd = q.shape
     K = k.shape[1]
     if code == 1:
@@ -139,7 +151,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         v.data_ptr(), o.data_ptr(), do.data_ptr(), cuda_lib.pointer(lengths),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), cuda_lib.pointer(part), B, K, H // K, hd, S,
-        window or 0, splits, torch.cuda.current_stream(q.device).cuda_stream)
+        window or 0, prefix_len, splits,
+        torch.cuda.current_stream(q.device).cuda_stream)
     return dq, dk, dv
 
 
@@ -148,11 +161,12 @@ class _FlashAttention(torch.autograd.Function):
     backward kernel."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window, lengths):
+    def forward(ctx, q, k, v, window, lengths, prefix_len=0):
         out, lse = _launch(q, k, v, window, lengths,
-                           with_lse=q.dtype == torch.bfloat16)
+                           with_lse=q.dtype == torch.bfloat16,
+                           prefix_len=prefix_len)
         ctx.save_for_backward(q, k, v, out, lse, lengths)
-        ctx.window = window
+        ctx.window, ctx.prefix_len = window, prefix_len
         return out
 
     @staticmethod
@@ -160,16 +174,20 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, out, lse, lengths = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, do.contiguous(),
                                          lse=lse, window=ctx.window,
-                                         lengths=lengths)
-        return dq, dk, dv, None, None
+                                         lengths=lengths,
+                                         prefix_len=ctx.prefix_len)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: Optional[int] = None,
-                    lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    lengths: Optional[torch.Tensor] = None,
+                    prefix_len: int = 0) -> torch.Tensor:
     if q.device.type == "cpu":
-        return plain(q, k, v, window=window, lengths=lengths)
+        _check_prefix(prefix_len, q.shape[2])
+        return plain(q, k, v, window=window, lengths=lengths,
+                     prefix_len=prefix_len)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _FlashAttention.apply(q, k, v, window, lengths)
-    return _launch(q, k, v, window, lengths)[0]
+        return _FlashAttention.apply(q, k, v, window, lengths, prefix_len)
+    return _launch(q, k, v, window, lengths, prefix_len=prefix_len)[0]

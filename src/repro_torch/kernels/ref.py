@@ -78,10 +78,18 @@ def _in_window(t, pos, window):
     return ok if window is None else ok & (t > pos - window)
 
 
-def _flash_valid(S, window, lengths, device) -> torch.Tensor:
-    """[B or 1, S, S] bool: may query i attend key j."""
+def _flash_valid(S, window, lengths, device, prefix_len=0) -> torch.Tensor:
+    """[B or 1, S, S] bool: may query i attend key j.  The reference's
+    mask: ``((j <= i) | (i < P & j < P)) & (j > i - window) & (j <
+    lengths[b])`` with P = ``prefix_len``."""
     i = torch.arange(S, device=device)
-    valid = _in_window(i[None, :], i[:, None], window)[None]  # [1,S,S]
+    qi, kj = i[:, None], i[None, :]
+    valid = kj <= qi
+    if prefix_len:
+        valid = valid | ((qi < prefix_len) & (kj < prefix_len))
+    if window is not None:
+        valid = valid & (kj > qi - window)
+    valid = valid[None]                                      # [1,S,S]
     if lengths is not None:
         valid = valid & (i[None, None, :] < lengths.long()[:, None, None])
     return valid
@@ -89,10 +97,12 @@ def _flash_valid(S, window, lengths, device) -> torch.Tensor:
 
 def flash_attention_ref(q, k, v, *, window: Optional[int] = None,
                         lengths: Optional[torch.Tensor] = None,
-                        return_lse: bool = False):
+                        return_lse: bool = False, prefix_len: int = 0):
     """q: [B,H,S,hd]; k/v: [B,K,S,hd] -> [B,H,S,hd].  Causal: token i
     attends j <= i (and j > i - window); with ``lengths`` ([B]) also only
-    j < lengths[b] — the mask of the JAX ``attention_full_qkv``.  With
+    j < lengths[b]; with ``prefix_len`` P the first P tokens also attend
+    each other both ways (j <= i or both below P, still cut by the window
+    and the lengths) — the mask of the JAX ``attention_full_qkv``.  With
     ``return_lse``, returns (out, lse): lse float32 [B,H,S] is each row's
     log-sum-exp of its scaled scores q.k / sqrt(hd) over its valid keys,
     in natural-log units (``torch.logsumexp``'s), ``+inf`` for a row with
@@ -100,7 +110,7 @@ def flash_attention_ref(q, k, v, *, window: Optional[int] = None,
     backward kernel takes P from."""
     B, H, S, hd = q.shape
     K = k.shape[1]
-    valid = _flash_valid(S, window, lengths, q.device)
+    valid = _flash_valid(S, window, lengths, q.device, prefix_len)
     q5 = q.reshape(B, K, H // K, S, hd).permute(0, 3, 1, 2, 4)
     o = masked_attention(q5, k.transpose(1, 2), v.transpose(1, 2),
                          valid.expand(B, S, S))
@@ -117,7 +127,8 @@ def flash_attention_ref(q, k, v, *, window: Optional[int] = None,
 
 
 def flash_attention_bwd_ref(q, k, v, o, do, *, window: Optional[int] = None,
-                            lengths: Optional[torch.Tensor] = None):
+                            lengths: Optional[torch.Tensor] = None,
+                            prefix_len: int = 0):
     """Gradients (dq, dk, dv) of ``flash_attention_ref`` at output ``o``
     and output gradient ``do`` (both [B,H,S,hd]), written out in float32
     rather than taken by autograd: the scores are recomputed, ``lse`` is
@@ -129,7 +140,8 @@ def flash_attention_bwd_ref(q, k, v, o, do, *, window: Optional[int] = None,
     B, H, S, hd = q.shape
     K = k.shape[1]
     scale = hd ** -0.5
-    valid = _flash_valid(S, window, lengths, q.device)[:, None, None]
+    valid = _flash_valid(S, window, lengths, q.device,
+                         prefix_len)[:, None, None]
     qf = q.float().reshape(B, K, H // K, S, hd)
     dof = do.float().reshape(B, K, H // K, S, hd)
     kf, vf = k.float(), v.float()

@@ -6,8 +6,10 @@ conversations, each round's prompt being the previous prompt plus its
 output plus the reflection suffix ``[99, 98]``; prints throughput and
 prefix-cache statistics.  It serves the reduced (smoke) config of any
 architecture in the port's registry (``models/registry.py``: dense,
-MoE such as ``granite_moe_1b_a400m``, mamba and RG-LRU hybrids) with
-seeded random weights, as the reference does, and runs on the CUDA
+MoE such as ``granite_moe_1b_a400m``, mamba and RG-LRU hybrids, the
+VLM's text decoder ``internvl2_76b`` on the paged pool, and
+``whisper_tiny``, which has no paged layout and so serves from rings)
+with seeded random weights, as the reference does, and runs on the CUDA
 device unless ``--device cpu`` is given.  ``--aot`` warms every serving
 step before the first request (``ServeConfig.aot_warmup``: CUDA graphs
 captured on a card, eager runs through the same buffers on the CPU) and
@@ -107,7 +109,8 @@ def main(argv=None):
           f"steps, max {st['max_step_prefill_tokens']} prefill tok/step)")
     print(f"attn_impl {st['attn_impl']}: resident KV "
           f"{st['resident_kv_bytes']} B "
-          f"(pool {st['kv_pool_pages_used']}/{st['kv_pool_pages']} pages)")
+          f"(pool {st.get('kv_pool_pages_used', 0)}/"
+          f"{st.get('kv_pool_pages', 0)} pages)")
     print(f"startup {startup:.2f}s")
     if args.aot:
         print(f"aot warmup: {st['aot_warmed']} step shapes in "

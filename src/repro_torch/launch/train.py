@@ -9,10 +9,11 @@ with AdamW on the synthetic task corpus (``data/lm_data.py``) through
 attention's forward and backward run in the hand-written flash kernels,
 and the mamba and RG-LRU scans' in the hand-written scan kernels
 (``csrc/mamba_scan_bwd.cu``, ``csrc/rglru_scan_bwd.cu``), so every
-registry family (dense, MoE, recurrent) trains there.  ``--dryrun`` (the
-reference's production plan over a device mesh) raises
-``NotImplementedError``: the mesh tooling is not ported (ROADMAP A17).
-The registry's unported archs (whisper, the VLM) raise as it does.
+registry family (dense, MoE, recurrent, the VLM, whisper) trains there.
+The VLM and whisper get zero patch embeddings or frames beside each
+batch, as in the reference.  ``--dryrun`` (the reference's production
+plan over a device mesh) raises ``NotImplementedError``: the mesh tooling
+is not ported (ROADMAP A17).
 """
 import argparse
 import time
@@ -25,7 +26,7 @@ from repro_torch.data.lm_data import lm_batches
 from repro_torch.device import resolve_device
 from repro_torch.models.registry import (ARCH_IDS, EXTRA_ARCH_IDS,
                                          build_model, get_config,
-                                         get_smoke_config)
+                                         get_smoke_config, side_input)
 from repro_torch.train.loop import init_opt_state, make_train_step
 
 
@@ -37,19 +38,34 @@ def build(cfg, device, seed: int = 0):
     return model.init(torch.Generator(device=device).manual_seed(seed))
 
 
+def stub_inputs(cfg, batch: int, device) -> dict:
+    """The inputs the VLM (``patch_embeds``) and whisper (``frames``) take
+    beside the tokens (``registry.side_input``), as zeros, as the
+    reference's launcher feeds them; nothing for the other families."""
+    side = side_input(cfg)
+    if side is None:
+        return {}
+    key, n = side
+    return {key: torch.zeros(batch, n, cfg.d_model,
+                             dtype=getattr(torch, cfg.dtype), device=device)}
+
+
 def train(model, cfg, tcfg: TrainConfig, steps: int, batch: int, seq: int,
-          log_every: int = 10, log=print) -> dict:
+          log_every: int = 10, log=print, extra=None) -> dict:
     """``steps`` train steps of ``batch`` x ``seq`` tokens of the task
-    corpus.  Returns the per-step losses and accuracies and, past the
-    first step (which builds the kernels on a card), the mean wall time a
-    step in ms and tokens a second."""
+    corpus, with ``extra`` (default ``stub_inputs``) beside each batch.
+    Returns the per-step losses and accuracies and, past the first step
+    (which builds the kernels on a card), the mean wall time a step in ms
+    and tokens a second."""
     state = init_opt_state(model, cfg, tcfg)
     step = make_train_step(model, cfg, tcfg)
     dev = model.embed.device
+    if extra is None:
+        extra = stub_inputs(cfg, batch, dev)
     losses, accs = [], []
     t1 = None
     for i, b in enumerate(lm_batches(seq, batch, steps)):
-        m = step(state, b)
+        m = step(state, {**b, **extra})
         losses.append(float(m["loss"]))
         accs.append(float(m["accuracy"]))
         if i == 0:

@@ -123,16 +123,16 @@ def attention_full_qkv(cfg: ModelConfig, p: Attention, q: torch.Tensor,
     """Causal (optionally sliding-window) attention of projected q [B, S,
     H, hd] and k/v [B, S, K, hd] at positions 0..S-1, the positions
     ``forward`` and ``prefill`` give; ``lengths`` ([B] int32) masks key
-    tokens at or past each sequence's length.  Returns [B, S, d] in q's
-    dtype."""
-    if prefix_len:
-        raise NotImplementedError("a bidirectional prefix (the VLM's) is "
-                                  "not ported")
+    tokens at or past each sequence's length; ``prefix_len`` marks a
+    bidirectional prefix (the VLM's image patches attend among themselves;
+    whisper's encoder passes S), after which tokens stay causal.  Returns
+    [B, S, d] in q's dtype."""
     B, S, H, hd = q.shape
     out = ops.flash_attention(
         q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
         v.transpose(1, 2).contiguous(), window=window,
-        lengths=None if lengths is None else lengths.to(torch.int32))
+        lengths=None if lengths is None else lengths.to(torch.int32),
+        prefix_len=prefix_len)
     return _out_proj(p, out.transpose(1, 2))
 
 

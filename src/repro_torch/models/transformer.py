@@ -10,10 +10,13 @@ over ``self.blocks``.  Entry points:
 
 * ``forward`` (teacher forcing: logits at every position, or the final
   hidden states for the chunked loss, and the MoE load-balancing aux
-  loss), the one entry point autograd can differentiate (the trainer,
+  loss; ``prefix_embeds`` put before the tokens as a bidirectional
+  prefix, the VLM's image patches, models/vlm.py), the one entry point
+  autograd can differentiate (the trainer,
   ``train/loop.py``, turns the parameters' ``requires_grad`` on), and
   ``prefill`` (logits at each sequence's last valid token and the primed
-  decode cache), whose attention layers run ``ops.flash_attention``;
+  decode cache; ``prefix_embeds`` as in ``forward``), whose attention
+  layers run ``ops.flash_attention``;
 * ``prefill_extend`` (chunked prefill, mixed steps and speculative
   verify) and ``decode_step``, which take the cache — a list with one
   dict per layer: the ring cache or shared page pools of an attention
@@ -22,7 +25,7 @@ over ``self.blocks``.  Entry points:
   the cache in place and return ``(logits, cache)``.  ``prefill``,
   ``prefill_extend`` and ``decode_step`` run without gradients.
 
-Not ported yet: the whisper and vlm models.
+The encoder-decoder whisper model is ``models/whisper.py``.
 """
 from __future__ import annotations
 
@@ -46,7 +49,6 @@ ATTN_KINDS = ("attn", "rg_attn")
 # the kinds whose layers hold K/V (a ring or a page pool)
 KV_KINDS = ATTN_KINDS + ("moe",)
 STATE_KINDS = ("mamba", "rglru")
-UNPORTED = "whisper and vlm models"
 
 
 def _block(cfg: ModelConfig, kind: str, dtype: torch.dtype) -> nn.Module:
@@ -58,9 +60,8 @@ def _block(cfg: ModelConfig, kind: str, dtype: torch.dtype) -> nn.Module:
         return M.MambaBlock(cfg, dtype)
     if kind == "rglru":
         return RG.RGLRUBlock(cfg, dtype)
-    raise NotImplementedError(
-        f"block kind {kind!r} is not ported yet; the port serves "
-        f"{KV_KINDS + STATE_KINDS}; still to port: {UNPORTED}")
+    raise ValueError(f"unknown block kind {kind!r}; the blocks are "
+                     f"{KV_KINDS + STATE_KINDS}")
 
 
 class TransformerLM(nn.Module):
@@ -161,12 +162,17 @@ class TransformerLM(nn.Module):
     # ---------------- full sequences -----------------------------------------
 
     def forward(self, batch: Dict[str, torch.Tensor], remat: bool = False,
-                return_hidden: bool = False
+                return_hidden: bool = False,
+                prefix_embeds: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Teacher forcing: ``batch["tokens"]`` [B, S] (and optional
         ``batch["lengths"]`` [B]) -> (logits [B, S, V], aux loss), or the
         final hidden states [B, S, d] after ``ln_f`` instead of the logits
-        with ``return_hidden`` (the chunked loss).  The aux loss is MoE
+        with ``return_hidden`` (the chunked loss).  ``prefix_embeds`` [B,
+        P, d] go before the token embeddings as a bidirectional prefix:
+        positions run over both, ``lengths`` count both (as in the
+        reference, which does not shift them here), and the prefix's rows
+        are dropped after ``ln_f``.  The aux loss is MoE
         load balancing summed over the MoE layers and divided by
         ``cfg.num_layers``, as in the reference: 0 without MoE blocks.
         Differentiable: on the card attention's backward is the
@@ -178,18 +184,26 @@ class TransformerLM(nn.Module):
         tokens = batch["tokens"]
         lengths = batch.get("lengths")
         x = self.embed_tokens(tokens)
-        positions = torch.arange(tokens.shape[1], device=tokens.device,
+        prefix_len = 0
+        if prefix_embeds is not None:
+            x = torch.cat([prefix_embeds.to(self.dtype), x], dim=1)
+            prefix_len = prefix_embeds.shape[1]
+        positions = torch.arange(x.shape[1], device=tokens.device,
                                  dtype=torch.int32)[None, :]
         aux = torch.zeros((), device=x.device)
         for kind, blk in zip(self.cfg.block_pattern, self.blocks):
             if remat and torch.is_grad_enabled():
                 x, a = checkpoint(self._block_forward, kind, blk, x,
-                                  positions, lengths, use_reentrant=False)
+                                  positions, lengths, prefix_len,
+                                  use_reentrant=False)
             else:
-                x, a = self._block_forward(kind, blk, x, positions, lengths)
+                x, a = self._block_forward(kind, blk, x, positions, lengths,
+                                           prefix_len)
             if a is not None:
                 aux = aux + a
         x = L.rmsnorm(self.ln_f.scale, x, self.cfg.norm_eps)
+        if prefix_len:
+            x = x[:, prefix_len:]
         aux = aux / max(self.cfg.num_layers, 1)
         if return_hidden:
             return x, aux
@@ -197,16 +211,16 @@ class TransformerLM(nn.Module):
 
     def _block_forward(self, kind: str, blk: nn.Module, x: torch.Tensor,
                        positions: torch.Tensor,
-                       lengths: Optional[torch.Tensor]
+                       lengths: Optional[torch.Tensor], prefix_len: int = 0
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One block of ``forward``: (x, its aux loss; None but for
         MoE)."""
         if kind == "moe":
             return MOE.moe_block_forward(self.cfg, blk, x, positions,
-                                         lengths)
+                                         lengths, prefix_len)
         if kind in ATTN_KINDS:
             return A.attn_block_forward(self.cfg, blk, x, positions, kind,
-                                        lengths), None
+                                        lengths, prefix_len), None
         if kind == "mamba":
             return M.mamba_block_forward(self.cfg, blk, x), None
         return RG.rglru_block_forward(self.cfg, blk, x), None
@@ -214,20 +228,30 @@ class TransformerLM(nn.Module):
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor,
                 lengths: Optional[torch.Tensor] = None,
-                max_seq: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
+                max_seq: Optional[int] = None,
+                prefix_embeds: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Cache]:
         """tokens: [B, S], valid up to ``lengths`` [B] (all S when None).
         Returns (logits at each row's last valid token [B, V], the primed
         ring cache for ``decode_step``); attention rings hold
         ``attn_capacity(max_seq or S)`` slots, so when S exceeds that only
         each row's last tokens survive.  Recurrent state summarizes all S
-        tokens, as in the reference."""
+        tokens, as in the reference.  ``prefix_embeds`` [B, P, d] go
+        before the tokens as a bidirectional prefix and ``lengths`` shift
+        by P, so decoding continues at position P + lengths[b]."""
         B, S = tokens.shape
         if lengths is None:
             lengths = torch.full((B,), S, dtype=torch.int32,
                                  device=tokens.device)
-        capacity = self.attn_capacity(max_seq or S)
         x = self.embed_tokens(tokens)
-        positions = torch.arange(S, device=tokens.device,
+        prefix_len = 0
+        if prefix_embeds is not None:
+            x = torch.cat([prefix_embeds.to(self.dtype), x], dim=1)
+            prefix_len = prefix_embeds.shape[1]
+            lengths = lengths + prefix_len
+        S_tot = x.shape[1]
+        capacity = self.attn_capacity(max_seq or S_tot)
+        positions = torch.arange(S_tot, device=tokens.device,
                                  dtype=torch.int32)[None, :]
         cache: Cache = []
         for kind, blk in zip(self.cfg.block_pattern, self.blocks):
@@ -235,10 +259,11 @@ class TransformerLM(nn.Module):
                 cap = (min(capacity, self.cfg.local_window)
                        if kind == "rg_attn" else capacity)
                 x, c = A.attn_block_prefill(self.cfg, blk, x, positions,
-                                            lengths, cap, kind)
+                                            lengths, cap, kind, prefix_len)
             elif kind == "moe":
                 x, c, _ = MOE.moe_block_prefill(self.cfg, blk, x, positions,
-                                                lengths, capacity)
+                                                lengths, capacity,
+                                                prefix_len)
             elif kind == "mamba":
                 x, c = M.mamba_block_prefill(self.cfg, blk, x)
             else:

@@ -66,8 +66,10 @@ Differences from the reference:
     so a NaN never reaches ``torch.multinomial``.  With every option off
     the step is unchanged.
   * Not ported yet: meshes (the constructor raises
-    ``NotImplementedError``); whisper and vlm models fail when the model
-    is built.
+    ``NotImplementedError``).  A model without a paged layout (whisper:
+    no ``init_cache_paged``) serves from rings whatever ``paged_kv``
+    says, and one without a verify step (no ``supports_verify``) serves
+    without speculation, as in the reference.
 """
 from __future__ import annotations
 
@@ -138,7 +140,8 @@ class Engine:
                              if scfg.prefix_cache else None)
         self.kv_dtype = scfg.kv_dtype or self.cfg.kv_dtype
         self.attn_impl = ops.resolve_attn_impl(self.device)
-        self.paged = bool(scfg.paged_kv)
+        self.paged = bool(scfg.paged_kv
+                          and hasattr(model, "init_cache_paged"))
         if self.paged:
             self._pool_layers = [i for i, k in enumerate(kinds)
                                  if k in KV_KINDS]

@@ -146,7 +146,9 @@ def to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
 
 def make_train_step(model, cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
     """``train_step(opt_state, batch) -> metrics``; the optimizer state comes
-    from ``init_opt_state(model, cfg, tcfg)``."""
+    from ``init_opt_state(model, cfg, tcfg)``.  The whole batch reaches
+    ``model.forward``: whisper's ``frames`` and the VLM's ``patch_embeds``
+    with the tokens (microbatches slice them alike)."""
     loss_fn = make_loss_fn(model, cfg, tcfg)
 
     def train_step(opt_state: Dict, batch: Dict) -> Dict:

@@ -31,7 +31,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.bridge import stacked, unstacked
+from repro_torch.bridge import is_stacked, stacked, unstacked
 from repro_torch.configs.base import TrainConfig
 
 Tensors = Dict[str, torch.Tensor]
@@ -158,7 +158,7 @@ def adafactor_init(params: Tensors, groups: Optional[Groups] = None) -> Dict:
     slots = {}
     for path, names in groups.items():
         p = params[names[0]]
-        shape = ((len(names),) if len(names) > 1 else ()) + tuple(p.shape)
+        shape = ((len(names),) if is_stacked(names) else ()) + tuple(p.shape)
         kw = dict(dtype=torch.float32, device=p.device)
         if _factored(shape):
             slots[path] = {"vr": torch.zeros(shape[:-1], **kw),

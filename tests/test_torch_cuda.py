@@ -26,7 +26,10 @@ same bits on a second call; the mamba forward keeps the tile states its
 backward starts from only when a training call asks, with the same y and
 h bits; the scans' autograd functions launch them,
 and a 2-layer falcon-mamba-7b and recurrentgemma-9b train step on the
-card matches the CPU's.
+card matches the CPU's.  The flash kernels' bidirectional-prefix mode
+(forward, its lse and the backward, bf16 and float32) matches the plain
+versions, whisper's and the VLM's captured engines their eager ones, and
+their smoke train steps with frames or patches the CPU's.
 """
 import dataclasses
 
@@ -818,7 +821,9 @@ def _card_serve(m, scfg, rounds=2, max_new=12):
     ("reflect_demo_100m", dict(paged_kv=False)),
     ("granite_moe_1b_a400m", {}),
     ("falcon_mamba_7b", {}),
-    ("recurrentgemma_9b", dict(paged_kv=False))])
+    ("recurrentgemma_9b", dict(paged_kv=False)),
+    ("whisper_tiny", {}),          # no paged layout: rings, no verify
+    ("internvl2_76b", {})])
 def test_captured_engine_equals_eager(dev, arch, kw):
     """Full width at a cut depth (one unit of the pattern), speculation
     asked for: the engine with every step captured as a CUDA graph gives
@@ -1155,6 +1160,58 @@ def test_flash_backward_matches_plain(dev, act, hd, B, H, K, S, window,
     if lengths is not None and 0 in lengths:
         b = lengths.index(0)
         assert not any(bool(x[b].any()) for x in got)
+
+
+@pytest.mark.parametrize("act", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,K,S,hd,P,window,lengths", [
+    (2, 6, 6, 150, 64, 150, None, None),        # whisper's encoder: P = S
+    (2, 8, 2, 300, 128, 64, None, [300, 200]),  # the VLM's: P a tile
+    (2, 4, 1, 130, 32, 45, 40, None),           # P mid-tile, a window
+    (3, 4, 2, 97, 256, 1, None, [97, 0, 30]),   # P 1, an empty row
+    (2, 4, 2, 200, 64, 150, 20, [200, 100]),    # P past a length, window
+    (2, 4, 4, 300, 64, 200, None, [300, 299]),  # P past a block, G 1
+])
+def test_flash_prefix_matches_plain(dev, act, B, H, K, S, hd, P, window,
+                                    lengths):
+    """The prefix mode (``prefix_len`` P: tokens below P attend each other
+    both ways) of the flash forward and backward kernels against their
+    plain versions on the same inputs, to the tolerances of the causal
+    tests; bf16's lse against the plain lse over the same keys (1e-3);
+    two calls of each bit-equal; an empty row's gradients zero."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    q, k, v = (t.to(dev) for t in _flash_inputs(act, B, H, K, S, hd,
+                                                 seed=S + hd + P))
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(P)) \
+        .to(dev, act)
+    lens = (None if lengths is None
+            else torch.tensor(lengths, dtype=torch.int32, device=dev))
+    kw = dict(window=window, lengths=lens, prefix_len=P)
+    f32 = [t.float() for t in (q, k, v)]
+    tol = 2e-2 if act == torch.bfloat16 else 1e-4
+    o, lse = FA._launch(q, k, v, window, lens,
+                        with_lse=act == torch.bfloat16, prefix_len=P)
+    again = ops.flash_attention(q, k, v, **kw)
+    want, want_lse = ref.flash_attention_ref(*f32, return_lse=True, **kw)
+    torch.testing.assert_close(o.float(), want, atol=tol, rtol=0)
+    assert torch.equal(o, again)
+    if lse is not None:
+        assert torch.equal(torch.isinf(lse), torch.isinf(want_lse))
+        fin = torch.isfinite(want_lse)
+        assert float((lse[fin] - want_lse[fin]).abs().max()) <= 1e-3
+    got = flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
+    got2 = flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
+    want = ref.flash_attention_bwd_ref(*f32, o.float(), do.float(), **kw)
+    for x, y, w in zip(got, got2, want):
+        assert float((x.float() - w).abs().max()) <= \
+            tol * max(float(w.abs().max()), 1.0)
+        assert torch.equal(x, y)
+    if lengths is not None and 0 in lengths:
+        assert not any(bool(x[lengths.index(0)].any()) for x in got)
+    with pytest.raises(ValueError, match="prefix_len"):
+        ops.flash_attention(q, k, v, prefix_len=S + 1)
+    with pytest.raises(ValueError, match="prefix_len"):
+        flash_attention_bwd(q, k, v, o, do, lse=lse, prefix_len=-1)
 
 
 def test_flash_autograd_on_card_launches_the_backward(dev):
@@ -1518,3 +1575,50 @@ def test_train_step_on_card_launches_both_flash_kernels(dev):
     assert all(not torch.equal(v, before[k])
                for k, v in model.state_dict().items())
     assert not any(p.requires_grad for p in model.parameters())
+
+
+@pytest.mark.parametrize("arch", ["whisper_tiny", "internvl2_76b"])
+def test_prefix_model_train_step_on_card_matches_cpu(dev, arch):
+    """One float32 loss and gradient of whisper's and the VLM's smoke
+    configs with seeded frames or patch embeddings, on the card and on the
+    CPU: loss within 1e-4 relative, every gradient's cosine at least
+    0.9999; flash forward and backward launched once an attention layer
+    (whisper's encoder layers, in the prefix mode, included)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.lm_data import lm_batches
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models.registry import (build_model, get_smoke_config,
+                                             model_inputs)
+    from repro_torch.train.loop import (grads_of, make_loss_fn, params_of,
+                                        to_device, trainable)
+    cfg = get_smoke_config(arch).replace(dtype="float32")
+    tcfg = TrainConfig(remat=False)
+    batch = dict(next(lm_batches(32, 2, 1)))
+    extra = model_inputs(cfg, 2, 32)
+    batch.update({k: v for k, v in extra.items()
+                  if k in ("frames", "patch_embeds")})
+    state = build_model(cfg).init(torch.Generator().manual_seed(3)) \
+        .state_dict()
+    out = []
+    for d in (torch.device("cpu"), dev):
+        m = build_model(cfg)
+        m.load_state_dict(state)
+        m.to(d)
+        cuda_lib.reset_launches()
+        with trainable(m):
+            loss, _ = make_loss_fn(m, cfg, tcfg)(to_device(batch, d))
+            grads = grads_of(loss, params_of(m))
+        out.append((float(loss.detach()), {k: v.detach().cpu().double()
+                                           for k, v in grads.items()}))
+        del m, grads, loss
+    n = cfg.num_layers + (cfg.encoder_layers if arch == "whisper_tiny"
+                          else 0)
+    assert cuda_lib.LAUNCHES["flash_attention"] == n
+    assert cuda_lib.LAUNCHES["flash_attention_bwd"] == n
+    (c_loss, c_g), (g_loss, g_g) = out
+    assert np.isfinite(c_loss)
+    assert abs(g_loss - c_loss) <= 1e-4 * abs(c_loss)
+    for k in c_g:
+        cos = float((c_g[k] * g_g[k]).sum()
+                    / (c_g[k].norm() * g_g[k].norm()).clamp_min(1e-300))
+        assert cos >= 0.9999, (k, cos)

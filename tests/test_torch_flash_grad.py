@@ -259,14 +259,17 @@ def test_autograd_function_plumbing(monkeypatch):
     B, H, K, S, hd, window, lengths = CASES["window_ragged"]
     calls, lses = [], []
 
-    def launch(q, k, v, w, ln, with_lse=False):
+    def launch(q, k, v, w, ln, with_lse=False, prefix_len=0):
+        assert prefix_len == 0
         out, lse = ref.flash_attention_ref(q, k, v, window=w, lengths=ln,
                                            return_lse=True)
         calls.append(("fwd", with_lse))
         lses.append(lse if with_lse else None)
         return out, lses[-1]
 
-    def bwd(q, k, v, o, do, *, lse=None, window=None, lengths=None):
+    def bwd(q, k, v, o, do, *, lse=None, window=None, lengths=None,
+            prefix_len=0):
+        assert prefix_len == 0
         calls.append(("bwd", lse is lses[-1]))
         return ref.flash_attention_bwd_ref(q, k, v, o, do, window=window,
                                            lengths=lengths)

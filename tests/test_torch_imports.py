@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither JAX nor the ``repro`` package,
 and its entry points refuse to run on a card that is not there."""
+import dataclasses
 import os
 import subprocess
 import sys
@@ -52,7 +53,9 @@ def test_port_imports_no_jax_and_no_repro():
                      "configs.yi_6b", "configs.nemotron_4_340b",
                      "kernels.flash_attention", "train", "train.optimizer",
                      "train.loop", "train.checkpoint", "train.quick_fit",
-                     "data.lm_data", "launch.train", "bridge"):
+                     "data.lm_data", "launch.train", "bridge",
+                     "models.whisper", "models.vlm", "configs.whisper_tiny",
+                     "configs.internvl2_76b"):
             assert "repro_torch." + name in names, name
         print(len(names))
     """)
@@ -221,25 +224,34 @@ def test_serve_launcher(capsys):
 
 REGISTRY_ARCHS = ("granite_moe_1b_a400m", "qwen3_0_6b", "recurrentgemma_9b",
                   "nemotron_4_340b", "minitron_4b", "kimi_k2_1t_a32b",
-                  "yi_6b", "falcon_mamba_7b", "reflect_demo_100m",
-                  "mixtral_8x7b", "llama3_70b")
+                  "yi_6b", "internvl2_76b", "falcon_mamba_7b", "whisper_tiny",
+                  "reflect_demo_100m", "mixtral_8x7b", "llama3_70b")
 
 
 def test_registry_serves_all_but_whisper_and_vlm():
-    """The port's registry has the reference's 13 architectures but
-    whisper and the VLM, under the reference's ids and aliases."""
+    """The port's registry has all 13 of the reference's architectures,
+    whisper and the VLM included (the name is the one this test had
+    while those two were still to port), under the reference's ids and
+    aliases, with the reference's configs, and builds each family's model
+    class."""
     from repro.models import registry as J
     from repro_torch.models import registry as R
-    assert set(R.ARCH_IDS + R.EXTRA_ARCH_IDS) == set(REGISTRY_ARCHS)
+    assert R.ARCH_IDS == J.ARCH_IDS
     assert R.EXTRA_ARCH_IDS == J.EXTRA_ARCH_IDS
-    assert set(J.ARCH_IDS + J.EXTRA_ARCH_IDS) - set(REGISTRY_ARCHS) == {
-        "whisper_tiny", "internvl2_76b"}
+    assert set(R.ARCH_IDS + R.EXTRA_ARCH_IDS) == set(REGISTRY_ARCHS)
+    assert R.ALIASES == J.ALIASES
     for alias, arch in J.ALIASES.items():
-        if arch in REGISTRY_ARCHS:
-            assert R.get_config(alias) == R.get_config(arch)
-    for arch in ("whisper_tiny", "internvl2_76b", "whisper-tiny"):
-        with pytest.raises(NotImplementedError, match="still to port"):
-            R.get_smoke_config(arch)
+        assert R.get_config(alias) == R.get_config(arch)
+    for arch in REGISTRY_ARCHS:
+        for get in ("get_config", "get_smoke_config"):
+            want = dataclasses.asdict(getattr(J, get)(arch))
+            assert dataclasses.asdict(getattr(R, get)(arch)) == want, arch
+    kinds = {arch: type(R.build_model(R.get_smoke_config(arch))).__name__
+             for arch in ("whisper-tiny", "internvl2_76b", "yi_6b")}
+    assert kinds == {"whisper-tiny": "WhisperModel",
+                     "internvl2_76b": "VLMModel", "yi_6b": "TransformerLM"}
+    with pytest.raises(ValueError, match="unknown architecture"):
+        R.get_smoke_config("whisper_large")
 
 
 @pytest.mark.parametrize("arch", REGISTRY_ARCHS)

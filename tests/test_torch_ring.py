@@ -338,11 +338,23 @@ def test_attention_full_qkv_matches_jax(S, window, ragged):
 
 
 def test_prefix_len_is_not_ported():
+    """The bidirectional prefix, once refused here, now runs: a prefix of
+    2 of 4 tokens gives the JAX function's output (tests/test_torch_prefix.py
+    holds it to the JAX package over windows, lengths and S past
+    ATTN_CHUNK)."""
     jcfg, cfg, jp, p = _attn_params("qwen3_0_6b", 1)
-    q = torch.zeros(1, 4, cfg.num_heads, cfg.head_dim)
-    kv = torch.zeros(1, 4, cfg.num_kv_heads, cfg.head_dim)
-    with pytest.raises(NotImplementedError):
-        A.attention_full_qkv(cfg, p, q, kv, kv, None, prefix_len=2)
+    rng = np.random.default_rng(4)
+    q = rng.normal(size=(1, 4, cfg.num_heads, cfg.head_dim))
+    kv = rng.normal(size=(1, 4, cfg.num_kv_heads, cfg.head_dim))
+    q, kv = q.astype(np.float32), kv.astype(np.float32)
+    want = JA.attention_full_qkv(jcfg, jp, jnp.asarray(q), jnp.asarray(kv),
+                                 jnp.asarray(kv),
+                                 jnp.arange(4, dtype=jnp.int32)[None, :],
+                                 None, prefix_len=2)
+    got = A.attention_full_qkv(cfg, p, _t(q), _t(kv), _t(kv), None,
+                               prefix_len=2)
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=LAYER_TOL,
+                               rtol=LAYER_TOL)
 
 
 # ------------------------------------------------------------ the model
