@@ -40,22 +40,24 @@ Phases, each of which stops the run with a non-zero exit on any error:
      64, S 2048; window None and 48; float32 and bfloat16), at
      granite-moe-1b-a400m's (B 8, H 16, K 8, S 2048, bfloat16), at
      recurrentgemma-9b's (B 4, H 16, K 1, hd 256, S 4096, window 2048,
-     bfloat16) and at a ragged S 1000 with per-row lengths; and in its
-     bidirectional-prefix mode at whisper-tiny's encoder (B 8, H = K 6,
-     S 1500, hd 64, prefix 1500: every frame attends every frame; bfloat16
-     and float32), at internvl2-76b's prefill (B 4, H 64, K 8, S 2048, hd
-     128, prefix 256) and at a ragged S 1000 with prefix 300;
+     bfloat16 and float32) and at a ragged S 1000 with per-row lengths;
+     and in its bidirectional-prefix mode at whisper-tiny's encoder (B 8,
+     H = K 6, S 1500, hd 64, prefix 1500: every frame attends every frame;
+     bfloat16 and float32), at internvl2-76b's prefill (B 4, H 64, K 8, S
+     2048, hd 128, prefix 256) and at a ragged S 1000 with prefix 300;
    * the flash-attention backward kernel (``csrc/flash_attention_bwd.cu``)
      against ``flash_attention_bwd_ref`` at examples/torch_train_100m.py's
      shape (B 8, H 12, K 4, S 256, hd 64; bfloat16 and float32), at
      recurrentgemma-9b's local attention (B 1, H 16, K 1, S 4096, hd 256,
-     window 2048), at a ragged S 1000 with an empty row, and at hd 32 and
+     window 2048; bfloat16 and float32), at a ragged S 1000 with an empty
+     row, and at hd 32 and
      128 with a window and lengths (checked only), in the prefix mode at
      whisper's encoder in training (B 8, H 6, S 1500, prefix 1500;
      bfloat16 and float32) and at internvl2-76b's (B 1, H 64, K 8, S 2048,
      hd 128, prefix 256), the same bits on a
-     second call; bfloat16 takes the lse of a forward launch made outside
-     the timed call; timed beside its bound and SDPA's backward; and the
+     second call; both dtypes take the lse of a forward launch made outside
+     the timed call; timed beside its bound and SDPA's backward, with its
+     device time by kernel; and the
      bf16 forward with its lse output against the forward without it, in
      turns, at the training shape;
    * the scans' backward kernels (``csrc/mamba_scan_bwd.cu``,
@@ -73,9 +75,15 @@ Phases, each of which stops the run with a non-zero exit on any error:
    tokens), in turns within one loop (kernel, library, library, kernel;
    medians and ranges of each); int8 rings have no such call.  Flash
    cases print their achieved TFLOP/s and ring decode its split count;
-   the build prints the tensor-core instructions (HGMMA, HMMA) that
-   ``cuobjdump -sass`` finds in the flash, flash-backward and
-   paged-extend libraries, each of which must hold HGMMA.
+   float32 flash cases are bounded as 3xTF32 products (3 x FLOP at 495
+   TFLOP/s), their FMA bound printed beside it.  The build prints the
+   tensor-core instructions (HGMMA, HMMA) that ``cuobjdump -sass`` finds
+   in each body of the flash and flash-backward libraries (bf16 and fp32)
+   and in paged extend, each of whose product kernels must hold HGMMA;
+   with the parent commit's checkout at ``build/parent`` (unpacked there
+   by ``git archive``) it builds its kernels and fails unless the bf16
+   flash bodies and the paged and ring-decode kernels compile to the
+   parent's SASS (anonymous namespaces' hashes masked).
 4. serve   — four models through the port's ``Engine``, one after the
    other, each freed before the next: 8 conversations of a few hundred
    tokens, 3 reflection rounds with the suffix [99, 98], paged KV or ring
@@ -246,6 +254,10 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12,       # dense tensor-core bf16
             torch.float32: 67e12}         # float32 outside tensor cores
+# dense TF32 on the tensor cores: the fp32 flash kernels issue three TF32
+# products for each fp32 one (3xTF32), so their bound is 3 x FLOP at this
+# rate (an effective 165 TFLOP/s), with the FMA bound kept beside it
+TF32_PER_S = 495e12
 # exponentials: 16 special-function results a clock per SM (sm_90) on 132
 # SMs at the 1.98 GHz boost clock
 SFU_PER_S = 16 * 132 * 1.98e9
@@ -305,23 +317,110 @@ def phase_build():
         for line in text.splitlines():
             if line.strip():
                 log(f"[build] {name}: {line.strip()}")
-    cuobjdump = Path(cuda_lib._nvcc()).with_name("cuobjdump")
-    for name in ("flash_attention", "paged_extend", "flash_attention_bwd"):
-        sass = subprocess.run(
-            [str(cuobjdump), "-sass", str(cuda_lib._library_path(name))],
-            capture_output=True, text=True, check=True, timeout=300).stdout
-        counts = {op: len(re.findall(rf"\b{op}\.", sass))
-                  for op in ("HGMMA", "HMMA")}
-        log(f"[build] {name} SASS: {counts['HGMMA']} HGMMA, "
-            f"{counts['HMMA']} HMMA instructions")
-        if counts["HGMMA"] == 0:
-            raise AssertionError(f"the bf16 {name} kernel has no wgmma "
-                                 "(HGMMA)")
+    # each flash library's bodies by dtype (functions by their mangled
+    # namespaces: flash_tc / tcb bf16, flash_tf32 / tfb fp32), and their
+    # tensor-core instructions; every body must run on wgmma
+    bodies = {"flash_attention": (("bf16", "8flash_tc"),
+                                  ("fp32", "10flash_tf32")),
+              "paged_extend": (("all", ""),),
+              "flash_attention_bwd": (("bf16", "3tcb"), ("fp32", "3tfb"))}
+    for name, kinds in bodies.items():
+        fns = sass_functions(cuda_lib._library_path(name))
+        for kind, prefix in kinds:
+            mine = {f: body for f, body in fns.items() if prefix in f}
+            counts = {op: sum(len(re.findall(rf"\b{op}\.", b))
+                              for b in mine.values())
+                      for op in ("HGMMA", "HMMA")}
+            log(f"[build] {name} {kind} SASS: {len(mine)} functions, "
+                f"{counts['HGMMA']} HGMMA, {counts['HMMA']} HMMA "
+                "instructions")
+            products = [f for f in mine if re.search(
+                r"flash_tc_kernel|fwd_kernel|dkdv_kernel|dq_kernel|"
+                r"paged_extend_tc", f)]
+            no_tc = [f for f in products
+                     if not re.search(r"\bHGMMA\.", mine[f])]
+            if not products or no_tc:
+                raise AssertionError(f"a {kind} {name} kernel has no wgmma "
+                                     f"(HGMMA): {no_tc or 'none found'}")
+    sass_vs_parent(cuda_lib)
     spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                         logs["flash_attention_bwd"])
     if not spills or any(s != ("0", "0") for s in spills):
         raise AssertionError("a flash backward kernel spills registers: "
                              f"{spills}")
+
+
+def sass_functions(path) -> dict:
+    """``cuobjdump -sass`` of a library: {function: its SASS}, anonymous
+    namespaces' hashes masked (they differ between builds of a file)."""
+    from repro_torch.kernels import cuda_lib
+    cuobjdump = Path(cuda_lib._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    sass = re.sub(r"_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_[0-9a-f]{8}",
+                  "_GLOBAL__N_", sass)
+    out = {}
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        name, _, body = part.partition("\n")
+        # the instructions and their encodings, not the dump's headers
+        # or what follows the last function
+        out[name.strip()] = "\n".join(
+            line.strip() for line in body.splitlines()
+            if line.strip().startswith("/*"))
+    return out
+
+
+# the functions whose SASS must equal the parent's: the bf16 flash bodies
+# and every paged and ring-decode kernel
+SASS_KEPT = {"flash_attention": "8flash_tc", "flash_attention_bwd": "3tcb",
+             "paged_decode": "", "paged_extend": "",
+             "decode_attention": ""}
+
+
+def sass_vs_parent(cuda_lib):
+    """With the parent commit's checkout at ``build/parent`` (unpacked
+    there by ``git archive``), build its libraries of ``SASS_KEPT`` (one
+    nvcc each, in parallel) and print whether each kept function's SASS
+    equals the parent's; any difference fails the run."""
+    csrc = ROOT / "build" / "parent" / "src" / "repro_torch" / "kernels" / \
+        "csrc"
+    if not csrc.is_dir():
+        log("[build] SASS vs the parent: no parent checkout at build/parent; "
+            "not compared")
+        return
+    origin = "build/parent"
+    out = ROOT / "build" / "parent_libs"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {name: subprocess.Popen(
+        [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-o", str(out / f"{name}.so"),
+         str(csrc / f"{name}.cu")], stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True) for name in SASS_KEPT}
+    differ = []
+    for name, prefix in SASS_KEPT.items():
+        if procs[name].wait(timeout=900) != 0:
+            raise RuntimeError(f"nvcc failed on the parent's {name}.cu: "
+                               f"{procs[name].stderr.read()}")
+        mine = {f: b for f, b in
+                sass_functions(cuda_lib._library_path(name)).items()
+                if prefix in f}
+        theirs = {f: b for f, b in sass_functions(out / f"{name}.so").items()
+                  if prefix in f}
+        same = sorted(f for f in mine if theirs.get(f) == mine[f])
+        bad = sorted(set(mine) ^ set(theirs) | (set(mine) - set(same)))
+        log(f"[build] SASS vs the parent ({origin}): {name} "
+            f"{prefix or 'all'}: {len(same)} of {len(theirs)} functions "
+            f"equal{'' if not bad else f'; differ: {bad}'}")
+        for f in bad[:1]:
+            a, b = (d.get(f, "").splitlines() for d in (mine, theirs))
+            first = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                         min(len(a), len(b)))
+            log(f"[build] {f}: {len(a)} lines here, {len(b)} in the parent;"
+                f" first difference at line {first}: "
+                f"{a[first:first + 2]} against {b[first:first + 2]}")
+        differ += bad
+    if differ:
+        raise AssertionError(f"SASS differs from the parent's: {differ}")
 
 
 # -------------------------------------------------------------- 3. kernels
@@ -490,6 +589,21 @@ def time_record(kern, plain, flush, nbytes, nops, dtype, err, exps=0,
         (rec["ms"], *rec["ms_range"]), (rec["library_ms"],
                                         *rec["library_range"]) = \
             interleaved_ms(kern, lib, flush)
+    return rec
+
+
+def tf32x3_bound(rec):
+    """Bound an fp32 flash record by its work as 3xTF32 products on the
+    tensor cores (3 x FLOP over the TF32 rate), the least time this card
+    needs for fp32-accurate products; the FMA bound moves to
+    ``bound_fma_ms``."""
+    rec["bound_fma_ms"] = rec["bound_ms"]
+    t_ops = 3 * rec["ops"] / TF32_PER_S * 1e3
+    t_bytes = rec["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_exp = rec["exps"] / SFU_PER_S * 1e3
+    rec["bound_ms"] = max(t_ops, t_bytes, t_exp)
+    rec["bound_by"] = "bytes" if t_bytes >= max(t_ops, t_exp) \
+        else "operations"
     return rec
 
 
@@ -794,6 +908,7 @@ FLASH_CASES = (
     ("demo", (8, 12, 4, 2048, 64), 48, torch.bfloat16, False, 0),
     ("granite", (8, 16, 8, 2048, 64), None, torch.bfloat16, False, 0),
     ("rg", (4, 16, 1, 4096, 256), 2048, torch.bfloat16, False, 0),
+    ("rg", (4, 16, 1, 4096, 256), 2048, torch.float32, False, 0),
     ("ragged", (8, 12, 4, 1000, 64), None, torch.bfloat16, True, 0),
     ("whisper", (8, 6, 6, 1500, 64), None, torch.bfloat16, False, 1500),
     ("whisper", (8, 6, 6, 1500, 64), None, torch.float32, False, 1500),
@@ -846,6 +961,12 @@ def flash_cases(records, dev, flush):
                 q, k, v, attn_mask=mask, enable_gqa=True)
         rec = time_record(kern, plain, flush, nbytes, 4 * hd * pairs, dtype,
                           err, pairs, lib=lib)
+        if not bf16:
+            tf32x3_bound(rec)
+            log(f"[flash] {tag} float32 window={window} prefix={P}: bound "
+                f"{rec['bound_ms']:.4f} ms as 3xTF32 (3 x {rec['ops']} FLOP "
+                f"at 495 TFLOP/s), {rec['bound_fma_ms']:.4f} ms as FMA (67 "
+                f"TFLOP/s); kernel / SDPA {rec['ms'] / rec['library_ms']:.2f}")
         log_record(f"{tag} flash_attention {mode} window={window} "
                    f"prefix={P}", rec)
         log(f"[flash] {tag} {mode} window={window} lengths={ragged} "
@@ -2248,9 +2369,9 @@ def phase_whisper(dev, smi):
     with timed("whisper train card vs cpu"):
         # 1500 frames through 8 layers of random-init attention, near
         # one-hot: q/k softened, as the logits checks do
-        train_card_vs_cpu(cfg, batch=2, n_layers=None,
-                          launches_each=cfg.num_layers + cfg.encoder_layers,
-                          soften=0.125)
+        runs["whisper_tiny train fp32 card"] = train_card_vs_cpu(
+            cfg, batch=2, n_layers=None,
+            launches_each=cfg.num_layers + cfg.encoder_layers, soften=0.125)
     with timed("whisper train full width"):
         runs["whisper_tiny train"] = train_full_width(
             "whisper_tiny", None, {"attn": "flash_attention"}, dev, smi)
@@ -2311,7 +2432,8 @@ def phase_internvl2(dev):
 BWD_CASES = (
     ("demo", (8, 12, 4, 256, 64), None, (torch.bfloat16, torch.float32),
      None, True, 0),
-    ("rg", (1, 16, 1, 4096, 256), 2048, (torch.bfloat16,), None, True, 0),
+    ("rg", (1, 16, 1, 4096, 256), 2048, (torch.bfloat16, torch.float32),
+     None, True, 0),
     ("ragged", (8, 12, 4, 1000, 64), None, (torch.bfloat16,),
      (0, 1000, 517, 1, 999, 64, 700, 333), True, 0),
     ("hd32", (2, 8, 2, 300, 32), 100, (torch.float32, torch.bfloat16),
@@ -2333,8 +2455,9 @@ def bwd_cases(records, dev, flush):
     products, 10 * hd FLOP a valid (query, key) pair, and q/k/v/o/do read
     once and dq/dk/dv written once) and SDPA's backward (autograd of one
     ``scaled_dot_product_attention`` call, the forward excluded) as the
-    library yardstick.  bfloat16 takes the lse of a forward launch made
-    outside the timed call, as the autograd function keeps it."""
+    library yardstick.  Both dtypes take the lse of a forward launch made
+    outside the timed call, as the autograd function keeps it; float32 is
+    bounded as 3xTF32 products (``tf32x3_bound``)."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels.flash_attention import flash_attention_bwd
@@ -2348,8 +2471,7 @@ def bwd_cases(records, dev, flush):
             do = mk(B, H, S, hd)
             ln = (None if lengths is None else
                   torch.tensor(lengths, dtype=torch.int32, device=dev))
-            o, lse = FA._launch(q, k, v, window, ln,
-                                with_lse=dtype == torch.bfloat16,
+            o, lse = FA._launch(q, k, v, window, ln, with_lse=True,
                                 prefix_len=P)
             kern = lambda: flash_attention_bwd(q, k, v, o, do, lse=lse,
                                                window=window, lengths=ln,
@@ -2406,19 +2528,27 @@ def bwd_cases(records, dev, flush):
                                               retain_graph=True)
             rec = time_record(kern, plain, flush, nbytes, 10 * hd * pairs,
                               dtype, max(errs), pairs, lib=lib)
+            if not bf16:
+                tf32x3_bound(rec)
+                log(f"[kernels] {tag} flash_attention_bwd float32: bound "
+                    f"{rec['bound_ms']:.4f} ms as 3xTF32 of the five "
+                    f"products ({1.4 * rec['bound_ms']:.4f} ms for the "
+                    f"seven this design does), {rec['bound_fma_ms']:.4f} ms "
+                    f"as FMA; kernel / SDPA backward "
+                    f"{rec['ms'] / rec['library_ms']:.2f}")
             log_record(f"{tag} flash_attention_bwd {mode} window={window} "
                        f"prefix={P}", rec)
-            if bf16:
-                # one cold-L2 call between two events also holds the
-                # wrapper's host enqueue, which at the demo shape exceeds
-                # the device work: the profiler's time is the kernels' own
-                us = device_us_by_kernel(kern)
-                log(f"[kernels] {tag} flash_attention_bwd {mode}: device us "
-                    f"a call (profiler, warm L2, mean of 5) " + ", ".join(
-                        f"{n} {x:.1f}" for n, x in us.items())
-                    + f"; total {sum(us.values()):.1f} us against "
-                    f"{1e3 * rec['ms']:.1f} us between events (cold L2) and "
-                    f"{1e3 * rec['warm_ms']:.1f} us (warm L2)")
+            # one cold-L2 call between two events also holds the wrapper's
+            # host enqueue, which at the demo shape exceeds the device
+            # work: the profiler's time is the kernels' own
+            us = device_us_by_kernel(kern)
+            rec["device_us"] = sum(us.values())
+            log(f"[kernels] {tag} flash_attention_bwd {mode}: device us a "
+                f"call (profiler, warm L2, mean of 5) " + ", ".join(
+                    f"{n} {x:.1f}" for n, x in us.items())
+                + f"; total {sum(us.values()):.1f} us against "
+                f"{1e3 * rec['ms']:.1f} us between events (cold L2) and "
+                f"{1e3 * rec['warm_ms']:.1f} us (warm L2)")
             log(f"[kernels] {tag} flash_attention_bwd {mode}: "
                 f"{rec['ops'] / rec['ms'] / 1e9:.1f} TFLOP/s achieved "
                 f"({rec['ops']} FLOP in {rec['ms']:.4f} ms), SDPA backward "
@@ -2564,7 +2694,7 @@ def train_card_vs_cpu(cfg, batch=8, kernels=("flash_attention",
     gradient tensor's cosine with the CPU's at least 0.9999.  The card's
     run must launch each of ``kernels`` (the forward and the backward
     kernel of the model's attention or scan) ``launches_each`` times:
-    once a layer."""
+    once a layer.  Returns the card's launches."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data.lm_data import lm_batches
     from repro_torch.kernels import ops
@@ -2624,6 +2754,7 @@ def train_card_vs_cpu(cfg, batch=8, kernels=("flash_attention",
         raise AssertionError(f"the {depth}-layer step did not launch "
                              f"{kernels} once a layer: {launches}")
     release()
+    return launches
 
 
 class _KernelForwardPlainBackward(torch.autograd.Function):
@@ -3004,7 +3135,7 @@ def phase_train(dev, smi):
     runs = {}
     cfg = get_config("reflect_demo_100m")
     with timed("train card vs cpu"):
-        train_card_vs_cpu(cfg)
+        runs["reflect_demo_100m train fp32 card"] = train_card_vs_cpu(cfg)
     with timed("train bf16 kernels vs plain"):
         train_bf16_kernels_vs_plain(cfg, dev)
     with timed("train full run"):
@@ -3122,7 +3253,7 @@ def main() -> int:
     # activations, ring decode and flash at the demo's bf16 shapes, the
     # backward kernels at their training runs' shapes (the demo's for
     # flash, falcon-mamba-7b's bf16 x for mamba, recurrentgemma-9b's)
-    for name, key, run in (
+    rows = [(name, name, key, run) for name, key, run in (
             ("paged_decode", ("paged_decode", "demo", 1, "bfloat16"),
              "reflect_demo_100m"),
             ("paged_extend", ("paged_extend", "demo", 5, "bfloat16"),
@@ -3140,15 +3271,36 @@ def main() -> int:
             ("mamba_scan_bwd", ("mamba_scan_bwd", "train", "bfloat16"),
              "falcon_mamba_7b train"),
             ("rglru_scan_bwd", ("rglru_scan_bwd", "train", "float32"),
-             "recurrentgemma_9b train")):
+             "recurrentgemma_9b train"))]
+    # the float32 bodies of the two flash kernels (3xTF32 on the tensor
+    # cores) at whisper's encoder and the demo's shapes, launched by the
+    # float32 card-vs-CPU train steps; bound as 3xTF32 (bound_fma_ms: FMA)
+    rows += [
+        ("flash_attention fp32 whisper", "flash_attention",
+         ("flash_attention", "whisper", "float32", None),
+         "whisper_tiny train fp32 card"),
+        ("flash_attention fp32 demo", "flash_attention",
+         ("flash_attention", "demo", "float32", None),
+         "reflect_demo_100m train fp32 card"),
+        ("flash_attention_bwd fp32 whisper", "flash_attention_bwd",
+         ("flash_attention_bwd", "whisper", "float32"),
+         "whisper_tiny train fp32 card"),
+        ("flash_attention_bwd fp32 demo train", "flash_attention_bwd",
+         ("flash_attention_bwd", "demo", "float32"),
+         "reflect_demo_100m train fp32 card")]
+    for label, name, key, run in rows:
         rec = records[key]
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCES[name],
+            "name": label, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": runs[run][name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"],
             "library_ms": rec.get("library_ms"),
+            **({"bound_fma_ms": rec["bound_fma_ms"]}
+               if "bound_fma_ms" in rec else {}),
+            **({"device_us": rec["device_us"]} if "device_us" in rec
+               else {}),
             "launches_by_run": {r: runs[r][name] for r in runs}})
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -87,7 +87,7 @@ def bwd_args(q, k, v, o, do, lse, window, lengths, splits):
             do.data_ptr(), 0 if lengths is None else lengths.data_ptr(),
             lse.data_ptr(), *(t.data_ptr() for t in out),
             0 if part is None else part.data_ptr(), B, K, H // K, hd, S,
-            window or 0, splits, torch.cuda.current_stream().cuda_stream)
+            window or 0, 0, splits, torch.cuda.current_stream().cuda_stream)
     return args, out, part
 
 

@@ -64,7 +64,7 @@ def call(fn, q, k, v, window, lengths):
     out = torch.empty_like(q)
     err = fn(1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
              0 if lengths is None else lengths.data_ptr(), out.data_ptr(), 0,
-             B, K, H // K, hd, S, window or 0,
+             B, K, H // K, hd, S, window or 0, 0,
              torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"variant launch failed: CUDA error {err}")

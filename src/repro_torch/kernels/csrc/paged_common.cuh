@@ -1,19 +1,16 @@
 // Shared staged walk of the attention kernels that run on the CUDA cores:
 // paged decode (replaces src/repro/kernels/paged_attention.py), paged
 // extend in float32 and int8 with float32 q (paged_extend.py; bf16 extend
-// runs on the tensor cores, paged_extend.cu), ring decode
-// (decode_attention.py) and fp32 flash attention (flash_attention.py;
-// bf16 flash runs on the tensor cores, flash_tc.cuh).  One thread block
-// owns a tile of query rows of one (request b, kv head h) pair and walks
-// the K/V slots those rows can attend.  Where a slot's K/V row lives is
-// the kernel's "walk" (below): a page table over shared pools (Pages), a
-// dense ring whose tok array names each slot's token (Ring), or the
-// contiguous rows of a full sequence (Dense).
+// runs on the tensor cores, paged_extend.cu) and ring decode
+// (decode_attention.py).  One thread block owns a tile of query rows of
+// one (request b, kv head h) pair and walks the K/V slots those rows can
+// attend.  Where a slot's K/V row lives is the kernel's "walk" (below): a
+// page table over shared pools (Pages) or a dense ring whose tok array
+// names each slot's token (Ring).
 //
-// What bounds them on the H100: device-memory bytes for the three decode
-// and extend kernels (a few FLOP per K/V byte against a ridge of ~295), so
-// what matters is how many blocks keep loads in flight; operations for
-// fp32 flash (67 TFLOP/s of FMA).
+// What bounds them on the H100: device-memory bytes (a few FLOP per K/V
+// byte against a ridge of ~295), so what matters is how many blocks keep
+// loads in flight.
 //
 // The walk goes in stages of S = 4096 / HD slots (64 at HD = 64), but at
 // least 32 (32 at HD = 128 and 256), whatever the page size.  Each thread
@@ -27,26 +24,25 @@
 // warp shuffles (m and l in registers), and then every thread adds p.V to
 // its share of the fp32 [rows, HD] accumulator.  Three barriers per stage.
 //
-// The result of a row goes out by an epilogue policy: Normalized (acc / l
-// in q's type; fp32 flash) or Partial, the unnormalized (acc, m, l) of one
-// segment of a walk split across blocks, which combine() then adds up in
-// split order (the paged kernels and ring decode).  The paged walks split
-// a tile's attendable range into whole stages (segment()), a ring into
-// equal runs of slots.  A split walk covers a short segment, so it also
-// stages q with 16-byte loads issued before its slot list and adds p.V
-// slot by slot, each V vector read once for all of a thread's rows.
+// The result of a row goes out as a Partial: the unnormalized (acc, m, l)
+// of one segment of a walk split across blocks, which combine() then adds
+// up in split order.  The paged walks split a tile's attendable range into
+// whole stages (segment()), a ring into equal runs of slots.  A split walk
+// covers a short segment, so it also stages q with 16-byte loads issued
+// before its slot list and adds p.V slot by slot, each V vector read once
+// for all of a thread's rows.
 //
 // Masking is position arithmetic, as in the TPU kernels: row r is query
-// lane r / G at absolute position pos0[b] + r / G.  Pages and Dense: slot t
-// holds token t and is valid iff it holds a row (a mapped page; t below the
-// sequence's length) and t <= pos (and t > pos - window when a window is
-// set).  Ring: the walk first lists the slots of its segment whose token
-// the block's single query position may attend (tok >= 0, tok <= pos, tok
-// > pos - window) and walks that list.  Slots no row of the tile can
-// attend are never read.  A row with no valid slot ends with l == 0
-// (Partial: m = -inf, l = 0); combine() then writes what its Empty policy
-// says: the mean of V over the row's page table for the paged kernels, as
-// their TPU kernels give it (PageMean), zeros otherwise.
+// lane r / G at absolute position pos0[b] + r / G.  Pages: slot t holds
+// token t and is valid iff it holds a row (a mapped page) and t <= pos
+// (and t > pos - window when a window is set).  Ring: the walk first lists
+// the slots of its segment whose token the block's single query position
+// may attend (tok >= 0, tok <= pos, tok > pos - window) and walks that
+// list.  Slots no row of the tile can attend are never read.  A row with
+// no valid slot ends with l == 0 (Partial: m = -inf, l = 0); combine()
+// then writes what its Empty policy says: the mean of V over the row's
+// page table for the paged kernels, as their TPU kernels give it
+// (PageMean), zeros otherwise.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -279,38 +275,8 @@ struct Ring {
   __device__ bool attendable(int, int pos) const { return pos >= 0; }
 };
 
-// Contiguous K/V rows [B, K, S, HD] of full sequences; slot t holds token
-// t.  Slots at or past the sequence's length are never read.  Tokens below
-// ``prefix`` (0: none) also attend the later tokens below it: a
-// bidirectional prefix, so a tile with a row there walks on to slot
-// prefix - 1.
-struct Dense {
-  const int32_t* lengths;     // [B] valid tokens of each sequence, or null
-  int S, prefix;
-  int t_first, t_last, window;
-  long long base;             // first row of (b, h)
-
-  __device__ void begin(const Args& a, int b, int h, int p_first,
-                        int p_last, int32_t*) {
-    window = a.window;
-    base = (static_cast<long long>(b) * a.K + h) * S;
-    const int len = lengths ? min(lengths[b], S) : S;
-    // tiles past the diagonal (and the prefix): skipped
-    t_last = min(max(p_last, p_first < prefix ? prefix - 1 : 0), len - 1);
-    t_first = window > 0 ? max(0, p_first - window + 1) : 0;
-  }
-  __device__ long long row(int t) const { return base + t; }
-  __device__ bool attendable(int t, int pos) const {
-    return slot_valid(t, pos, window) ||
-           (pos >= 0 && pos < prefix && t < prefix &&
-            (window <= 0 || t > pos - window));
-  }
-};
-
 // ------------------------------------------------------------ epilogues
 // Where attend_rows puts each row's result.
-// Normalized: out = acc / l in q's type; a row with l == 0 is zeros.
-struct Normalized {};
 // Partial: one split of the walk's unnormalized result, float [HD + 2] =
 // (acc, m, l) at row ((b * K + h) * splits + split) * Sx * G + r of part
 // (part_row); where l == 0, m is -inf and acc is not written (combine()
@@ -332,10 +298,9 @@ __device__ __forceinline__ float* part_row(float* part, const Args& a,
 
 // Attend rows [row0, row0 + TR) of (b, h) over the slots of ``w``; rows
 // past Sx * G are padding.
-template <typename TQ, typename TKV, int HD, int TR, typename Walk,
-          typename Epilogue = Normalized>
+template <typename TQ, typename TKV, int HD, int TR, typename Walk>
 __device__ void attend_rows(const Args& a, Walk w, int b, int h, int row0,
-                            float* smem, Epilogue epi = Epilogue()) {
+                            float* smem, Partial epi) {
   constexpr int S = stage_slots(HD);      // slots per stage
   constexpr int SPL = S / 32;             // slots per lane when scoring
   constexpr int RPW = TR / kWarps;        // rows per warp when scoring
@@ -352,7 +317,6 @@ __device__ void attend_rows(const Args& a, Walk w, int b, int h, int row0,
   const TQ* q = static_cast<const TQ*>(a.q);
   const uint4* kp = static_cast<const uint4*>(a.kv_k);
   const uint4* vp = static_cast<const uint4*>(a.kv_v);
-  TQ* out = static_cast<TQ*>(a.out);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int R = a.Sx * a.G;
 
@@ -370,42 +334,30 @@ __device__ void attend_rows(const Args& a, Walk w, int b, int h, int row0,
   // A split walk covers a short segment, so the latency of staging q is
   // a large share of it: its q rows are loaded 16 bytes at a time, all
   // issued before the walk lists its slots.
-  constexpr bool kSplit = std::is_same<Epilogue, Partial>::value;
   constexpr int QV = 16 / sizeof(TQ);     // q elements per 16-byte load
   constexpr int NQ = (TR * HD / QV + kThreads - 1) / kThreads;
-  uint4 qr[kSplit ? NQ : 1];
-  if constexpr (kSplit) {
+  uint4 qr[NQ];
 #pragma unroll
-    for (int i = 0; i < NQ; ++i) {
-      const int c = (tid + i * kThreads) * QV, r = row0 + c / HD;
-      qr[i] = c < TR * HD && r < R
-                  ? *reinterpret_cast<const uint4*>(
-                        q + row_offset<HD>(a, b, h, r) + c % HD)
-                  : make_uint4(0u, 0u, 0u, 0u);
-    }
+  for (int i = 0; i < NQ; ++i) {
+    const int c = (tid + i * kThreads) * QV, r = row0 + c / HD;
+    qr[i] = c < TR * HD && r < R
+                ? *reinterpret_cast<const uint4*>(
+                      q + row_offset<HD>(a, b, h, r) + c % HD)
+                : make_uint4(0u, 0u, 0u, 0u);
   }
 
   // Slots any row of the tile can attend: [w.t_first, w.t_last].
   const int last = min(R, row0 + TR) - 1;
   w.begin(a, b, h, base + row0 / a.G, base + last / a.G, tbl_s);
   const int t_first = w.t_first, t_last = w.t_last;
-  if constexpr (kSplit) {
 #pragma unroll
-    for (int i = 0; i < NQ; ++i) {
-      const int c = (tid + i * kThreads) * QV;
-      if (c < TR * HD) {
-        float f[QV];
-        unpack<TQ>(qr[i], f);
+  for (int i = 0; i < NQ; ++i) {
+    const int c = (tid + i * kThreads) * QV;
+    if (c < TR * HD) {
+      float f[QV];
+      unpack<TQ>(qr[i], f);
 #pragma unroll
-        for (int e = 0; e < QV; ++e) q_s[c + e] = f[e] * scale;
-      }
-    }
-  } else {
-    for (int i = tid; i < TR * HD; i += kThreads) {
-      const int r = row0 + i / HD;
-      q_s[i] = r < R ? to_float(q[row_offset<HD>(a, b, h, r) + i % HD]) *
-                           scale
-                     : 0.f;
+      for (int e = 0; e < QV; ++e) q_s[c + e] = f[e] * scale;
     }
   }
   __syncthreads();
@@ -539,59 +491,28 @@ __device__ void attend_rows(const Args& a, Walk w, int b, int h, int row0,
 
     // acc = acc * corr + p . V over the stage's slots that exist.
     const int n = (min(S, t_last - t0 + 1) + 3) & ~3;
-    if constexpr (kSplit) {
-      // Slot-outer: a thread's accumulators share one column d (CH
-      // divides kThreads), so each V vector is read once for all its rows.
-      static_assert(kThreads % CH == 0, "one column a thread");
-      const int d = (tid % CH) * 4;
+    // Slot-outer: a thread's accumulators share one column d (CH
+    // divides kThreads), so each V vector is read once for all its rows.
+    static_assert(kThreads % CH == 0, "one column a thread");
+    const int d = (tid % CH) * 4;
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      const float corr = c_s[min((tid + k * kThreads) / CH, TR - 1)];
+      acc[k].x *= corr;
+      acc[k].y *= corr;
+      acc[k].z *= corr;
+      acc[k].w *= corr;
+    }
+    for (int t = 0; t < n; ++t) {
+      const float4 v4 = *reinterpret_cast<const float4*>(v_s + t * HD + d);
 #pragma unroll
       for (int k = 0; k < NC; ++k) {
-        const float corr = c_s[min((tid + k * kThreads) / CH, TR - 1)];
-        acc[k].x *= corr;
-        acc[k].y *= corr;
-        acc[k].z *= corr;
-        acc[k].w *= corr;
-      }
-      for (int t = 0; t < n; ++t) {
-        const float4 v4 = *reinterpret_cast<const float4*>(v_s + t * HD + d);
-#pragma unroll
-        for (int k = 0; k < NC; ++k) {
-          const int rl = min((tid + k * kThreads) / CH, TR - 1);
-          const float pe = p_s[rl * S + t];
-          acc[k].x = fmaf(pe, v4.x, acc[k].x);
-          acc[k].y = fmaf(pe, v4.y, acc[k].y);
-          acc[k].z = fmaf(pe, v4.z, acc[k].z);
-          acc[k].w = fmaf(pe, v4.w, acc[k].w);
-        }
-      }
-    } else {
-#pragma unroll
-      for (int k = 0; k < NC; ++k) {
-        const int c = tid + k * kThreads;
-        if (c < TR * CH) {
-          const int rl = c / CH, d = (c % CH) * 4;
-          const float corr = c_s[rl];
-          const float* pr = p_s + rl * S;
-          float4 x = acc[k];
-          x.x *= corr;
-          x.y *= corr;
-          x.z *= corr;
-          x.w *= corr;
-          for (int t = 0; t < n; t += 4) {
-            const float4 p4 = *reinterpret_cast<const float4*>(pr + t);
-            const float pe[4] = {p4.x, p4.y, p4.z, p4.w};
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const float4 v4 =
-                  *reinterpret_cast<const float4*>(v_s + (t + e) * HD + d);
-              x.x = fmaf(pe[e], v4.x, x.x);
-              x.y = fmaf(pe[e], v4.y, x.y);
-              x.z = fmaf(pe[e], v4.z, x.z);
-              x.w = fmaf(pe[e], v4.w, x.w);
-            }
-          }
-          acc[k] = x;
-        }
+        const int rl = min((tid + k * kThreads) / CH, TR - 1);
+        const float pe = p_s[rl * S + t];
+        acc[k].x = fmaf(pe, v4.x, acc[k].x);
+        acc[k].y = fmaf(pe, v4.y, acc[k].y);
+        acc[k].z = fmaf(pe, v4.z, acc[k].z);
+        acc[k].w = fmaf(pe, v4.w, acc[k].w);
       }
     }
     __syncthreads();  // the next stage overwrites k_s, v_s, p_s and c_s
@@ -602,41 +523,25 @@ __device__ void attend_rows(const Args& a, Walk w, int b, int h, int row0,
     if (lane == 0) l_s[warp + kWarps * i] = l[i];
   __syncthreads();
 
-  if constexpr (kSplit) {
-    float* part = part_row<HD>(epi.part, a, epi.splits, epi.split, b, h, 0);
+  float* part = part_row<HD>(epi.part, a, epi.splits, epi.split, b, h, 0);
 #pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-      const int r = row0 + warp + kWarps * i;
-      if (lane == 0 && r < R) {
-        part[static_cast<size_t>(r) * (HD + 2) + HD] =
-            l[i] > 0.f ? m[i] : -INFINITY;
-        part[static_cast<size_t>(r) * (HD + 2) + HD + 1] = l[i];
-      }
+  for (int i = 0; i < RPW; ++i) {
+    const int r = row0 + warp + kWarps * i;
+    if (lane == 0 && r < R) {
+      part[static_cast<size_t>(r) * (HD + 2) + HD] =
+          l[i] > 0.f ? m[i] : -INFINITY;
+      part[static_cast<size_t>(r) * (HD + 2) + HD + 1] = l[i];
     }
+  }
 #pragma unroll
-    for (int k = 0; k < NC; ++k) {
-      const int c = tid + k * kThreads;
-      const int rl = c / CH, d = (c % CH) * 4, r = row0 + rl;
-      if (c < TR * CH && r < R && l_s[rl] > 0.f) {
-        float2* dst = reinterpret_cast<float2*>(
-            part + static_cast<size_t>(r) * (HD + 2) + d);
-        dst[0] = make_float2(acc[k].x, acc[k].y);
-        dst[1] = make_float2(acc[k].z, acc[k].w);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < NC; ++k) {
-      const int c = tid + k * kThreads;
-      const int rl = c / CH, d = (c % CH) * 4, r = row0 + rl;
-      if (c < TR * CH && r < R) {
-        const float li = l_s[rl];
-        const float o[4] = {acc[k].x, acc[k].y, acc[k].z, acc[k].w};
-        TQ* dst = out + row_offset<HD>(a, b, h, r) + d;
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          store(dst + e, li > 0.f ? o[e] / li : 0.f);
-      }
+  for (int k = 0; k < NC; ++k) {
+    const int c = tid + k * kThreads;
+    const int rl = c / CH, d = (c % CH) * 4, r = row0 + rl;
+    if (c < TR * CH && r < R && l_s[rl] > 0.f) {
+      float2* dst = reinterpret_cast<float2*>(
+          part + static_cast<size_t>(r) * (HD + 2) + d);
+      dst[0] = make_float2(acc[k].x, acc[k].y);
+      dst[1] = make_float2(acc[k].z, acc[k].w);
     }
   }
 }

@@ -43,8 +43,8 @@
 //   stored as bf16 in the same layout.  Unmapped slots and slots past the
 //   segment are zeros and masked.
 // * float32 q (dtypes 0 and 2) keeps the fp32 staged walk of
-//   paged_common.cuh on tiles of 1024 / HD rows (16 at HD 256), as fp32
-//   flash does: the 1e-4 checks need fp32 arithmetic.
+//   paged_common.cuh on tiles of 1024 / HD rows (16 at HD 256): the 1e-4
+//   checks need fp32 arithmetic, and the walk is bound by bytes.
 // * Both split each tile's attendable range [max(0, pos0 + first lane -
 //   window + 1), pos0 + last lane] into ``splits`` segments of whole key
 //   tiles or stages (cuda_lib.paged_splits: about two blocks per SM over

@@ -18,7 +18,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 import torch
 
@@ -35,7 +35,8 @@ SOURCES = {"paged_decode": "paged_decode.cu",
            "mamba_scan_bwd": "mamba_scan_bwd.cu",
            "rglru_scan": "rglru_scan.cu",
            "rglru_scan_bwd": "rglru_scan_bwd.cu"}
-HEADERS = ("paged_common.cuh", "flash_tc.cuh", "mamba_tile.cuh")
+HEADERS = ("paged_common.cuh", "flash_tc.cuh", "flash_tf32.cuh",
+           "mamba_tile.cuh")
 # Steps between the mamba scan's kept tile states (``mamba_tile.cuh``'s
 # kStateTile): both mamba libraries export theirs as ``mamba_state_tile()``,
 # held against this one when they are loaded.
@@ -223,22 +224,28 @@ TC_CODES = (1, 3)      # bf16 q: paged extend runs on the tensor cores
 TC_ROWS = 64           # query rows of a warpgroup (wgmma's M)
 
 
-def bwd_splits(B: int, K: int, S: int, G: int) -> int:
+def bwd_splits(B: int, K: int, S: int, G: int,
+               max_group: Optional[int] = None) -> int:
     """Head groups NS the G query heads of a kv head are split into by
-    the bf16 flash backward's dk/dv kernel (``flash_attention_bwd.cu``),
-    one block each per (sequence, kv head, key tile of ``TC_ROWS``, the
-    kernel's ``kKeys``).  One group while the B * K * tiles blocks reach
-    half the SMs (the demo's training shape, 128 blocks: NS 1 and 3 ran
-    alike on an H100, and one group saves a launch and the partials);
-    below that, the least divisor
-    of G (groups of equal size) that gives at least three blocks per SM,
-    or G (recurrentgemma-9b's S 4096, K 1: 64 blocks, NS 8).  Each group
-    writes float32 partial dk / dv, added in group order."""
+    the flash backward's dk/dv kernel (``flash_attention_bwd.cu``, both
+    dtypes), one block each per (sequence, kv head, key tile of
+    ``TC_ROWS``, the bf16 kernel's ``kKeys``; fp32 at hd 256 takes 32).
+    One group while the B * K * tiles blocks reach half the SMs (the
+    demo's training shape, 128 blocks: NS 1 and 3 ran alike on an H100,
+    and one group saves a launch and the partials); below that, the least
+    divisor of G (groups of equal size) that gives at least three blocks
+    per SM, or G (recurrentgemma-9b's S 4096, K 1: 64 blocks, NS 8).  With
+    ``max_group``, groups of at most that many heads as well: the fp32
+    body sums dk and dv on the tensor cores at hd 256, whose adds round
+    toward zero, so a group's walk must stay short (two heads: within the
+    1e-4 bound at recurrentgemma-9b's S 4096, where one group of its 16
+    heads is not).  Each group writes float32 partial dk / dv, added in
+    group order."""
     blocks = B * K * -(-S // TC_ROWS)
-    if 2 * blocks >= SMS:
-        return 1
+    least = 1 if max_group is None else -(-G // max_group)
     return next(d for d in range(1, G + 1)
-                if G % d == 0 and (blocks * d >= 3 * SMS or d == G))
+                if G % d == 0 and d >= least
+                and (2 * blocks >= SMS or blocks * d >= 3 * SMS or d == G))
 
 
 def key_tile(hd: int) -> int:

@@ -10,13 +10,15 @@ of ``TransformerLM.forward`` and ``.prefill``.  On a CUDA tensor the call
 launches the hand-written Hopper kernel ``csrc/flash_attention.cu`` or
 raises; on a CPU tensor it runs the plain PyTorch version,
 ``ref.flash_attention_ref``.  The kernel's body is chosen by dtype, not
-as a fallback: bfloat16 runs on the tensor cores (``csrc/flash_tc.cuh``:
-wgmma for Q K^T and P V, two warpgroups per 128 query tokens of one
-head), float32 on the CUDA cores (the staged walk of
-``csrc/paged_common.cuh``: a block per (sequence, kv head, tile of query
-rows of the G heads of that kv head)); both walk only the keys between a
-tile's window start and its diagonal.  See the notes at the top of the
-sources.
+as a fallback, and both run on the tensor cores: bfloat16
+(``csrc/flash_tc.cuh``: wgmma for Q K^T and P V, two warpgroups per 128
+query tokens of one head) and float32 (``csrc/flash_tf32.cuh``: the same
+walk with each product as three TF32 wgmma products of the inputs split
+into tf32 hi and lo, lo hi + hi lo + hi hi, which keeps about 2^-21 of
+fp32 at an effective 165 TFLOP/s against 67 of FMA; V is split and
+transposed on its way into shared memory, since TF32 operands must be
+K-major); both walk only the keys between a tile's window start and its
+diagonal.  See the notes at the top of the sources.
 Token i attends j <= i (and j > i - window with a window, and j <
 lengths[b] with lengths); with ``prefix_len`` P > 0 the first P tokens
 also attend each other both ways (j <= i or both below P, still cut by
@@ -29,14 +31,13 @@ a CUDA tensor that needs a gradient (grad mode on and q, k or v requiring
 one) the call goes through ``_FlashAttention``, an autograd function whose
 forward is the same kernel launch and whose backward launches the
 hand-written ``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd``;
-plain version ``ref.flash_attention_bwd_ref``).  In bfloat16 the forward
-launch also stores each row's log-sum-exp (``lse``, float32 [B, H, S],
-natural log; plain version ``ref.flash_attention_ref(...,
-return_lse=True)``), which the backward's tensor-core body (wgmma: a dk/dv
-kernel a key tile and head group, a dq kernel a query tile) takes P from;
-float32 keeps the backward's CUDA-core body, which computes its own.
-Without a gradient the call is the bare launch with no lse, so serving
-steps and their CUDA-graph captures are unchanged.
+plain version ``ref.flash_attention_bwd_ref``).  The forward launch then
+also stores each row's log-sum-exp (``lse``, float32 [B, H, S], natural
+log; plain version ``ref.flash_attention_ref(..., return_lse=True)``),
+which the backward takes P from in both dtypes (on the tensor cores: a
+dk/dv kernel a key tile and head group, a dq kernel a query tile; float32
+as 3xTF32 products).  Without a gradient the call is the bare launch with
+no lse, so serving steps and their CUDA-graph captures are unchanged.
 """
 from __future__ import annotations
 
@@ -92,10 +93,8 @@ def _check_prefix(prefix_len: int, S: int) -> None:
 
 def _launch(q, k, v, window, lengths, with_lse=False, prefix_len=0):
     """The forward kernel: (out, lse), lse float32 [B, H, S] when
-    ``with_lse`` (bfloat16 only), else None."""
+    ``with_lse``, else None."""
     code = _check(q, k, v, lengths, window, prefix_len)
-    if with_lse and code != 1:
-        raise ValueError("the forward kernel stores lse in bfloat16 only")
     B, H, S, hd = q.shape
     K = k.shape[1]
     out = torch.empty_like(q)
@@ -118,9 +117,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) of ``flash_attention(q, k, v)`` at output ``o`` and
     output gradient ``do``, in the inputs' dtype: the kernel on a CUDA
     tensor, ``ref.flash_attention_bwd_ref`` on a CPU tensor (which
-    recomputes every row's lse).  On the card bfloat16 takes the forward's
-    ``lse`` (float32 [B, H, S], ``_launch(..., with_lse=True)``) and
-    raises without it; float32 takes none (its pre-pass computes it)."""
+    recomputes every row's lse).  On the card it takes the forward's
+    ``lse`` (float32 [B, H, S], ``_launch(..., with_lse=True)``) in both
+    dtypes and raises without it."""
     if q.device.type == "cpu":
         _check_prefix(prefix_len, q.shape[2])
         return flash_attention_bwd_ref(q, k, v, o, do, window=window,
@@ -128,20 +127,17 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     code = _check(q, k, v, lengths, window, prefix_len, extra=(o, do))
     B, H, S, hd = q.shape
     K = k.shape[1]
-    if code == 1:
-        if lse is None:
-            raise ValueError("the bfloat16 flash backward takes the "
-                             "forward's lse (_launch(..., with_lse=True))")
-        cuda_lib.check_operands("flash", [lse], q)
-        if lse.dtype != torch.float32 or lse.shape != (B, H, S):
-            raise ValueError(f"lse must be float32 {[B, H, S]}")
-        splits = cuda_lib.bwd_splits(B, K, S, H // K)
-    else:
-        if lse is not None:
-            raise ValueError("the float32 flash backward computes its own "
-                             "lse and takes none")
-        lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
-        splits = 1
+    if lse is None:
+        raise ValueError("the flash backward takes the forward's lse "
+                         "(_launch(..., with_lse=True))")
+    cuda_lib.check_operands("flash", [lse], q)
+    if lse.dtype != torch.float32 or lse.shape != (B, H, S):
+        raise ValueError(f"lse must be float32 {[B, H, S]}")
+    # the fp32 body sums dk / dv on the tensor cores at hd 256: two heads
+    # a group at most (cuda_lib.bwd_splits)
+    splits = cuda_lib.bwd_splits(
+        B, K, S, H // K,
+        max_group=2 if q.dtype == torch.float32 and hd == 256 else None)
     delta = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
     part = (torch.empty(splits, 2, B, K, S, hd, dtype=torch.float32,
                         device=q.device) if splits > 1 else None)
@@ -157,13 +153,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The forward kernel (storing lse in bfloat16), differentiated by the
-    backward kernel."""
+    """The forward kernel (storing lse), differentiated by the backward
+    kernel."""
 
     @staticmethod
     def forward(ctx, q, k, v, window, lengths, prefix_len=0):
-        out, lse = _launch(q, k, v, window, lengths,
-                           with_lse=q.dtype == torch.bfloat16,
+        out, lse = _launch(q, k, v, window, lengths, with_lse=True,
                            prefix_len=prefix_len)
         ctx.save_for_backward(q, k, v, out, lse, lengths)
         ctx.window, ctx.prefix_len = window, prefix_len

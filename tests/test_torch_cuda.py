@@ -7,9 +7,11 @@ the card:
 Each kernel is held against its plain PyTorch version on the same inputs
 (float32 to 1e-4, bfloat16 against the plain version in float32 on the
 same rounded inputs to 2e-2, int8 caches to 1e-4; the scans to 1e-4, and
-the RG-LRU scan bit for bit), the bf16 flash body and the split ring and
-page walks give bit-equal results from call to call (the bf16 flash forward
-also with its lse output, which the bf16 backward needs) (the paged kernels
+the RG-LRU scan bit for bit), the flash bodies and the split ring and
+page walks give bit-equal results from call to call (the flash forward
+also with its lse output, which the backward needs in both dtypes; the
+float32 bodies, 3xTF32 on the tensor cores, at every head dim with
+windows, ragged lengths, empty rows and prefixes) (the paged kernels
 also at forced split counts at the split walk's edges), the wrappers
 refuse what the kernels do not take, and small engine and model runs on
 the card launch the kernels of their models' paths.  Engines whose steps
@@ -1081,20 +1083,22 @@ def test_hot_nan_row_on_captured_step(dev, quarantine):
 
 # ------------------------------------------------------------- training
 
+@pytest.mark.parametrize("act", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("B,H,K,S,hd,window,lengths", [
     (2, 6, 2, 97, 64, None, None),
     (1, 16, 1, 300, 256, 100, None),
     (3, 4, 4, 77, 128, 2048, [77, 0, 30]),    # an empty row
     (2, 8, 2, 200, 32, 20, [200, 61]),        # rows past the window's reach
 ])
-def test_flash_forward_lse(dev, B, H, K, S, hd, window, lengths):
-    """The bf16 forward with an lse pointer gives the output of the launch
-    without one, bit for bit, and each row's lse of the plain version
-    (``flash_attention_ref(..., return_lse=True)``) to 1e-3 absolute (fp32
-    sums in another order, ``ex2.approx``), +inf for a row with no key."""
+def test_flash_forward_lse(dev, act, B, H, K, S, hd, window, lengths):
+    """The forward (bf16 and fp32 bodies) with an lse pointer gives the
+    output of the launch without one, bit for bit, and each row's lse of
+    the plain version (``flash_attention_ref(..., return_lse=True)``) to
+    1e-3 absolute (fp32 sums in another order, ``ex2.approx``), +inf for a
+    row with no key."""
     from repro_torch.kernels import flash_attention as FA
-    q, k, v = (t.to(dev) for t in _flash_inputs(torch.bfloat16, B, H, K, S,
-                                                 hd, seed=S + hd))
+    q, k, v = (t.to(dev) for t in _flash_inputs(act, B, H, K, S, hd,
+                                                 seed=S + hd))
     lens = (None if lengths is None
             else torch.tensor(lengths, dtype=torch.int32, device=dev))
     bare, none = FA._launch(q, k, v, window, lens)
@@ -1109,9 +1113,6 @@ def test_flash_forward_lse(dev, B, H, K, S, hd, window, lengths):
     assert float((lse[fin] - want[fin]).abs().max()) <= 1e-3
     if lengths is not None and 0 in lengths:
         assert bool(torch.isinf(lse[lengths.index(0)]).all())
-    with pytest.raises(ValueError, match="bfloat16 only"):
-        FA._launch(q.float(), k.float(), v.float(), window, lens,
-                   with_lse=True)
 
 
 @pytest.mark.parametrize("act", [torch.float32, torch.bfloat16])
@@ -1129,8 +1130,8 @@ def test_flash_backward_matches_plain(dev, act, hd, B, H, K, S, window,
     ``flash_attention_bwd_ref`` in float32 on the same inputs: 1e-4
     (float32) or 2e-2 (bfloat16, its outputs rounded) of the largest
     gradient magnitude; zero gradients for an empty row; two calls
-    bit-equal.  bfloat16 takes the forward launch's lse and, at K 1 and
-    G 8, splits the heads into groups (``cuda_lib.bwd_splits`` > 1)."""
+    bit-equal.  Both dtypes take the forward launch's lse and, at K 1 and
+    G 8, split the heads into groups (``cuda_lib.bwd_splits`` > 1)."""
     from repro_torch.kernels import cuda_lib
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels.flash_attention import flash_attention_bwd
@@ -1140,9 +1141,8 @@ def test_flash_backward_matches_plain(dev, act, hd, B, H, K, S, window,
         .to(dev, act)
     lens = (None if lengths is None
             else torch.tensor(lengths, dtype=torch.int32, device=dev))
-    o, lse = FA._launch(q, k, v, window, lens,
-                        with_lse=act == torch.bfloat16)
-    if K == 1 and act == torch.bfloat16:
+    o, lse = FA._launch(q, k, v, window, lens, with_lse=True)
+    if K == 1:
         assert cuda_lib.bwd_splits(B, K, S, H // K) > 1
     got = flash_attention_bwd(q, k, v, o, do, lse=lse, window=window,
                               lengths=lens)
@@ -1176,7 +1176,7 @@ def test_flash_prefix_matches_plain(dev, act, B, H, K, S, hd, P, window,
     """The prefix mode (``prefix_len`` P: tokens below P attend each other
     both ways) of the flash forward and backward kernels against their
     plain versions on the same inputs, to the tolerances of the causal
-    tests; bf16's lse against the plain lse over the same keys (1e-3);
+    tests; the lse against the plain lse over the same keys (1e-3);
     two calls of each bit-equal; an empty row's gradients zero."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels.flash_attention import flash_attention_bwd
@@ -1189,16 +1189,14 @@ def test_flash_prefix_matches_plain(dev, act, B, H, K, S, hd, P, window,
     kw = dict(window=window, lengths=lens, prefix_len=P)
     f32 = [t.float() for t in (q, k, v)]
     tol = 2e-2 if act == torch.bfloat16 else 1e-4
-    o, lse = FA._launch(q, k, v, window, lens,
-                        with_lse=act == torch.bfloat16, prefix_len=P)
+    o, lse = FA._launch(q, k, v, window, lens, with_lse=True, prefix_len=P)
     again = ops.flash_attention(q, k, v, **kw)
     want, want_lse = ref.flash_attention_ref(*f32, return_lse=True, **kw)
     torch.testing.assert_close(o.float(), want, atol=tol, rtol=0)
     assert torch.equal(o, again)
-    if lse is not None:
-        assert torch.equal(torch.isinf(lse), torch.isinf(want_lse))
-        fin = torch.isfinite(want_lse)
-        assert float((lse[fin] - want_lse[fin]).abs().max()) <= 1e-3
+    assert torch.equal(torch.isinf(lse), torch.isinf(want_lse))
+    fin = torch.isfinite(want_lse)
+    assert float((lse[fin] - want_lse[fin]).abs().max()) <= 1e-3
     got = flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
     got2 = flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
     want = ref.flash_attention_bwd_ref(*f32, o.float(), do.float(), **kw)
@@ -1212,6 +1210,45 @@ def test_flash_prefix_matches_plain(dev, act, B, H, K, S, hd, P, window,
         ops.flash_attention(q, k, v, prefix_len=S + 1)
     with pytest.raises(ValueError, match="prefix_len"):
         flash_attention_bwd(q, k, v, o, do, lse=lse, prefix_len=-1)
+
+
+@pytest.mark.parametrize("P", [0, 300, 600])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+def test_flash_fp32_tensor_core_bodies(dev, hd, P):
+    """The float32 bodies of both flash kernels (3xTF32 on the tensor
+    cores, ``csrc/flash_tf32.cuh``) at every head dim, with a window,
+    ragged lengths and an empty row, and a prefix of 0, 300 and S: the
+    output, its lse and the gradients against the plain versions (1e-4;
+    the gradients 1e-4 of max(|grad|, 1)), the same bits on a second call
+    of each, zeros for the empty row; the backward from the forward's
+    lse."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    B, H, K, S, window, lengths = 3, 6, 2, 600, 200, [600, 0, 450]
+    q, k, v = (t.to(dev) for t in _flash_inputs(torch.float32, B, H, K, S,
+                                                 hd, seed=hd + P))
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(P)) \
+        .to(dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    kw = dict(window=window, lengths=lens, prefix_len=P)
+    o, lse = FA._launch(q, k, v, window, lens, with_lse=True, prefix_len=P)
+    o2, lse2 = FA._launch(q, k, v, window, lens, with_lse=True, prefix_len=P)
+    want, want_lse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    torch.testing.assert_close(o, want, atol=1e-4, rtol=1e-4)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert torch.equal(torch.isinf(lse), torch.isinf(want_lse))
+    fin = torch.isfinite(want_lse)
+    assert float((lse[fin] - want_lse[fin]).abs().max()) <= 1e-4
+    assert not o[1].any() and bool(torch.isinf(lse[1]).all())
+    got = flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
+    again = flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, **kw)
+    for x, y, w in zip(got, again, want):
+        assert x.dtype == torch.float32 and x.shape == w.shape
+        assert float((x - w).abs().max()) <= \
+            1e-4 * max(float(w.abs().max()), 1.0)
+        assert torch.equal(x, y)
+        assert not x[1].any()
 
 
 def test_flash_autograd_on_card_launches_the_backward(dev):
@@ -1239,8 +1276,8 @@ def test_flash_autograd_on_card_launches_the_backward(dev):
 
 
 def test_flash_backward_lse_by_dtype(dev):
-    """bfloat16 on the card needs the forward's lse and float32 takes
-    none, and an operand off a 16-byte boundary is refused, each with
+    """The backward on the card needs the forward's lse in both dtypes,
+    and an operand off a 16-byte boundary is refused, each with
     ValueError and nothing launched; the autograd
     function in bfloat16 launches the forward (with lse) and the backward
     once each and gives the plain version's gradients to 2e-2."""
@@ -1254,8 +1291,8 @@ def test_flash_backward_lse_by_dtype(dev):
     with pytest.raises(ValueError, match="takes the forward's lse"):
         flash_attention_bwd(q, k, v, o, do)
     f = [t.float() for t in (q, k, v, o, do)]
-    with pytest.raises(ValueError, match="takes none"):
-        flash_attention_bwd(*f, lse=torch.zeros(2, 6, 64, device=dev))
+    with pytest.raises(ValueError, match="takes the forward's lse"):
+        flash_attention_bwd(*f)
     # the D pass reads o and its gradient in 16-byte chunks
     shifted = torch.empty(do.numel() + 1, dtype=do.dtype,
                           device=dev)[1:].view(do.shape)

@@ -219,3 +219,15 @@ def test_tensor_core_walk_visits_every_pair_once(case, walk):
 ])
 def test_bwd_splits(B, K, S, G, want):
     assert cuda_lib.bwd_splits(B, K, S, G) == want
+
+
+@pytest.mark.parametrize("B,K,S,G,want", [
+    (1, 1, 4096, 16, 8),    # recurrentgemma-9b: 8 already
+    (2, 1, 4096, 16, 8),    # 128 blocks would take one group of 16
+    (8, 1, 256, 16, 16),    # its training shape: 32 blocks, G groups
+    (1, 8, 300, 3, 3),      # odd G: groups of one
+    (4, 1, 2048, 1, 1),     # one head
+])
+def test_bwd_splits_max_group(B, K, S, G, want):
+    """fp32 at hd 256 (``max_group=2``): groups of at most two heads."""
+    assert cuda_lib.bwd_splits(B, K, S, G, max_group=2) == want
