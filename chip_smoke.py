@@ -231,6 +231,21 @@ Phases, each of which stops the run with a non-zero exit on any error:
    0.01 of the positions of random prompts (``tie_share``), so that an
    engine check on it compares the model, not tie-breaking.
    Then ring decode is read again in turns with SDPA (``[ring re-read]``).
+   mesh      — ``[mesh]``: full-width reflect_demo_100m served by
+   ``Engine(mesh="1x1")`` (parameters and page pools as DTensors on a
+   one-rank NCCL mesh, the attention reads inside ``local_map``), paged
+   with speculation, captured in fp and int8 KV and eagerly in fp, each
+   beside the engine without a mesh in turns (none, mesh, mesh, none):
+   streams, bills, step counters and launches must agree, both paged
+   kernels must launch, the per-device resident KV must equal the whole;
+   ms a step of each and what DTensor dispatch adds; a 1x2 mesh on the
+   card must raise ``NotImplementedError``; the card's total memory
+   beside ``launch/mesh.HBM_BYTES``.
+   dryrun    — ``[dryrun]``: ``python -m repro_torch.launch.dryrun --mesh
+   single`` (every arch x shape on the ``meta`` device, 16x16) runs in a
+   CPU process (one thread, lowest priority) beside the card's phases
+   from the end of the build; its lines are printed at the end, and it
+   must end with ``all dry-runs passed``.
 6. result  — a JSON line of kernel records, the card line, and last the
    JSON status line.
 
@@ -241,6 +256,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1026,19 +1042,20 @@ def phase_kernels(dev):
 # ---------------------------------------------------------------- 4. serve
 
 def serve(model, kv_dtype, rounds, max_new, seed, path, paged=True,
-          aot=False):
+          aot=False, mesh=None):
     """Serve ``rounds`` reflection rounds of 8 conversations from a paged
     pool or (``paged=False``) ring caches, eagerly or (``aot``) with every
-    step captured as a CUDA graph at startup; ``path`` names the kernels
-    this model's steps must launch.  Returns (engine, conversations,
-    launches, what the run gave: streams, bills, step counters, times)."""
+    step captured as a CUDA graph at startup, on a device mesh (``mesh``,
+    "DxM") or none; ``path`` names the kernels this model's steps must
+    launch.  Returns (engine, conversations, launches, what the run gave:
+    streams, bills, step counters, launches, resident KV, ms a step)."""
     from repro_torch.configs.base import ServeConfig
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.request import Request, Status
     scfg = ServeConfig(max_batch=8, max_seq=2048, page_size=16,
                        spec_decode=True, spec_tokens=4, kv_dtype=kv_dtype,
-                       paged_kv=paged, aot_warmup=aot)
+                       paged_kv=paged, aot_warmup=aot, mesh=mesh)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1082,7 +1099,8 @@ def serve(model, kv_dtype, rounds, max_new, seed, path, paged=True,
         st["decode_tokens"]
     n_steps = sum(st[k] for k in STEP_KINDS)
     name = (f"{model.cfg.name} kv={kv_dtype} {'paged' if paged else 'ring'}"
-            f" {'captured' if aot else 'eager'}")
+            f" {'captured' if aot else 'eager'}"
+            + (f" mesh {mesh}" if mesh else ""))
     log(f"[serve] {name}: {rounds} rounds x 8 requests in {dt:.3f}s, "
         f"{n_steps} engine steps ({dt / n_steps * 1e3:.2f} ms each); "
         f"{st['decode_tokens'] / dt:.1f} output tok/s, "
@@ -1109,8 +1127,11 @@ def serve(model, kv_dtype, rounds, max_new, seed, path, paged=True,
         raise AssertionError(f"a step ran outside the captured shapes: "
                              f"{st['step_compiles_by_fn']}, warmed "
                              f"{st['aot_warmed']}")
-    return eng, convos, launches, {"outputs": outputs, "usage": usage,
-                                   "steps": steps, "launches": launches}
+    return eng, convos, launches, {
+        "outputs": outputs, "usage": usage, "steps": steps,
+        "launches": launches, "ms_per_step": dt / n_steps * 1e3,
+        "kv": {k: st[k] for k in ("resident_kv_bytes",
+                                  "resident_kv_bytes_per_device")}}
 
 
 def serve_pair(model, kv_dtype, rounds, max_new, seed, path, paged=True,
@@ -2334,6 +2355,78 @@ def phase_serve(dev):
     return runs
 
 
+def phase_mesh(dev):
+    """``[mesh]``: full-width reflect_demo_100m served by ``Engine(mesh=
+    "1x1")`` — parameters and the page pools as DTensors on a one-rank
+    NCCL mesh (launch/mesh.py), the attention reads inside ``local_map`` —
+    paged, int8 KV off and on, speculation on, eagerly and captured, each
+    beside the same engine without a mesh; the streams, bills, step
+    counters and launches must agree, both paged kernels must launch
+    under the mesh and its per-device resident KV must equal the whole.
+    The step times side by side give what DTensor dispatch adds to the
+    host's time a step.  A 1x2 mesh on the card must raise
+    ``NotImplementedError``.  Returns the meshed runs' launches."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.launch.mesh import HBM_BYTES
+    from repro_torch.models.registry import get_config
+    from repro_torch.serving.engine import Engine
+    total = torch.cuda.get_device_properties(dev).total_memory
+    log(f"[mesh] {torch.cuda.get_device_name(dev)} total_memory {total} B; "
+        f"launch/mesh.py HBM_BYTES {HBM_BYTES} "
+        f"({'equal' if total == HBM_BYTES else 'NOT equal'})")
+    paged = ("paged_decode", "paged_extend")
+    cfg = get_config("reflect_demo_100m")
+    model = build_on_card(cfg, 0)
+    runs, ms = {}, {}
+    # captured in both KV dtypes; eager (the host's dispatch cost) in fp
+    for kv, seed, aot in (("model", 5, True), ("int8", 6, True),
+                          ("model", 5, False)):
+        got = {}
+        for mesh in (None, "1x1", "1x1", None):
+            eng, _, launches, run = serve(model, kv, 2, 32, seed, paged,
+                                          True, aot, mesh)
+            del eng
+            release()
+            if mesh in got and run["outputs"] != got[mesh]["outputs"]:
+                raise AssertionError("[mesh] a repeated serve differs")
+            got[mesh] = run
+            ms.setdefault((kv, aot, mesh), []).append(
+                run["ms_per_step"])
+        base, meshed = got[None], got["1x1"]
+        for key in ("outputs", "usage", "steps", "launches"):
+            if meshed[key] != base[key]:
+                raise AssertionError(f"[mesh] kv={kv} aot={aot}: the "
+                                     f"1x1 mesh's {key} differ")
+        if (meshed["kv"]["resident_kv_bytes_per_device"]
+                != meshed["kv"]["resident_kv_bytes"]):
+            raise AssertionError(f"[mesh] per-device resident KV "
+                                 f"{meshed['kv']}")
+        tag = ("reflect_demo_100m mesh 1x1" + ("" if kv == "model"
+                                               else " int8")
+               + (" captured" if aot else ""))
+        runs[tag] = meshed["launches"]
+        log(f"[mesh] kv={kv} {'captured' if aot else 'eager'}: 1x1 "
+            f"mesh = no mesh in {len(base['outputs'])} token streams, "
+            f"bills, step counters and launches {meshed['launches']}; "
+            f"resident KV {meshed['kv']}")
+    for (kv, aot, mesh), t in sorted(ms.items(), key=str):
+        log(f"[mesh] ms a step kv={kv} {'captured' if aot else 'eager'} "
+            f"mesh={mesh}: {t}")
+    for kv, aot in (("model", True), ("int8", True), ("model", False)):
+        d = (sum(ms[(kv, aot, "1x1")]) - sum(ms[(kv, aot, None)])) / 2
+        log(f"[mesh] DTensor dispatch adds {d:.3f} ms a step "
+            f"(kv={kv}, {'captured' if aot else 'eager'})")
+    try:
+        Engine(model, ServeConfig(mesh="1x2"), device="cuda")
+    except NotImplementedError as e:
+        log(f"[mesh] 1x2 on the card raises NotImplementedError: {e}")
+    else:
+        raise AssertionError("[mesh] a 1x2 mesh on the card did not raise")
+    del model
+    release()
+    return runs
+
+
 def phase_whisper(dev, smi):
     """whisper-tiny at full width and depth (4 encoder and 4 decoder
     layers, d_model 384, 1500 frames, vocab 51,865; bf16 activations, fp32
@@ -3223,6 +3316,33 @@ def ring_reread(dev):
 
 # ---------------------------------------------------------------- main
 
+def start_dryrun() -> subprocess.Popen:
+    """The meta-device dry run of every arch at ``single`` in a CPU
+    process beside the card's phases: no card, one thread, at the lowest
+    priority, so the phases' own host work goes first."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh",
+         "single"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, preexec_fn=lambda: os.nice(19))
+
+
+def finish_dryrun(proc: subprocess.Popen) -> None:
+    """Print the dry run's lines; fail unless it passed."""
+    try:
+        out, _ = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    for line in out.splitlines():
+        log(f"[dryrun] {line}")
+    if proc.returncode != 0 or not out.rstrip().endswith(
+            "all dry-runs passed"):
+        raise AssertionError(f"the dry run failed (exit {proc.returncode})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3235,10 +3355,22 @@ def main() -> int:
     smi = phase_device()
     with timed("build"):
         phase_build()
+    dry = start_dryrun()
+    try:
+        return run_phases(dev, smi, dry)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+
+
+def run_phases(dev, smi, dry) -> int:
     with timed("kernels"):
         records = phase_kernels(dev)
     with timed("serve"):
         runs = phase_serve(dev)
+    with timed("mesh"):
+        runs.update(phase_mesh(dev))
     with timed("whisper"):
         runs.update(phase_whisper(dev, smi))
     with timed("internvl2"):
@@ -3246,6 +3378,8 @@ def main() -> int:
     with timed("train"):
         runs.update(phase_train(dev, smi))
     ring_reread(dev)
+    with timed("dryrun"):
+        finish_dryrun(dry)
     kernels = []
     # each kernel's record at one shape its model's runs give it: paged
     # extend at Sx = 5 (the demo's verify steps make most of its

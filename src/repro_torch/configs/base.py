@@ -1,13 +1,13 @@
 """Configuration dataclasses for models and serving.
 
-A copy of the reference package's ``configs/base.py`` restricted to what
-the port serves: ``ModelConfig``, ``TrainConfig``, ``ServeConfig`` and the
-block patterns ``dense_pattern``, ``moe_pattern``, ``mamba_pattern`` and
+A copy of the reference package's ``configs/base.py``: ``ModelConfig``,
+the assigned input shapes (``ShapeConfig``, ``SHAPES``,
+``LONG_CONTEXT_WINDOW``), ``TrainConfig``, ``ServeConfig`` and the block
+patterns ``dense_pattern``, ``moe_pattern``, ``mamba_pattern`` and
 ``recurrentgemma_pattern``.
 Field names, defaults and meanings are unchanged, so a config built for
-one package reads the same in the other.  The one ``ServeConfig`` option
-that the port's engine does not implement yet, ``mesh``, makes ``Engine``
-raise ``NotImplementedError`` instead of being ignored.
+one package reads the same in the other.  ``ServeConfig.mesh`` places the
+engine on a ``torch.distributed`` device mesh (launch/mesh.py).
 """
 from __future__ import annotations
 
@@ -120,6 +120,32 @@ def recurrentgemma_pattern(n: int) -> Tuple[str, ...]:
 
 
 @dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input shape."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                              # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+# The four assigned input shapes.
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+# Sliding-window used when a full-attention arch runs long_500k.
+LONG_CONTEXT_WINDOW = 8_192
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     learning_rate: float = 3e-4
     warmup_steps: int = 100
@@ -178,14 +204,14 @@ class ServeConfig:
     temperature: float = 0.0
     seed: int = 0
 
-    # ---- mesh-sharded serving (docs/SERVING.md#sharded-serving) -----------
+    # ---- mesh-sharded serving ----------------------------------------------
     # Device mesh for the engine as a "DxM" string (data x model), e.g.
     # "1x2": params get the tensor-parallel rules (launch/rules.serve_rules),
     # the paged KV pool + int8 scale sidecars shard by physical page along
-    # 'model'.  None = single-device (bit-identical legacy path).  The
-    # devices must exist before Engine construction — on CPU that means
-    # XLA_FLAGS=--xla_force_host_platform_device_count=N exported before
-    # the first jax import (launch/serve.py --mesh handles this).
+    # 'model'.  None = single-device.  "1x1" starts a one-process group by
+    # itself; a mesh of D*M > 1 needs that many ranks already in the
+    # default process group (torchrun --nproc-per-node D*M; CPU only:
+    # launch/mesh.py, launch/serve.py --mesh).
     mesh: Optional[str] = None
     # Startup AOT compilation: lower + compile every step executable the
     # serve loop can hit (decode, each mixed prefill+decode bucket width,

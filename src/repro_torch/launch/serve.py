@@ -13,9 +13,20 @@ with seeded random weights, as the reference does, and runs on the CUDA
 device unless ``--device cpu`` is given.  ``--aot`` warms every serving
 step before the first request (``ServeConfig.aot_warmup``: CUDA graphs
 captured on a card, eager runs through the same buffers on the CPU) and
-prints the startup time and the recompile tripwire.  ``--mesh`` is
-accepted as in the reference and raises ``NotImplementedError``: meshes
-are not ported.
+prints the startup time and the recompile tripwire.
+
+``--mesh DxM`` serves mesh-placed (``ServeConfig.mesh``: parameters
+tensor-parallel along 'model', the paged KV pool sharded by physical
+page) and prints the reference's ``mesh ... (n dev, ...)`` line with the
+resident KV on each device.  ``--mesh 1x1`` serves in this process, on
+the card or with ``--device cpu``.  A mesh of D*M > 1 devices runs one
+process a device on the CPU, under ``torchrun``, which starts the ranks
+and gives them the group's address (rank 0 prints)::
+
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+        --device cpu --mesh 1x2
+
+A mesh of more than one card raises ``NotImplementedError`` (ROADMAP A17).
 
 ``--replicas N`` serves a fleet instead of one engine, as the reference
 does: N engines on ``--device`` behind the prefix-affinity router
@@ -28,6 +39,7 @@ are pumped in turn on one device, so on one card the fleet measures
 routing and queueing, not parallel replicas.
 """
 import argparse
+import os
 import time
 
 from repro_torch.models.registry import ARCH_IDS, EXTRA_ARCH_IDS
@@ -45,7 +57,8 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=12)
     ap.add_argument("--no-prefix-cache", action="store_true")
     ap.add_argument("--mesh", default=None, metavar="DxM",
-                    help="serve mesh (not ported: raises)")
+                    help="serve mesh, e.g. 1x2 (data x model); D*M > 1 "
+                    "under torchrun --nproc-per-node D*M, on the CPU")
     ap.add_argument("--aot", action="store_true",
                     help="warm every serving step at startup (CUDA "
                     "graphs on a card)")
@@ -70,6 +83,14 @@ def main(argv=None):
     from repro_torch.serving.request import Request
 
     device = resolve_device(args.device)
+    if args.mesh and "WORLD_SIZE" in os.environ:
+        # started by torchrun: join its group (its address is in the env)
+        import torch.distributed as dist
+        if not dist.is_initialized():
+            dist.init_process_group(
+                "nccl" if device.type == "cuda" else "gloo")
+    say = print if int(os.environ.get("RANK", 0)) == 0 else (
+        lambda *a, **k: None)
     cfg = get_smoke_config(args.arch).replace(dtype="float32")
     model = build_model(cfg).init(torch.Generator().manual_seed(0))
 
@@ -100,24 +121,26 @@ def main(argv=None):
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
     st = engine.stats()
-    print(f"{args.requests} requests x {args.rounds} rounds in {dt:.2f}s "
-          f"on {device}")
-    print(f"decode {st['decode_steps']} tok "
-          f"({st['decode_steps']/dt:.1f} tok/s), prefill "
-          f"{st['prefill_tokens']} tok, extend {st['extend_tokens']} tok "
-          f"({st['prefill_chunks']} chunks, {st['mixed_steps']} mixed "
-          f"steps, max {st['max_step_prefill_tokens']} prefill tok/step)")
-    print(f"attn_impl {st['attn_impl']}: resident KV "
-          f"{st['resident_kv_bytes']} B "
-          f"(pool {st.get('kv_pool_pages_used', 0)}/"
-          f"{st.get('kv_pool_pages', 0)} pages)")
-    print(f"startup {startup:.2f}s")
+    say(f"{args.requests} requests x {args.rounds} rounds in {dt:.2f}s "
+        f"on {device}")
+    say(f"decode {st['decode_steps']} tok "
+        f"({st['decode_steps']/dt:.1f} tok/s), prefill "
+        f"{st['prefill_tokens']} tok, extend {st['extend_tokens']} tok "
+        f"({st['prefill_chunks']} chunks, {st['mixed_steps']} mixed "
+        f"steps, max {st['max_step_prefill_tokens']} prefill tok/step)")
+    say(f"mesh {st['mesh'] or 'single-device'} ({st['n_devices']} dev, "
+        f"attn_impl {st['attn_impl']}): resident KV "
+        f"{st['resident_kv_bytes']} B total, "
+        f"{st['resident_kv_bytes_per_device']} B/device "
+        f"(pool {st.get('kv_pool_pages_used', 0)}/"
+        f"{st.get('kv_pool_pages', 0)} pages)")
+    say(f"startup {startup:.2f}s")
     if args.aot:
-        print(f"aot warmup: {st['aot_warmed']} step shapes in "
-              f"{st['startup_compile_s']:.2f}s; step_compiles "
-              f"{st['step_compiles']} {st['step_compiles_by_fn']}")
+        say(f"aot warmup: {st['aot_warmed']} step shapes in "
+            f"{st['startup_compile_s']:.2f}s; step_compiles "
+            f"{st['step_compiles']} {st['step_compiles_by_fn']}")
     if engine.prefix_cache:
-        print(f"prefix cache: {engine.prefix_cache.stats_snapshot()}")
+        say(f"prefix cache: {engine.prefix_cache.stats_snapshot()}")
 
 
 def serve_fleet(args, model, device) -> None:

@@ -11,9 +11,9 @@ and the mamba and RG-LRU scans' in the hand-written scan kernels
 (``csrc/mamba_scan_bwd.cu``, ``csrc/rglru_scan_bwd.cu``), so every
 registry family (dense, MoE, recurrent, the VLM, whisper) trains there.
 The VLM and whisper get zero patch embeddings or frames beside each
-batch, as in the reference.  ``--dryrun`` (the reference's production
-plan over a device mesh) raises ``NotImplementedError``: the mesh tooling
-is not ported (ROADMAP A17).
+batch, as in the reference.  ``--dryrun`` prints the reference's
+production plan — the arch, its train overrides and sharding rules
+(``launch/dryrun.py``) — and the dry-run command that counts it.
 """
 import argparse
 import time
@@ -93,14 +93,19 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--dryrun", action="store_true",
-                    help="print the production plan (not ported: raises)")
+                    help="print the production plan, do not execute")
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (default: cuda)")
     args = ap.parse_args(argv)
     if args.dryrun:
-        raise NotImplementedError(
-            "--dryrun needs the mesh and sharding tooling, which the port "
-            "does not have yet (ROADMAP A17)")
+        from repro_torch.launch.dryrun import TRAIN_OVERRIDES, rules_for
+        cfg = get_config(args.arch)
+        print(f"arch={cfg.name} layers={cfg.num_layers} d={cfg.d_model}")
+        print(f"train overrides: {TRAIN_OVERRIDES.get(args.arch, {})}")
+        print(f"sharding rules: {rules_for(args.arch, 'train')}")
+        print("meta-device dry run: python -m repro_torch.launch.dryrun "
+              f"--arch {args.arch} --shape train_4k --mesh both")
+        return None
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     dev = resolve_device(args.device)
     tcfg = TrainConfig(total_steps=args.steps, warmup_steps=10,

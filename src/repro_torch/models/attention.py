@@ -52,6 +52,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import kv_quant as Q
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import masked_attention
+from repro_torch.launch.rules import (is_placed, is_replicated, run_local,
+                                      shard_box)
 from repro_torch.models import layers as L
 
 Pool = Dict[str, torch.Tensor]
@@ -63,13 +65,15 @@ class Attention(nn.Module):
         super().__init__()
         d, H, K, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
             cfg.head_dim
-        self.wq = L.param((d, H, hd), dtype)
-        self.wk = L.param((d, K, hd), dtype)
-        self.wv = L.param((d, K, hd), dtype)
-        self.wo = L.param((H, hd, d), dtype)
+        self.wq = L.param((d, H, hd), dtype, axes=("embed", "heads", None))
+        self.wk = L.param((d, K, hd), dtype,
+                          axes=("embed", "kv_heads", None))
+        self.wv = L.param((d, K, hd), dtype,
+                          axes=("embed", "kv_heads", None))
+        self.wo = L.param((H, hd, d), dtype, axes=("heads", None, "embed"))
         if cfg.qk_norm:
-            self.q_norm = L.param((hd,), dtype, init="ones")
-            self.k_norm = L.param((hd,), dtype, init="ones")
+            self.q_norm = L.param((hd,), dtype, init="ones", axes=(None,))
+            self.k_norm = L.param((hd,), dtype, init="ones", axes=(None,))
 
 
 class AttnBlock(nn.Module):
@@ -128,7 +132,8 @@ def attention_full_qkv(cfg: ModelConfig, p: Attention, q: torch.Tensor,
     whisper's encoder passes S), after which tokens stay causal.  Returns
     [B, S, d] in q's dtype."""
     B, S, H, hd = q.shape
-    out = ops.flash_attention(
+    out = run_local(
+        ops.flash_attention,
         q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
         v.transpose(1, 2).contiguous(), window=window,
         lengths=None if lengths is None else lengths.to(torch.int32),
@@ -168,6 +173,26 @@ def _slots(leaf: torch.Tensor) -> torch.Tensor:
                                            *leaf.stride()[2:]))
 
 
+def _write(leaf: torch.Tensor, idx: torch.Tensor, val: torch.Tensor) -> None:
+    """``_slots(leaf)[idx] = val`` in place.  A leaf placed on a mesh (a
+    DTensor) writes into its local shard the lanes that fall in it, each
+    cut to the shard's box; the other lanes go to the local scratch
+    slot."""
+    if not is_placed(leaf):
+        _slots(leaf).index_put_((idx,), val)
+        return
+    local = leaf.to_local()
+    val = val.full_tensor() if is_placed(val) else val
+    if not is_replicated(leaf):
+        (o0, o1, *orow), (n0, n1, *nrow) = shard_box(leaf)
+        r, c = idx // leaf.shape[1], idx % leaf.shape[1]
+        mine = (r >= o0) & (r < o0 + n0) & (c >= o1) & (c < o1 + n1)
+        idx = torch.where(mine, (r - o0) * n1 + (c - o1), n0 * n1)
+        val = val[(slice(None),) + tuple(slice(o, o + n)
+                                         for o, n in zip(orow, nrow))]
+    _slots(local).index_put_((idx,), val)
+
+
 def _put_kv(cache: Dict[str, torch.Tensor], names: Tuple[str, ...],
             idx: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """Write K/V rows [n, K, hd] at slots ``idx`` [n] (``_slots``; the
@@ -183,7 +208,7 @@ def _put_kv(cache: Dict[str, torch.Tensor], names: Tuple[str, ...],
     else:
         vals = ((kn, k.to(cache[kn].dtype)), (vn, v.to(cache[vn].dtype)))
     for name, val in vals:
-        _slots(cache[name]).index_put_((idx,), val)
+        _write(cache[name], idx, val)
 
 
 def _scales(cache: Dict[str, torch.Tensor], names: Tuple[str, ...]
@@ -203,26 +228,33 @@ RING_LEAVES = ("k", "v", "ks", "kz", "vs")
 # ---------------------------------------------------------------------------
 
 def kv_cache_def(cfg: ModelConfig, batch: int, capacity: int,
-                 dtype: torch.dtype, kv_dtype: Optional[str] = None
-                 ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
-    """Shapes and dtypes of one attention layer's ring cache; "int8" adds
-    the scale sidecars ``ks``/``kz``/``vs`` ([batch, capacity, K])."""
+                 dtype: torch.dtype, kv_dtype: Optional[str] = None,
+                 seq_shard: bool = True) -> Dict[str, L.LeafDef]:
+    """Shapes, dtypes and logical axes of one attention layer's ring
+    cache; "int8" adds the scale sidecars ``ks``/``kz``/``vs`` ([batch,
+    capacity, K]).  The capacity dim carries the reference's ``kv_seq``
+    axis when ``seq_shard`` (the dry run's decode layout), no axis
+    otherwise (the serving engine's)."""
     K, hd = cfg.num_kv_heads, cfg.head_dim
     quant = resolve_kv_dtype(cfg, kv_dtype) == "int8"
     kv = torch.int8 if quant else dtype
-    d = {"k": ((batch, capacity, K, hd), kv),
-         "v": ((batch, capacity, K, hd), kv),
-         "tok": ((batch, capacity), torch.int32)}
+    seq_ax = "kv_seq" if seq_shard else None
+    kv_axes = ("batch", seq_ax, "kv_heads", None)
+    d = {"k": L.LeafDef((batch, capacity, K, hd), kv, kv_axes),
+         "v": L.LeafDef((batch, capacity, K, hd), kv, kv_axes),
+         "tok": L.LeafDef((batch, capacity), torch.int32,
+                           ("batch", seq_ax))}
     if quant:
         for leaf in ("ks", "kz", "vs"):
-            d[leaf] = ((batch, capacity, K), torch.float32)
+            d[leaf] = L.LeafDef((batch, capacity, K), torch.float32,
+                                 kv_axes[:3])
     return d
 
 
 KV_LEAVES = POOL_LEAVES + RING_LEAVES + ("tok",)
 
 
-def empty_cache(defs: Dict[str, Tuple[Tuple[int, ...], torch.dtype]],
+def empty_cache(defs: Dict[str, L.LeafDef],
                 device: Optional[torch.device] = None
                 ) -> Dict[str, torch.Tensor]:
     """A cache dict in its EMPTY state: zeros, except ``tok`` leaves, which
@@ -254,7 +286,7 @@ def _ring_write(cache: Ring, k: torch.Tensor, v: torch.Tensor,
     ring slots ``idx`` [n] (row * C + slot, or B * C, the scratch slot);
     no two rows share a slot but the scratch slot."""
     _put_kv(cache, RING_LEAVES, idx, k, v)
-    _slots(cache["tok"]).index_put_((idx,), positions.to(torch.int32))
+    _write(cache["tok"], idx, positions.to(torch.int32))
     return cache
 
 
@@ -329,7 +361,8 @@ def attention_decode(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     q, k, v = _qkv(cfg, p, x, pos[:, None])
     _ring_write(cache, k[:, 0], v[:, 0], _ring_slots(pos[:, None], None, C),
                 pos)
-    out = ops.decode_attention(
+    out = run_local(
+        ops.decode_attention,
         q.reshape(B, K, H // K, hd).contiguous(), cache["k"], cache["v"],
         cache["tok"], pos, window=window, **_scales(cache, RING_LEAVES))
     return _out_proj(p, out.reshape(B, 1, H, hd).to(x.dtype)), cache
@@ -351,18 +384,27 @@ def attention_extend(cfg: ModelConfig, p: Attention, x: torch.Tensor,
                                              dtype=pos0.dtype)[None, :]
     q, k, v = _qkv(cfg, p, x, positions)
     _masked_ring_write(cache, k, v, positions, valid)
-    kf, vf = cache["k"], cache["v"]
-    if "ks" in cache:
-        kf = Q.dequantize_k(kf, cache["ks"], cache["kz"])
-        vf = Q.dequantize_v(vf, cache["vs"])
-    tok = cache["tok"][:, None, :].long()                       # [B,1,C]
+    out = run_local(_ring_extend_read, q.reshape(B, Sx, K, H // K, hd),
+                    cache["k"], cache["v"], cache["tok"], positions, window,
+                    **_scales(cache, RING_LEAVES))
+    return _out_proj(p, out.reshape(B, Sx, H, hd).to(x.dtype)), cache
+
+
+def _ring_extend_read(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      tok: torch.Tensor, positions: torch.Tensor,
+                      window: Optional[int], k_scale=None, k_zero=None,
+                      v_scale=None) -> torch.Tensor:
+    """Lane l of q [B, Sx, K, G, hd] at ``positions`` [B, Sx] attends the
+    ring slots holding tokens <= its position (and > position - window)."""
+    if k_scale is not None:
+        k = Q.dequantize_k(k, k_scale, k_zero)
+        v = Q.dequantize_v(v, v_scale)
+    tok = tok[:, None, :].long()                                # [B,1,C]
     pl = positions[:, :, None].long()                           # [B,Sx,1]
     attendable = (tok >= 0) & (tok <= pl)
     if window is not None:
         attendable = attendable & (tok > pl - window)
-    out = masked_attention(q.reshape(B, Sx, K, H // K, hd), kf, vf,
-                           attendable)
-    return _out_proj(p, out.reshape(B, Sx, H, hd).to(x.dtype)), cache
+    return masked_attention(q, k, v, attendable)
 
 
 # ---------------------------------------------------------------------------
@@ -371,18 +413,21 @@ def attention_extend(cfg: ModelConfig, p: Attention, x: torch.Tensor,
 
 def paged_kv_cache_def(cfg: ModelConfig, num_pages: int, page_size: int,
                        dtype: torch.dtype, kv_dtype: Optional[str] = None
-                       ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
-    """Shapes and dtypes of one attention layer's page pools.  Every leaf
-    leads with the ``pages`` axis, so COW copies, snapshot pins and
-    per-page byte accounting treat payload and sidecars alike."""
+                       ) -> Dict[str, L.LeafDef]:
+    """Shapes, dtypes and logical axes of one attention layer's page
+    pools.  Every leaf leads with the ``pages`` axis, so COW copies,
+    snapshot pins, per-page byte accounting and mesh placement (pages
+    along ``model``: launch/rules.py) treat payload and sidecars alike."""
     K, hd = cfg.num_kv_heads, cfg.head_dim
     quant = resolve_kv_dtype(cfg, kv_dtype) == "int8"
     pool_dtype = torch.int8 if quant else dtype
-    d = {"kp": ((num_pages, page_size, K, hd), pool_dtype),
-         "vp": ((num_pages, page_size, K, hd), pool_dtype)}
+    axes = ("pages", None, "kv_heads", None)
+    d = {"kp": L.LeafDef((num_pages, page_size, K, hd), pool_dtype, axes),
+         "vp": L.LeafDef((num_pages, page_size, K, hd), pool_dtype, axes)}
     if quant:
         for leaf in ("ksp", "kzp", "vsp"):
-            d[leaf] = ((num_pages, page_size, K), torch.float32)
+            d[leaf] = L.LeafDef((num_pages, page_size, K), torch.float32,
+                                 axes[:3])
     return d
 
 
@@ -424,7 +469,8 @@ def attention_decode_paged(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     q, k, v = _qkv(cfg, p, x, pos[:, None])
     phys = _write_phys(page_table, pos[:, None], ps)[:, 0]
     _paged_write(pool, k[:, 0], v[:, 0], phys, pos % ps)
-    out = ops.paged_decode_attention(
+    out = run_local(
+        ops.paged_decode_attention,
         q.reshape(B, K, H // K, hd).contiguous(), pool["kp"], pool["vp"],
         page_table, pos, window=window, **_scales(pool, POOL_LEAVES))
     return _out_proj(p, out.reshape(B, 1, H, hd).to(x.dtype)), pool
@@ -451,7 +497,8 @@ def attention_extend_paged(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     if valid is not None:
         phys = torch.where(valid, phys, -1)
     _paged_write(pool, k, v, phys, positions % ps)
-    out = ops.paged_extend_attention(
+    out = run_local(
+        ops.paged_extend_attention,
         q.reshape(B, Sx, K, H // K, hd).contiguous(), pool["kp"],
         pool["vp"], page_table, pos0, window=window,
         **_scales(pool, POOL_LEAVES))

@@ -8,11 +8,14 @@ makes that copy once per parameter and dtype instead of at every use, so
 no serving step re-casts a weight and a captured step allocates none.  Every
 parameter carries its initialisation recipe (``normal`` scaled by
 ``fan_in ** -0.5``, ``zeros``, ``ones`` or ``const``), which
-:func:`init_params` applies from an explicit ``torch.Generator``.
+:func:`init_params` applies from an explicit ``torch.Generator``, and the
+reference's logical axes (``axes``: ``embed``, ``heads``, ``ff``, ...;
+one per dim), from which ``launch/sharding.py`` places it on a mesh.
+Cache leaves are described by :class:`LeafDef`, which carries the same.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -20,12 +23,41 @@ from torch import nn
 
 
 def param(shape, dtype=torch.float32, init: str = "normal",
-          scale: float = 1.0) -> nn.Parameter:
-    """An uninitialised parameter tagged with its init recipe."""
+          scale: float = 1.0,
+          axes: Optional[Tuple[Optional[str], ...]] = None) -> nn.Parameter:
+    """An uninitialised parameter tagged with its init recipe and its
+    logical axes (None: no axis names, every dim replicated)."""
+    axes = tuple(axes) if axes is not None else (None,) * len(shape)
+    if len(axes) != len(shape):
+        raise ValueError(f"axes {axes} do not match shape {tuple(shape)}")
     p = nn.Parameter(torch.empty(shape, dtype=dtype), requires_grad=False)
     p.init = init
     p.init_scale = scale
+    p.axes = axes
     return p
+
+
+class LeafDef(tuple):
+    """A tensor's ``(shape, dtype)`` pair with its logical axes as ``axes``
+    (one per dim), as the reference's ``ParamDef`` describes a cache or
+    optimizer-state leaf: it unpacks as the pair."""
+
+    def __new__(cls, shape, dtype: torch.dtype,
+                axes: Tuple[Optional[str], ...]):
+        shape, axes = tuple(shape), tuple(axes)
+        if len(axes) != len(shape):
+            raise ValueError(f"axes {axes} do not match shape {shape}")
+        self = super().__new__(cls, (shape, dtype))
+        self.axes = axes
+        return self
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return self[0]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self[1]
 
 
 @torch.no_grad()
@@ -65,7 +97,9 @@ def cast(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
                                            and torch.is_grad_enabled()):
         return w.to(dtype)
     casts = w.__dict__.setdefault("_casts", {})
-    key = (w._version, w.data_ptr())
+    # a parameter placed on a mesh (a DTensor) is keyed by its local shard
+    local = getattr(w, "_local_tensor", w)
+    key = (local._version, local.data_ptr())
     hit = casts.get(dtype)
     if hit is None or hit[0] != key:
         hit = casts[dtype] = (key, w.to(dtype))
@@ -90,7 +124,7 @@ def conv_tail_at(hist: torch.Tensor, n_valid: torch.Tensor,
 class RMSNorm(nn.Module):
     def __init__(self, dim: int, dtype=torch.float32):
         super().__init__()
-        self.scale = param((dim,), dtype, init="ones")
+        self.scale = param((dim,), dtype, init="ones", axes=(None,))
 
 
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
@@ -135,10 +169,11 @@ class MLP(nn.Module):
     def __init__(self, d_model: int, d_ff: int, act: str,
                  dtype=torch.float32):
         super().__init__()
-        self.wi = param((d_model, d_ff), dtype)
-        self.wo = param((d_ff, d_model), dtype)
-        self.wg: Optional[nn.Parameter] = (param((d_model, d_ff), dtype)
-                                           if act == "swiglu" else None)
+        self.wi = param((d_model, d_ff), dtype, axes=("embed", "ff"))
+        self.wo = param((d_ff, d_model), dtype, axes=("ff", "embed"))
+        self.wg: Optional[nn.Parameter] = (
+            param((d_model, d_ff), dtype, axes=("embed", "ff"))
+            if act == "swiglu" else None)
 
 
 def mlp(p: MLP, x: torch.Tensor, act: str) -> torch.Tensor:

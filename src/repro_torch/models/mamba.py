@@ -30,6 +30,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.launch.rules import run_local
 from repro_torch.models import layers as L
 
 State = Dict[str, torch.Tensor]
@@ -41,25 +42,28 @@ class MambaBlock(nn.Module):
         d, di, st, dtr, ck = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
                               cfg.dt_rank, cfg.ssm_conv)
         self.ln = L.RMSNorm(d, dtype)
-        self.in_proj = L.param((d, 2 * di), dtype)
-        self.conv_w = L.param((ck, di), dtype, scale=0.5)
-        self.conv_b = L.param((di,), dtype, init="zeros")
-        self.x_proj = L.param((di, dtr + 2 * st), dtype)
-        self.dt_proj = L.param((dtr, di), dtype)
+        self.in_proj = L.param((d, 2 * di), dtype, axes=("embed", "ff"))
+        self.conv_w = L.param((ck, di), dtype, scale=0.5, axes=(None, "ff"))
+        self.conv_b = L.param((di,), dtype, init="zeros", axes=("ff",))
+        self.x_proj = L.param((di, dtr + 2 * st), dtype, axes=("ff", None))
+        self.dt_proj = L.param((dtr, di), dtype, axes=(None, "ff"))
         self.dt_bias = L.param((di,), dtype, init="const",
-                               scale=math.log(math.expm1(0.01)))
+                               scale=math.log(math.expm1(0.01)),
+                               axes=("ff",))
         # A = -exp(A_log) and the skip D stay float32 for any param dtype
         self.A_log = L.param((di, st), torch.float32, init="const",
-                             scale=0.0)
-        self.D = L.param((di,), torch.float32, init="ones")
-        self.out_proj = L.param((di, d), dtype)
+                             scale=0.0, axes=("ff", None))
+        self.D = L.param((di,), torch.float32, init="ones", axes=("ff",))
+        self.out_proj = L.param((di, d), dtype, axes=("ff", "embed"))
 
 
 def mamba_cache_def(cfg: ModelConfig, batch: int, dtype: torch.dtype
-                    ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+                    ) -> Dict[str, L.LeafDef]:
     di, st, ck = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
-    return {"conv": ((batch, ck - 1, di), dtype),
-            "h": ((batch, di, st), torch.float32)}
+    return {"conv": L.LeafDef((batch, ck - 1, di), dtype,
+                               ("batch", None, "ff")),
+            "h": L.LeafDef((batch, di, st), torch.float32,
+                            ("batch", "ff", None))}
 
 
 def _causal_conv(cfg: ModelConfig, p: MambaBlock, x: torch.Tensor,
@@ -90,9 +94,10 @@ def _scan(cfg: ModelConfig, p: MambaBlock, xc: torch.Tensor,
     if valid is not None:
         dt = torch.where(valid[:, :, None], dt, 0.0)
     A = -torch.exp(L.cast(p.A_log, torch.float32))         # [di, st]
-    return ops.mamba_scan(dt.contiguous(), Bmat.float().contiguous(),
-                          Cmat.float().contiguous(), xc.contiguous(), A,
-                          L.cast(p.D, torch.float32), h0)
+    return run_local(ops.mamba_scan, dt.contiguous(),
+                     Bmat.float().contiguous(), Cmat.float().contiguous(),
+                     xc.contiguous(), A, L.cast(p.D, torch.float32), h0,
+                     n_out=2)
 
 
 def _conv_tail(cfg: ModelConfig, hist: torch.Tensor,

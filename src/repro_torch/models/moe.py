@@ -31,6 +31,7 @@ stable descending sort.  The expert products are batched matrix products
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Optional, Tuple
 
 import torch
@@ -39,6 +40,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
+from repro_torch.launch.rules import is_placed, run_local
 from repro_torch.models import layers as L
 
 # rows of at least this many tokens are routed one group per row
@@ -52,11 +54,13 @@ class MoE(nn.Module):
     def __init__(self, cfg: ModelConfig, dtype=torch.float32):
         super().__init__()
         d, ff, E = cfg.d_model, cfg.d_ff, cfg.num_experts
-        self.router = L.param((d, E), dtype, scale=0.1)
-        self.wi = L.param((E, d, ff), dtype)
-        self.wo = L.param((E, ff, d), dtype)
+        self.router = L.param((d, E), dtype, scale=0.1,
+                              axes=("embed", "experts"))
+        self.wi = L.param((E, d, ff), dtype, axes=("experts", "embed", "ff"))
+        self.wo = L.param((E, ff, d), dtype, axes=("experts", "ff", "embed"))
         self.wg: Optional[nn.Parameter] = (
-            L.param((E, d, ff), dtype) if cfg.mlp_act == "swiglu" else None)
+            L.param((E, d, ff), dtype, axes=("experts", "embed", "ff"))
+            if cfg.mlp_act == "swiglu" else None)
 
 
 class MoEBlock(nn.Module):
@@ -121,7 +125,22 @@ def moe_ffn(cfg: ModelConfig, p: MoE, x: torch.Tensor,
     """x: [B, S, d] (or [T, d]).  Returns (y, aux loss fp32).
 
     ``valid`` ([B, S] bool) excludes pad lanes from dispatch: they
-    neither take expert capacity nor change a valid token's output."""
+    neither take expert capacity nor change a valid token's output.  A
+    layer placed on a mesh runs the dispatch on plain tensors, its
+    weights replicated (``rules.run_local``)."""
+    if not is_placed(p.wi):
+        return _moe_ffn(cfg, p, x, valid)
+
+    def local(x, valid, router, wi, wg, wo):
+        w = SimpleNamespace(router=router, wi=wi, wg=wg, wo=wo)
+        return _moe_ffn(cfg, w, x, valid)
+
+    return run_local(local, x, valid, p.router, p.wi, p.wg, p.wo, n_out=2)
+
+
+def _moe_ffn(cfg: ModelConfig, p, x: torch.Tensor,
+             valid: Optional[torch.Tensor]
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     dt = x.dtype
     orig_shape = x.shape
     d = orig_shape[-1]

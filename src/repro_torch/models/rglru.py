@@ -28,6 +28,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.launch.rules import run_local
 from repro_torch.models import layers as L
 
 RG_C = 8.0
@@ -43,23 +44,28 @@ class RGLRUBlock(nn.Module):
         # Lambda init so that a = exp(-c*softplus(L)) lands in (0.9, 0.999).
         lam_init = math.log(math.expm1(-math.log(0.97) / RG_C))
         self.ln = L.RMSNorm(d, dtype)
-        self.in_x = L.param((d, w), dtype)
-        self.in_y = L.param((d, w), dtype)
-        self.conv_w = L.param((CONV_K, w), dtype, scale=0.5)
-        self.conv_b = L.param((w,), dtype, init="zeros")
-        self.w_input_gate = L.param((w, w), dtype, scale=0.5)
-        self.w_rec_gate = L.param((w, w), dtype, scale=0.5)
-        self.lam = L.param((w,), torch.float32, init="const", scale=lam_init)
-        self.out = L.param((w, d), dtype)
+        self.in_x = L.param((d, w), dtype, axes=("embed", "ff"))
+        self.in_y = L.param((d, w), dtype, axes=("embed", "ff"))
+        self.conv_w = L.param((CONV_K, w), dtype, scale=0.5,
+                              axes=(None, "ff"))
+        self.conv_b = L.param((w,), dtype, init="zeros", axes=("ff",))
+        self.w_input_gate = L.param((w, w), dtype, scale=0.5,
+                                    axes=("ff", None))
+        self.w_rec_gate = L.param((w, w), dtype, scale=0.5,
+                                  axes=("ff", None))
+        self.lam = L.param((w,), torch.float32, init="const", scale=lam_init,
+                           axes=("ff",))
+        self.out = L.param((w, d), dtype, axes=("ff", "embed"))
         self.ln2 = L.RMSNorm(d, dtype)
         self.mlp = L.MLP(d, cfg.d_ff, cfg.mlp_act, dtype)
 
 
 def rglru_cache_def(cfg: ModelConfig, batch: int, dtype: torch.dtype
-                    ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+                    ) -> Dict[str, L.LeafDef]:
     w = cfg.lru_width
-    return {"conv": ((batch, CONV_K - 1, w), dtype),
-            "h": ((batch, w), torch.float32)}
+    return {"conv": L.LeafDef((batch, CONV_K - 1, w), dtype,
+                               ("batch", None, "ff")),
+            "h": L.LeafDef((batch, w), torch.float32, ("batch", "ff"))}
 
 
 def _conv(p: RGLRUBlock, x: torch.Tensor,
@@ -100,7 +106,8 @@ def rglru_mixer(cfg: ModelConfig, p: RGLRUBlock, x: torch.Tensor,
         m = valid[:, :, None]
         a = torch.where(m, a, 1.0)
         b = torch.where(m, b, 0.0)
-    hs, h_last = ops.rglru_scan(a.contiguous(), b.contiguous(), state["h"])
+    hs, h_last = run_local(ops.rglru_scan, a.contiguous(), b.contiguous(),
+                           state["h"], n_out=2)
     y = hs.to(dt_) * F.gelu(yb, approximate="tanh")
     out = y @ L.cast(p.out, dt_)
     hist = torch.cat([conv0.to(dt_), xb], dim=1)
@@ -123,7 +130,7 @@ def rglru_mixer_decode(cfg: ModelConfig, p: RGLRUBlock, x: torch.Tensor,
     xc = (sum(conv_in[:, j] * w[j] for j in range(CONV_K))
           + L.cast(p.conv_b, dt_))                              # [B,w]
     a, b = _rg_gates(p, xc[:, None])
-    hs, h = ops.rglru_scan(a, b, state["h"])
+    hs, h = run_local(ops.rglru_scan, a, b, state["h"], n_out=2)
     y = hs.to(dt_) * F.gelu(yb, approximate="tanh")
     out = y @ L.cast(p.out, dt_)
     state["conv"].copy_(conv_in[:, 1:])

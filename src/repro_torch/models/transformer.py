@@ -74,12 +74,14 @@ class TransformerLM(nn.Module):
         self.dtype = _DTYPES[cfg.dtype]
         self.param_dtype = _DTYPES[cfg.param_dtype]
         pd = self.param_dtype
-        self.embed = L.param((cfg.vocab_size, cfg.d_model), pd)
+        self.embed = L.param((cfg.vocab_size, cfg.d_model), pd,
+                             axes=("vocab", "embed"))
         self.blocks = nn.ModuleList(_block(cfg, kind, pd)
                                     for kind in cfg.block_pattern)
         self.ln_f = L.RMSNorm(cfg.d_model, pd)
         if not cfg.tie_embeddings:
-            self.unembed = L.param((cfg.d_model, cfg.vocab_size), pd)
+            self.unembed = L.param((cfg.d_model, cfg.vocab_size), pd,
+                                   axes=("embed", "vocab"))
 
     # ---------------- parameters / caches -----------------------------------
 
@@ -92,10 +94,12 @@ class TransformerLM(nn.Module):
         return min(max_seq, w) if w else max_seq
 
     def cache_defs(self, batch: int, max_seq: int,
-                   kv_dtype: Optional[str] = None) -> List[Dict]:
-        """Per-layer ring-cache shapes and dtypes: attention and MoE layers
-        get a [batch, capacity] ring (``rg_attn`` layers capped at
-        ``local_window``), recurrent layers their dense state."""
+                   kv_dtype: Optional[str] = None,
+                   seq_shard: bool = True) -> List[Dict]:
+        """Per-layer ring-cache shapes, dtypes and axes: attention and MoE
+        layers get a [batch, capacity] ring (``rg_attn`` layers capped at
+        ``local_window``; ``seq_shard`` as in ``attention.kv_cache_def``),
+        recurrent layers their dense state."""
         cap = self.attn_capacity(max_seq)
         defs = []
         for kind in self.cfg.block_pattern:
@@ -103,7 +107,7 @@ class TransformerLM(nn.Module):
                 c = min(cap, self.cfg.local_window) if kind == "rg_attn" \
                     else cap
                 defs.append(A.kv_cache_def(self.cfg, batch, c, self.dtype,
-                                           kv_dtype))
+                                           kv_dtype, seq_shard))
             elif kind == "mamba":
                 defs.append(M.mamba_cache_def(self.cfg, batch, self.dtype))
             else:

@@ -43,10 +43,12 @@ class CrossAttention(nn.Module):
         super().__init__()
         d, H, K, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
             cfg.head_dim
-        self.wq = L.param((d, H, hd), dtype)
-        self.wk = L.param((d, K, hd), dtype)
-        self.wv = L.param((d, K, hd), dtype)
-        self.wo = L.param((H, hd, d), dtype)
+        self.wq = L.param((d, H, hd), dtype, axes=("embed", "heads", None))
+        self.wk = L.param((d, K, hd), dtype,
+                          axes=("embed", "kv_heads", None))
+        self.wv = L.param((d, K, hd), dtype,
+                          axes=("embed", "kv_heads", None))
+        self.wo = L.param((H, hd, d), dtype, axes=("heads", None, "embed"))
 
 
 class DecBlock(nn.Module):
@@ -91,14 +93,16 @@ class WhisperModel(nn.Module):
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.dtype)
         self.param_dtype = pd = getattr(torch, cfg.param_dtype)
-        self.embed = L.param((cfg.vocab_size, cfg.d_model), pd)
+        self.embed = L.param((cfg.vocab_size, cfg.d_model), pd,
+                             axes=("vocab", "embed"))
         self.enc = nn.ModuleList(A.AttnBlock(cfg, pd) for _ in
                                  range(cfg.encoder_layers or cfg.num_layers))
         self.enc_ln = L.RMSNorm(cfg.d_model, pd)
         self.dec = nn.ModuleList(DecBlock(cfg, pd)
                                  for _ in range(cfg.num_layers))
         self.ln_f = L.RMSNorm(cfg.d_model, pd)
-        self.unembed = L.param((cfg.d_model, cfg.vocab_size), pd)
+        self.unembed = L.param((cfg.d_model, cfg.vocab_size), pd,
+                               axes=("embed", "vocab"))
 
     # ---------------- parameters / caches -----------------------------------
 
@@ -110,13 +114,16 @@ class WhisperModel(nn.Module):
         return max_seq
 
     def cache_defs(self, batch: int, max_seq: int,
-                   kv_dtype: Optional[str] = None) -> List[Dict]:
+                   kv_dtype: Optional[str] = None,
+                   seq_shard: bool = True) -> List[Dict]:
         """Per decoder layer: its ring (``attention.kv_cache_def``) and the
         cross K/V ``xk``/``xv`` [batch, encoder_seq, K, hd]."""
         cfg = self.cfg
-        xkv = ((batch, cfg.encoder_seq, cfg.num_kv_heads, cfg.head_dim),
-               self.dtype)
-        return [{**A.kv_cache_def(cfg, batch, max_seq, self.dtype, kv_dtype),
+        xkv = L.LeafDef((batch, cfg.encoder_seq, cfg.num_kv_heads,
+                          cfg.head_dim), self.dtype,
+                         ("batch", None, "kv_heads", None))
+        return [{**A.kv_cache_def(cfg, batch, max_seq, self.dtype, kv_dtype,
+                                  seq_shard),
                  "xk": xkv, "xv": xkv} for _ in range(cfg.num_layers)]
 
     def init_cache(self, batch: int, max_seq: int,

@@ -65,14 +65,30 @@ Differences from the reference:
     lane is replaced on the device before sampling (``sampler.guard``),
     so a NaN never reaches ``torch.multinomial``.  With every option off
     the step is unchanged.
-  * Not ported yet: meshes (the constructor raises
-    ``NotImplementedError``).  A model without a paged layout (whisper:
-    no ``init_cache_paged``) serves from rings whatever ``paged_kv``
-    says, and one without a verify step (no ``supports_verify``) serves
-    without speculation, as in the reference.
+  * A device mesh (``mesh=``, a ``torch.distributed`` DeviceMesh, or
+    ``ServeConfig.mesh``, "DxM": launch/mesh.py) places the engine as the
+    reference places it: parameters as DTensors by
+    ``launch/rules.serve_rules`` (tensor-parallel along ``model``), the
+    cache by its leaves' logical axes (page pools by physical page along
+    ``model``, ``num_pages`` rounded up to a multiple of that axis), each
+    rank holding its shards.  Steps run through DTensor propagation, and
+    the attention reads, the scans and the MoE dispatch run on plain
+    tensors inside ``local_map`` (``rules.run_local``): on a mesh of one
+    device the hand-written kernels read the local tensors, exactly as
+    without a mesh; on a CPU mesh of more devices the plain reads run on
+    the gathered pool, the reference's own choice under more than one
+    device.  A CUDA mesh of more than one device raises
+    ``NotImplementedError`` (ROADMAP A17).  Cache writes, COW copies and
+    slot copies write each rank's own shard.
+  * A model without a paged layout (whisper: no ``init_cache_paged``)
+    serves from rings whatever ``paged_kv`` says, and one without a
+    verify step (no ``supports_verify``) serves without speculation, as
+    in the reference.
 """
 from __future__ import annotations
 
+import copy
+import math
 import time
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
@@ -84,6 +100,11 @@ from repro_torch.configs.base import ModelConfig, ServeConfig
 from repro_torch.core.accounting import CostModel, LatencyModel
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.launch import sharding as SH
+from repro_torch.launch.mesh import make_serve_mesh, parse_mesh_spec
+from repro_torch.launch.rules import mesh_axes
+from repro_torch.models import attention as A
+from repro_torch.models.layers import LeafDef
 from repro_torch.models.transformer import KV_KINDS, STATE_KINDS
 from repro_torch.serving import sampler
 from repro_torch.serving.page_pool import PagePool, PagedSnapshot
@@ -95,11 +116,62 @@ from repro_torch.serving.speculator import (NGramSpeculator, draft_corpus,
 from repro_torch.serving.step_graph import StepGraph
 
 
-def _unsupported(scfg: ServeConfig, mesh) -> List[str]:
-    """Options of the reference engine this port does not implement: a
-    device mesh (``mesh=`` or ``ServeConfig.mesh``)."""
-    asked = {"mesh": mesh is not None or scfg.mesh is not None}
-    return [name for name, on in asked.items() if on]
+MULTI_GPU = ("a CUDA mesh of more than one device is not served yet "
+             "(ROADMAP A17, multi-GPU: the hand-written paged kernels "
+             "would need a partial-softmax mode over page shards and a "
+             "cross-rank combine); serve on a 1x1 mesh, or a CPU mesh "
+             "under torchrun")
+
+
+def _place_model(model, mesh, place: Dict[str, list]):
+    """A copy of ``model`` whose parameters are DTensors on ``mesh``,
+    placed by ``place`` (name -> placements); the caller's model is left
+    as it was."""
+    params = dict(model.named_parameters())
+    # the copy's modules are new, its parameters the caller's (replaced
+    # below by placed ones)
+    model = copy.deepcopy(model, {id(p): p for p in params.values()})
+    for name, p in params.items():
+        owner, _, leaf = name.rpartition(".")
+        placed = torch.nn.Parameter(SH.distribute(p.data, mesh, place[name]),
+                                    requires_grad=False)
+        placed.__dict__.update({k: v for k, v in p.__dict__.items()
+                                if k != "_casts"})
+        setattr(model.get_submodule(owner), leaf, placed)
+    return model
+
+
+def _place_cache(defs: List[Dict[str, LeafDef]], places: List[Dict],
+                 mesh, device: torch.device) -> List[Dict[str, torch.Tensor]]:
+    """Empty caches (``attention.empty_cache``) as DTensors on ``mesh``,
+    placed by ``places``: each rank allocates its own shards, K/V leaves
+    with their scratch slot behind them."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    out = []
+    for layer, place in zip(defs, places):
+        shapes = {n: compute_local_shape_and_global_offset(
+            d.shape, mesh, place[n])[0] for n, d in layer.items()}
+        mine = A.empty_cache({n: LeafDef(shapes[n], d.dtype, d.axes)
+                              for n, d in layer.items()}, device)
+        out.append({n: DTensor.from_local(
+            mine[n], mesh, place[n], run_check=False,
+            shape=torch.Size(d.shape),
+            stride=torch.empty(d.shape, device="meta").stride())
+            for n, d in layer.items()})
+    return out
+
+
+def _on_mesh(fn: Callable[..., torch.Tensor]) -> Callable[..., torch.Tensor]:
+    """A step of a mesh-placed model: host tensors count as replicated,
+    and the logits come back whole, as a plain tensor."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    def step(*args):
+        with implicit_replication():
+            return fn(*args).full_tensor()
+    return step
 
 
 class Engine:
@@ -107,10 +179,14 @@ class Engine:
                  device: Optional[Union[str, torch.device]] = None,
                  faults=None, clock: Optional[Callable[[], float]] = None,
                  mesh=None):
-        missing = _unsupported(scfg, mesh)
-        if missing:
-            raise NotImplementedError(
-                f"not ported yet: {', '.join(missing)}")
+        if mesh is not None:
+            from torch.distributed.device_mesh import DeviceMesh
+            if not isinstance(mesh, DeviceMesh):
+                raise TypeError(
+                    "mesh= takes a torch.distributed DeviceMesh "
+                    f"(launch/mesh.py), not {type(mesh).__name__}")
+            if device is None:
+                device = mesh.device_type
         # Deterministic fault injection (serving/faults.py).  None (the
         # default) and a rate-0 plan both serve as the engine without it.
         self.faults = faults
@@ -126,7 +202,22 @@ class Engine:
         # and quarantine reads their flags
         self._guard = faults is not None or scfg.nan_quarantine
         self.device = resolve_device(device)
-        self.model = model.to(self.device)
+        # Device mesh: an explicit DeviceMesh wins, else ServeConfig.mesh
+        # ("DxM") builds one, else the single-device engine (None).
+        if mesh is None and scfg.mesh:
+            n = math.prod(parse_mesh_spec(scfg.mesh))
+        else:
+            n = mesh.size() if mesh is not None else 1
+        if self.device.type == "cuda" and n > 1:
+            raise NotImplementedError(MULTI_GPU)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh cannot serve on "
+                             f"{self.device}")
+        self.mesh = mesh if mesh is not None else (
+            make_serve_mesh(scfg.mesh, self.device.type) if scfg.mesh
+            else None)
+        self.n_devices = n
+        self.model = model = model.to(self.device)
         self.cfg: ModelConfig = model.cfg
         self.scfg = scfg
         B, S = scfg.max_batch, scfg.max_seq
@@ -151,6 +242,12 @@ class Engine:
             ps = scfg.page_size
             self.pages_per_seq = -(-S // ps)
             num_pages = scfg.num_pages or B * self.pages_per_seq
+            if self.mesh is not None:
+                # round the pool up to a multiple of the 'model' axis so
+                # the pages dim shards evenly (spec_for would otherwise
+                # replicate the whole pool); extra pages only add headroom
+                m_ax = mesh_axes(self.mesh).get("model", 1)
+                num_pages = -(-num_pages // m_ax) * m_ax
             if num_pages < self.pages_per_seq:
                 raise ValueError(
                     f"num_pages={num_pages} cannot hold one max_seq request "
@@ -159,9 +256,8 @@ class Engine:
             # logical page -> physical page, per slot (-1 = unmapped)
             self.page_tables = np.full((B, self.pages_per_seq), -1,
                                        np.int64)
-            self.cache = model.init_cache_paged(num_pages, ps,
-                                                kv_dtype=self.kv_dtype,
-                                                device=self.device, batch=B)
+            self.cache = self._new_cache(model.cache_defs_paged(
+                num_pages, ps, self.kv_dtype, B))
             # paged lanes have no ring aliasing: the mixed-step width is
             # bounded only by max_seq
             self.chunk = max(1, min(scfg.prefill_chunk, S))
@@ -184,8 +280,8 @@ class Engine:
         else:
             self._slot_layers = list(range(len(kinds)))
             self.pool = self.page_tables = self._window_free = None
-            self.cache = model.init_cache(B, S, kv_dtype=self.kv_dtype,
-                                          device=self.device)
+            self.cache = self._new_cache(model.cache_defs(
+                B, S, self.kv_dtype, seq_shard=False))
             # the mixed-step width never exceeds the smallest ring: with
             # more lanes than slots a chunk would overwrite ring entries
             # before its own lanes attend to them
@@ -261,6 +357,8 @@ class Engine:
             "mixed": lambda *a: model.prefill_extend(cache, *a)[0],
             "verify": lambda *a: model.prefill_extend(
                 cache, *a, all_logits=True)[0]}
+        if self.mesh is not None:
+            self._fns = {k: _on_mesh(f) for k, f in self._fns.items()}
         self._steps: Dict[str, StepGraph] = {}
         self._startup_s = 0.0           # seconds aot warm-up took
         if scfg.aot_warmup:
@@ -310,20 +408,30 @@ class Engine:
     # ------------------------------------------------------------ statistics
 
     def _kv_stats(self) -> Dict[str, Any]:
-        """Resident KV: pool leaves count only their used pages; dense
-        per-slot leaves (rings, recurrent state) are always resident."""
-        def nbytes(layers):
-            return [t.numel() * t.element_size()
+        """Resident KV, in all and on each device: pool leaves count only
+        their used pages; dense per-slot leaves (rings, recurrent state)
+        are always resident.  The per-device number reads each leaf's
+        local shard, so it follows whatever placement the mesh rules
+        resolved (pages sharded along 'model')."""
+        def nbytes(layers, part=lambda t: t):
+            return [part(t).numel() * t.element_size()
                     for i in layers for t in self.cache[i].values()]
 
         allocated = sum(nbytes(range(len(self.cache))))
         if not self.paged:
             return {"resident_kv_bytes": allocated,
+                    "resident_kv_bytes_per_device": sum(
+                        nbytes(range(len(self.cache)), SH.local)),
                     "allocated_kv_bytes": allocated}
         used = self.pool.utilization()
-        resident = (sum(int(nb * used) for nb in nbytes(self._pool_layers))
-                    + sum(nbytes(self._slot_layers)))
-        return {"resident_kv_bytes": resident,
+
+        def resident(part=lambda t: t):
+            return (sum(int(nb * used)
+                        for nb in nbytes(self._pool_layers, part))
+                    + sum(nbytes(self._slot_layers, part)))
+
+        return {"resident_kv_bytes": resident(),
+                "resident_kv_bytes_per_device": resident(SH.local),
                 "allocated_kv_bytes": allocated,
                 "kv_pool_pages_used": self.pool.used_pages,
                 "kv_pool_pages": self.pool.num_pages}
@@ -339,6 +447,9 @@ class Engine:
         out["aot_warmed"] = sum(f.warmed for f in self._steps.values())
         out["startup_compile_s"] = self._startup_s
         out["device"] = str(self.device)
+        out["n_devices"] = self.n_devices
+        out["mesh"] = (mesh_axes(self.mesh) if self.mesh is not None
+                       else None)
         out["attn_impl"] = self.attn_impl
         out.update(self._kv_stats())
         if self.prefix_cache is not None:
@@ -370,6 +481,18 @@ class Engine:
                 BudgetTier.HIGH: self.scfg.max_think_tokens_high}
         return min(req.max_new_tokens, caps[req.budget])
 
+    def _new_cache(self, defs: List[Dict[str, LeafDef]]
+                   ) -> List[Dict[str, torch.Tensor]]:
+        """Empty caches of ``defs``.  On a mesh, the model's parameters and
+        the caches are placed as DTensors by ``serve_state_shardings``
+        (the reference's placement of both)."""
+        if self.mesh is None:
+            return [A.empty_cache(d, self.device) for d in defs]
+        params, caches = SH.serve_state_shardings(self.model, defs,
+                                                  self.mesh)
+        self.model = _place_model(self.model, self.mesh, params)
+        return _place_cache(defs, caches, self.mesh, self.device)
+
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
             self.device)
@@ -398,7 +521,7 @@ class Engine:
                                        (B,), *pt)
         for layer in self.cache:
             for name, leaf in layer.items():
-                leaf.fill_(-1 if name == "tok" else 0)
+                SH.local(leaf).fill_(-1 if name == "tok" else 0)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._startup_s = time.perf_counter() - t0
@@ -429,7 +552,7 @@ class Engine:
         self._pending_copies = []
         for i in self._pool_layers:
             for leaf in self.cache[i].values():
-                leaf[dst] = leaf[src]
+                SH.write_rows(leaf, dst, SH.read_rows(leaf, src))
 
     def _release_slot_pages(self, slot: int) -> None:
         if not self.paged:
@@ -561,7 +684,7 @@ class Engine:
         """A copy of one request's dense per-slot cache, by layer index
         (``[1, ...]`` leaves): ring caches and recurrent state; the shared
         page pools are not part of it."""
-        return {i: {k: v[slot:slot + 1].clone()
+        return {i: {k: SH.read_rows(v, slice(slot, slot + 1)).clone()
                     for k, v in self.cache[i].items()}
                 for i in self._slot_layers}
 
@@ -569,14 +692,16 @@ class Engine:
                         state: Dict[int, Dict[str, torch.Tensor]]) -> None:
         for i, leaves in state.items():
             for k, v in leaves.items():
-                self.cache[i][k][slot].copy_(v[0])
+                SH.write_rows(self.cache[i][k], slice(slot, slot + 1), v)
 
     def _blank_slot(self, slot: int) -> None:
         """The blank row: no cache of the previous occupant survives
         (rings empty, tok = -1; state zero)."""
         for i in self._slot_layers:
             for name, leaf in self.cache[i].items():
-                leaf[slot].fill_(-1 if name == "tok" else 0)
+                SH.write_rows(leaf, slice(slot, slot + 1), torch.full(
+                    (1, *leaf.shape[1:]), -1 if name == "tok" else 0,
+                    dtype=leaf.dtype, device=self.device))
 
     # ------------------------------------------------------------ snapshots
 

@@ -124,15 +124,11 @@ def test_engine_preemption_matches_jax(fitted):
     {"mesh": "1x1"},
     {"paged_kv": False, "nan_quarantine": True}])
 def test_unported_options_raise(fitted, option):
-    """Of the reference's engine options only a mesh is not ported: it
-    raises, in the ring mode too.  Every other option constructs and
-    serves the JAX engine's streams and bills with the same option."""
+    """Every option of the reference's engine is ported (the name is the
+    test's history): each constructs and serves the JAX engine's streams
+    and bills with the same option, a 1x1 mesh included."""
     jm, params, m = fitted
     kw = dict(max_batch=1, max_seq=64, page_size=8, **option)
-    if "mesh" in option:
-        with pytest.raises(NotImplementedError, match="mesh"):
-            Engine(m, ServeConfig(**kw), device="cpu")
-        return
     prompts = [ramp_prompt(10, 20)]
     jreqs = _serve(JEngine(jm, params, JServeConfig(**kw)), JRequest,
                    prompts, rounds=1, max_new=8)
@@ -146,7 +142,8 @@ def test_unported_options_raise(fitted, option):
 
 def test_faults_raise(fitted):
     """A fault plan is ported: ``faults=`` takes the port's ``FaultPlan``
-    (a rate-0 plan serves as no plan) and only ``mesh=`` still raises."""
+    (a rate-0 plan serves as no plan); ``mesh=`` takes a DeviceMesh and
+    refuses anything else."""
     from repro_torch.serving.faults import FaultPlan, FaultSpec
     _, _, m = fitted
     scfg = ServeConfig(max_batch=1, max_seq=64, page_size=8)
@@ -159,7 +156,7 @@ def test_faults_raise(fitted):
                   rounds=1, max_new=8)
     assert [r.output for r in got] == [r.output for r in want]
     assert plan.fired_total == 0
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Engine(m, scfg, device="cpu", faults=plan, mesh=object())
 
 

@@ -55,7 +55,9 @@ def test_port_imports_no_jax_and_no_repro():
                      "train.loop", "train.checkpoint", "train.quick_fit",
                      "data.lm_data", "launch.train", "bridge",
                      "models.whisper", "models.vlm", "configs.whisper_tiny",
-                     "configs.internvl2_76b"):
+                     "configs.internvl2_76b", "launch.mesh", "launch.rules",
+                     "launch.sharding", "launch.dryrun", "launch.stepcost",
+                     "launch.serve"):
             assert "repro_torch." + name in names, name
         print(len(names))
     """)
@@ -197,8 +199,9 @@ def test_engine_on_cuda_raises_without_a_card():
 def test_serve_launcher(capsys):
     """``launch/serve.py`` serves two reflection rounds on the CPU when
     asked, also with ``--aot`` (no step outside the warmed shapes),
-    refuses the card by default when there is none, raises for a mesh,
-    which the port lacks, and serves a fleet with ``--replicas``."""
+    refuses the card by default when there is none, serves on a 1x1 mesh
+    (``--mesh 1x1``: the reference's mesh line, per-device KV equal to the
+    whole), and serves a fleet with ``--replicas``."""
     from repro_torch.launch import serve
 
     serve.main(["--device", "cpu", "--requests", "2", "--rounds", "2",
@@ -213,8 +216,14 @@ def test_serve_launcher(capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve.main(["--requests", "1", "--rounds", "1"])
-    with pytest.raises(NotImplementedError):
-        serve.main(["--device", "cpu", "--requests", "1", "--mesh", "1x1"])
+    serve.main(["--device", "cpu", "--requests", "2", "--rounds", "2",
+                "--max-new", "4", "--mesh", "1x1"])
+    out = capsys.readouterr().out
+    assert "2 requests x 2 rounds" in out and "'hits': 2" in out
+    line = next(x for x in out.splitlines() if x.startswith("mesh "))
+    assert line.startswith("mesh {'data': 1, 'model': 1} (1 dev, "), line
+    total = line.split("resident KV ")[1].split(" B total")[0]
+    assert f"{total} B/device" in line
     serve.main(["--device", "cpu", "--replicas", "2", "--trace-requests",
                 "6", "--max-new", "5"])
     out = capsys.readouterr().out

@@ -444,8 +444,17 @@ def test_train_launcher(capsys):
                       "--seq", "32", "--batch", "2"])
     assert len(out["losses"]) == 3 and np.isfinite(out["losses"]).all()
     assert "final loss" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="A17"):
-        train.main(["--dryrun"])
+    # --dryrun prints the reference's production plan and runs nothing
+    assert train.main(["--dryrun", "--arch", "kimi_k2_1t_a32b"]) is None
+    plan = capsys.readouterr().out.splitlines()
+    assert plan[0].startswith("arch=kimi-k2") and "layers=61" in plan[0]
+    assert plan[1] == ("train overrides: {'optimizer': 'adafactor', "
+                       "'microbatch': 64, 'loss_chunk': 256}")
+    assert plan[2].startswith("sharding rules: {'batch': ('pod', 'data')")
+    assert "'embed': ('data',)" in plan[2]          # an FSDP arch
+    assert plan[3] == ("meta-device dry run: python -m "
+                       "repro_torch.launch.dryrun --arch kimi_k2_1t_a32b "
+                       "--shape train_4k --mesh both")
     # whisper trains with zero frames beside each batch, as the
     # reference's launcher feeds them (its encoder in the prefix mode)
     out = train.main(["--smoke", "--device", "cpu", "--arch", "whisper_tiny",
