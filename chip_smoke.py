@@ -9,7 +9,9 @@ Phases, each of which stops the run with a non-zero exit on any error:
    cuDNN, so float32 comparisons are float32.
 2. build   — compile the nine hand-written kernels from ``csrc/`` with
    nvcc (one process per source, in parallel) and print ``-Xptxas -v``.
-3. kernels — each kernel against its plain PyTorch version at the main
+3. kernels — ``[tuning]``: the backend key of the card and the entries
+   the tuning table (``repro_torch/kernels/tuning_table.json``) holds for
+   it; then each kernel against its plain PyTorch version at the main
    paths' shapes, then kernel and plain-version times from CUDA events
    (cold and warm L2) beside the least time the card could take (bytes
    over HBM rate against operations over peak rate):
@@ -23,8 +25,10 @@ Phases, each of which stops the run with a non-zero exit on any error:
      granite-moe-1b-a400m's (K 8, G 2, hd 64; decode, extend Sx = 32 and
      5), and, checked only, at yi-6b's (K 4, G 8) and minitron-4b's (K 8,
      G 3) hd 128; each paged case logs its route (bf16 extend on the
-     tensor cores), its tile and its split count
-     (``cuda_lib.paged_splits``);
+     tensor cores), its tile and its split count with where it came from
+     (the wrapper's ``split_plan``: the tuning table's entry for this
+     card and shape, else ``cuda_lib.paged_splits``), and its record
+     carries both (``splits``, ``splits_from``);
    * the mamba scan at falcon-mamba-7b's shapes ([8, 32 or 1, 8192],
      state 16, a per-(d, n) A and a per-d skip) with float32 and bfloat16
      x, and the RG-LRU scan at recurrentgemma-9b's ([8, 32 or 1, 4096],
@@ -74,7 +78,8 @@ Phases, each of which stops the run with a non-zero exit on any error:
    ``enable_gqa`` (causal, or a boolean mask for windows, lengths and ring
    tokens), in turns within one loop (kernel, library, library, kernel;
    medians and ranges of each); int8 rings have no such call.  Flash
-   cases print their achieved TFLOP/s and ring decode its split count;
+   cases print their achieved TFLOP/s and ring decode its split count
+   and its source (as the paged cases');
    float32 flash cases are bounded as 3xTF32 products (3 x FLOP at 495
    TFLOP/s), their FMA bound printed beside it.  The build prints the
    tensor-core instructions (HGMMA, HMMA) that ``cuobjdump -sass`` finds
@@ -84,6 +89,10 @@ Phases, each of which stops the run with a non-zero exit on any error:
    by ``git archive``) it builds its kernels and fails unless the bf16
    flash bodies and the paged and ring-decode kernels compile to the
    parent's SASS (anonymous namespaces' hashes masked).
+   ``[quickstart]``: ``examples/torch_quickstart.py`` on the card (three
+   rounds of one conversation on the smoke qwen3_0_6b, its lines
+   printed): rounds 1 and 2 must read the cache, both paged kernels must
+   launch, all in under 15 s.
 4. serve   — four models through the port's ``Engine``, one after the
    other, each freed before the next: 8 conversations of a few hundred
    tokens, 3 reflection rounds with the suffix [99, 98], paged KV or ring
@@ -657,7 +666,8 @@ def paged_cases(records, tag, shape, cases, modes, windows, timed_window,
     window) against the plain version on a table of ``check_np`` pages,
     then (``timed``) times at ``shape`` (the serve's table) with
     ``timed_window``, also checked."""
-    from repro_torch.kernels import cuda_lib, ops, ref
+    from repro_torch.kernels import cuda_lib, ops, paged_attention, \
+        paged_extend, ref
     kernels = {"paged_decode": ops.paged_decode_attention,
                "paged_extend": ops.paged_extend_attention}
     plains = {"paged_decode": ref.paged_decode_attention_ref,
@@ -667,18 +677,22 @@ def paged_cases(records, tag, shape, cases, modes, windows, timed_window,
     fp = (lambda t: t.float() if t.is_floating_point() else t)
     for name, Sx in cases:
         for mode, dtype, quant, tol in modes:
-            # the split the wrapper makes of the timed table
+            # the split the wrapper makes of the timed table (its
+            # split_plan: the tuning table's count, else the heuristic's)
             code = cuda_lib.DTYPE_CODES[(dtype, torch.int8 if quant
                                          else dtype)]
             rows = (cuda_lib.decode_rows(G) if name == "paged_decode"
                     else cuda_lib.extend_rows(hd, Sx * G, code))
             tiles = -(-Sx * G // rows)
-            splits = cuda_lib.paged_splits(B, K, tiles, NP * ps, hd)
+            splits, source = (
+                paged_attention.split_plan(dev, B, K, hd, NP * ps)
+                if name == "paged_decode" else
+                paged_extend.split_plan(dev, B, Sx, K, G, hd, NP * ps, code))
             route = ("tensor cores" if name == "paged_extend"
                      and code in cuda_lib.TC_CODES else "CUDA cores")
             log(f"[kernels] {tag} {name} Sx={Sx} {mode}: {route}, tiles of "
-                f"{rows} rows x {tiles}, {splits} splits a tile, "
-                f"{B * K * tiles * splits} blocks")
+                f"{rows} rows x {tiles}, {splits} splits a tile (from the "
+                f"{source}), {B * K * tiles * splits} blocks")
             for window in windows + (("timed",) if timed else ()):
                 seed += 1
                 at_shape = window == "timed"
@@ -707,7 +721,7 @@ def paged_cases(records, tag, shape, cases, modes, windows, timed_window,
                 nbytes, nops = work(q5, kp, pt, pos0, sc, win)
                 rec = time_record(kern, plain, flush, nbytes, nops, dtype,
                                   err)
-                rec.update(splits=splits, tile=rows)
+                rec.update(splits=splits, splits_from=source, tile=rows)
                 log_record(f"{tag} {name} Sx={Sx} {mode} window={win}", rec)
                 records[(name, tag, Sx, mode)] = rec
     return seed
@@ -836,13 +850,26 @@ def ring_valid(tok, pos, window):
     return valid
 
 
+def ring_work(q, k, tok, pos, window, quant):
+    """Bytes, operations and exponentials of a ring decode call on this
+    data: every valid slot's K and V read once (with its int8 sidecars),
+    the token list and positions read, q read and out written; 4 * hd
+    operations and one exponential per (query row, valid slot)."""
+    B, K, G, hd = q.shape
+    n = int(ring_valid(tok, pos, window).sum())
+    slot_bytes = 2 * K * hd * k.element_size() + (3 * K * 4 if quant else 0)
+    nbytes = (n * slot_bytes + tok.numel() * 4 + pos.numel() * 4
+              + 2 * q.numel() * q.element_size())
+    return nbytes, 4 * hd * G * K * n, G * K * n
+
+
 def ring_cases(records, dev, flush):
     """Ring decode at reflect_demo_100m's, granite-moe-1b-a400m's and
     recurrentgemma-9b's decode shapes, every mode and window against the
     plain version; timed at window None (demo, granite) and 2048
     (recurrentgemma), with SDPA on a boolean mask built from the tokens
     as the library yardstick."""
-    from repro_torch.kernels import cuda_lib, ops, ref
+    from repro_torch.kernels import decode_attention, ops, ref
     F = torch.nn.functional
     fp = (lambda t: t.float() if t.is_floating_point() else t)
     modes = (("float32", torch.float32, False, 1e-4),
@@ -855,10 +882,10 @@ def ring_cases(records, dev, flush):
             ("granite", (8, 8, 2, 64, 2048), (None,), None, modes),
             ("rg", (8, 1, 16, 256, 2048), (None, 48, 2048), 2048,
              modes[:3])):
-        splits = cuda_lib.ring_splits(B, K, C, hd)
+        splits, source = decode_attention.split_plan(dev, B, K, C, hd)
         log(f"[kernels] {tag} decode_attention B={B} K={K} C={C} hd={hd}: "
-            f"{splits} splits of {C // splits}-{-(-C // splits)} slots, "
-            f"{B * K * splits} blocks")
+            f"{splits} splits of {C // splits}-{-(-C // splits)} slots (from "
+            f"the {source}), {B * K * splits} blocks")
         for mode, dtype, quant, tol in mds:
             for window in windows:
                 seed += 1
@@ -878,23 +905,18 @@ def ring_cases(records, dev, flush):
                     continue
                 plain = lambda: ref.decode_attention_ref(
                     q, k, v, tok, pos, window=window, **sc)
-                valid = ring_valid(tok, pos, window)
-                n = int(valid.sum())
-                slot_bytes = (2 * K * hd * k.element_size()
-                              + (3 * K * 4 if quant else 0))
-                nbytes = (n * slot_bytes + tok.numel() * 4 + pos.numel() * 4
-                          + 2 * q.numel() * q.element_size())
                 lib = None
                 if not quant:
                     qh = q.reshape(B, K * G, 1, hd)
                     kh, vh = k.transpose(1, 2), v.transpose(1, 2)
-                    mask = valid[:, None, None, :]
+                    mask = ring_valid(tok, pos, window)[:, None, None, :]
                     lib = lambda: F.scaled_dot_product_attention(
                         qh, kh, vh, attn_mask=mask, enable_gqa=True)
-                rec = time_record(kern, plain, flush, nbytes,
-                                  4 * hd * G * K * n, dtype, err, G * K * n,
-                                  lib=lib)
-                rec["splits"] = splits
+                nbytes, nops, exps = ring_work(q, k, tok, pos, window,
+                                               quant)
+                rec = time_record(kern, plain, flush, nbytes, nops, dtype,
+                                  err, exps, lib=lib)
+                rec.update(splits=splits, splits_from=source)
                 log_record(f"{tag} decode_attention {mode} window={window}",
                            rec)
                 records[("decode_attention", tag, mode)] = rec
@@ -995,12 +1017,28 @@ def flash_cases(records, dev, flush):
         torch.cuda.empty_cache()
 
 
+def phase_tuning(dev):
+    """The tuning table's entries for this card: the split counts the
+    three split walks take instead of the heuristic's at those shapes."""
+    from repro_torch.kernels import tuning
+    table = tuning.load_table(refresh=True)
+    be = tuning.backend_key(dev)
+    mine = {(kernel, key): entry["params"]["splits"]
+            for kernel, per in table.items()
+            for key, entry in per.get(be, {}).items()}
+    log(f"[tuning] backend {be}: {len(mine)} entries in "
+        f"{Path(tuning.TABLE_PATH).relative_to(ROOT)}"
+        + "".join(f"; {kernel} {key} {n} splits"
+                  for (kernel, key), n in sorted(mine.items())))
+
+
 def phase_kernels(dev):
     # (label, activation dtype, int8 pool, tolerance)
     modes = (("float32", torch.float32, False, 1e-4),
              ("bfloat16", torch.bfloat16, False, 2e-2),
              ("int8", torch.float32, True, 1e-4),
              ("int8+bf16", torch.bfloat16, True, 2e-2))
+    phase_tuning(dev)
     flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
     flush = flush_buf.zero_
     records = {}
@@ -3289,6 +3327,40 @@ def phase_train(dev, smi):
     return runs
 
 
+def phase_quickstart():
+    """``examples/torch_quickstart.py`` on the card: three rounds of one
+    conversation on the smoke qwen3_0_6b; rounds 1 and 2 must read the
+    earlier rounds from the prefix cache, both paged kernels must launch,
+    and the run must take under 15 s."""
+    import contextlib
+    import io
+
+    import torch_quickstart
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        run = torch_quickstart.main([])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for line in out.getvalue().splitlines():
+        if line.strip():
+            log(f"[quickstart] {line}")
+    reads = [r.usage.cache_read_tokens for r in run["requests"]]
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    log(f"[quickstart] {wall:.2f} s on {torch.cuda.get_device_name(0)}; "
+        f"cache reads by round {reads}; launches {launches}")
+    if not (reads[1] > 0 and reads[2] > 0):
+        raise AssertionError("a quickstart round after the first read "
+                             "nothing from the prefix cache")
+    if not (launches.get("paged_decode") and launches.get("paged_extend")):
+        raise AssertionError("the quickstart did not launch both paged "
+                             "kernels")
+    if wall > 15:
+        raise AssertionError(f"the quickstart took {wall:.1f} s (limit 15)")
+
+
 def ring_reread(dev):
     """The demo's bf16 ring decode read again at the end of the run, in
     turns with SDPA (``interleaved_ms``), beside the kernels phase's
@@ -3367,6 +3439,8 @@ def main() -> int:
 def run_phases(dev, smi, dry) -> int:
     with timed("kernels"):
         records = phase_kernels(dev)
+    with timed("quickstart"):
+        phase_quickstart()
     with timed("serve"):
         runs = phase_serve(dev)
     with timed("mesh"):
@@ -3435,6 +3509,8 @@ def run_phases(dev, smi, dry) -> int:
                if "bound_fma_ms" in rec else {}),
             **({"device_us": rec["device_us"]} if "device_us" in rec
                else {}),
+            **({k: rec[k] for k in ("splits", "splits_from")}
+               if "splits_from" in rec else {}),
             "launches_by_run": {r: runs[r][name] for r in runs}})
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -11,12 +11,14 @@ Port of ``repro/kernels/decode_attention.py``, the read of every attention
 layer's decode step on a ring cache (``ServeConfig.paged_kv=False``, and
 ``TransformerLM.decode_step`` after ``prefill``).  On a CUDA tensor the
 call launches the hand-written Hopper kernel ``csrc/decode_attention.cu``
-(the ring of each (request, kv head) split into ``cuda_lib.ring_splits``
-segments, a block each, that list the slots the query may attend and
-stream only those, then a combine of the splits in split order; see the
-note at the top of the source) or raises; on a CPU tensor it runs the
-plain PyTorch version, ``ref.decode_attention_ref``.  Slot c is valid iff ``tok >= 0`` and
-``tok <= pos`` (and ``tok > pos - window`` with a window).  With
+(the ring of each (request, kv head) split into :func:`split_plan`'s
+count of segments (``tuning``'s table for this card and shape, else
+``cuda_lib.ring_splits``), a block each, that list the slots the query
+may attend and stream only those, then a combine of the splits in split
+order; see the note at the top of the source) or raises; on a CPU tensor
+it runs the plain PyTorch version, ``ref.decode_attention_ref``.  Slot c
+is valid iff ``tok >= 0`` and ``tok <= pos`` (and ``tok > pos - window``
+with a window).  With
 ``k_scale``/``k_zero``/``v_scale`` ([B, C, K] float32 sidecars) the ring
 is int8 and is dequantized inside the kernel.
 """
@@ -26,8 +28,14 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import cuda_lib
+from repro_torch.kernels import cuda_lib, tuning
 from repro_torch.kernels.ref import decode_attention_ref as plain
+
+
+def split_plan(device, B: int, K: int, C: int, hd: int):
+    """``(splits, source)`` of a launch at these shapes on ``device``:
+    ``tuning.splits("decode", ...)`` over a ring of ``C`` slots."""
+    return tuning.splits("decode", device, b=B, k=K, slots=C, hd=hd)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -54,7 +62,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         cuda_lib.smem_bytes(hd, cuda_lib.decode_rows(G), C), C)
     if window is not None and window <= 0:
         raise ValueError("window must be positive")
-    splits = cuda_lib.ring_splits(B, K, C, hd)
+    splits, _ = split_plan(q.device, B, K, C, hd)
     out = torch.empty_like(q)
     part = torch.empty(cuda_lib.partials_shape(B, K, G, hd, splits),
                        dtype=torch.float32, device=q.device)

@@ -10,12 +10,14 @@
 Port of ``repro/kernels/paged_attention.py``.  On a CUDA tensor the call
 launches the hand-written Hopper kernel ``csrc/paged_decode.cu`` (the
 attendable range of each (request, kv head) split into
-``cuda_lib.paged_splits`` segments of whole stages, a block each walking
-its segment of the page table, then a combine of the splits in split
-order; see the note at the top of the source) or raises; on a CPU tensor
-it runs the plain PyTorch version, ``ref.paged_decode_attention_ref``.  With
-``k_scale``/``k_zero``/``v_scale`` ([P, ps, K] float32 sidecar pools) the
-pools are int8 and are dequantized inside the kernel.
+:func:`split_plan`'s count of segments of whole stages (``tuning``'s
+table for this card and shape, else ``cuda_lib.paged_splits``), a block
+each walking its segment of the page table, then a combine of the splits
+in split order; see the note at the top of the source) or raises; on a
+CPU tensor it runs the plain PyTorch version,
+``ref.paged_decode_attention_ref``.  With ``k_scale``/``k_zero``/
+``v_scale`` ([P, ps, K] float32 sidecar pools) the pools are int8 and are
+dequantized inside the kernel.
 """
 from __future__ import annotations
 
@@ -23,8 +25,16 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import cuda_lib
+from repro_torch.kernels import cuda_lib, tuning
 from repro_torch.kernels.ref import paged_decode_attention_ref as plain
+
+
+def split_plan(device, B: int, K: int, hd: int, n_slots: int):
+    """``(splits, source)`` of a launch at these shapes on ``device``:
+    ``tuning.splits("paged_decode", ...)`` over a table of ``n_slots``
+    slots."""
+    return tuning.splits("paged_decode", device, b=B, k=K, slots=n_slots,
+                         hd=hd)
 
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -53,7 +63,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         cuda_lib.smem_bytes(hd, cuda_lib.decode_rows(G), NP), NP)
     if window is not None and window <= 0:
         raise ValueError("window must be positive")
-    splits = cuda_lib.paged_splits(B, K, 1, NP * ps, hd)
+    splits, _ = split_plan(q.device, B, K, hd, NP * ps)
     out = torch.empty_like(q)
     part = torch.empty(cuda_lib.partials_shape(B, K, G, hd, splits),
                        dtype=torch.float32, device=q.device)

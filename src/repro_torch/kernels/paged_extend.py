@@ -13,10 +13,11 @@ tensor the call launches the hand-written Hopper kernel
 ``csrc/paged_extend.cu`` or raises: bf16 q runs on the tensor cores
 (wgmma on tiles of 64 or 128 of the Sx*G rows, key tiles gathered from
 the page table), float32 q on the fp32 staged walk; either way each
-tile's attendable range is split into ``cuda_lib.paged_splits``
-segments, a block each, combined in split order (see the note at the
-top of the source).  On a CPU tensor it runs the plain PyTorch version,
-``ref.paged_extend_attention_ref``.  Lane l attends
+tile's attendable range is split into :func:`split_plan`'s count of
+segments (``tuning``'s table for this card and shape, else
+``cuda_lib.paged_splits``), a block each, combined in split order (see
+the note at the top of the source).  On a CPU tensor it runs the plain
+PyTorch version, ``ref.paged_extend_attention_ref``.  Lane l attends
 slot t iff its page is mapped and ``t <= pos0 + l`` (and
 ``t > pos0 + l - window`` with a window).  Scale sidecar pools
 ([P, ps, K] float32) select the int8 variant.
@@ -27,8 +28,19 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import cuda_lib
+from repro_torch.kernels import cuda_lib, tuning
 from repro_torch.kernels.ref import paged_extend_attention_ref as plain
+
+
+def split_plan(device, B: int, Sx: int, K: int, G: int, hd: int,
+               n_slots: int, code: int):
+    """``(splits, source)`` of a launch at these shapes on ``device``,
+    with kernel dtype ``code`` (``cuda_lib.DTYPE_CODES``), which sets the
+    row tile (``cuda_lib.extend_rows``): ``tuning.splits("paged_extend",
+    ...)`` over the Sx * G rows' tiles and a table of ``n_slots`` slots."""
+    tiles = -(-Sx * G // cuda_lib.extend_rows(hd, Sx * G, code))
+    return tuning.splits("paged_extend", device, b=B, k=K, tiles=tiles,
+                         slots=n_slots, hd=hd)
 
 
 def paged_extend_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -56,7 +68,7 @@ def paged_extend_attention(q: torch.Tensor, k_pool: torch.Tensor,
     cuda_lib.check_smem(smem, NP)
     if window is not None and window <= 0:
         raise ValueError("window must be positive")
-    splits = cuda_lib.paged_splits(B, K, -(-Sx * G // rows), NP * ps, hd)
+    splits, _ = split_plan(q.device, B, Sx, K, G, hd, NP * ps, code)
     out = torch.empty_like(q)
     part = torch.empty(cuda_lib.partials_shape(B, K, Sx * G, hd, splits),
                        dtype=torch.float32, device=q.device)

@@ -30,6 +30,8 @@ import torch
 
 # NVIDIA H100 80GB HBM3 (SXM), power limit 700 W.
 PEAK_FLOPS_BF16 = 989e12          # per card, FLOP/s, dense bf16
+PEAK_FLOPS_FP32 = 67e12           # per card, FLOP/s, float32 outside the
+                                  # tensor cores
 HBM_BW = 3.35e12                  # per card, B/s, HBM3
 NVLINK_BW = 450e9                 # per card and direction, B/s (NVLink 4:
                                   # 18 links, 900 GB/s both ways together)

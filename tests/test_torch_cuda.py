@@ -14,7 +14,11 @@ float32 bodies, 3xTF32 on the tensor cores, at every head dim with
 windows, ragged lengths, empty rows and prefixes) (the paged kernels
 also at forced split counts at the split walk's edges), the wrappers
 refuse what the kernels do not take, and small engine and model runs on
-the card launch the kernels of their models' paths.  Engines whose steps
+the card launch the kernels of their models' paths.  The split walks
+take the tuning table's count where it has an entry for this card (each
+entry held against the plain version at the serves' shapes, the same bits
+on a second call) and, with no table, give the bits of the heuristic's
+count; a captured engine asks for and gets the eager engine's counts.  Engines whose steps
 are captured as CUDA graphs give the eager engines' streams, bills and
 launches, and a replay reads the page table it is given; so does the
 paper's reflection loop (fixed and routed) over a captured engine; the
@@ -161,6 +165,12 @@ def _split_inputs(dev, act, quant, B, Sx, K, G, hd, NP, case, seed,
             f32, sc)
 
 
+def _forced(splits):
+    """A stand-in for ``tuning.splits`` that forces the count of every
+    split walk, as the wrappers ask it for theirs."""
+    return lambda kernel, device, **dims: (splits, "forced")
+
+
 @pytest.mark.parametrize("mode", ["float32", "bfloat16", "int8",
                                   "int8+bf16"])
 @pytest.mark.parametrize("B,Sx,K,G,hd,NP,splits,window,case", [
@@ -181,7 +191,7 @@ def test_split_paged_kernels(dev, monkeypatch, mode, B, Sx, K, G, hd, NP,
     against the plain version (float32 1e-4, bfloat16 2e-2, int8 1e-4,
     int8 + bf16 2e-2) and the one-split call, bit-equal across two calls;
     the empty last row is page 0's mean V, as in the TPU kernels."""
-    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels import tuning
     act = torch.bfloat16 if "bf" in mode else torch.float32
     tol = 2e-2 if act == torch.bfloat16 else 1e-4
     cuda, sc, f32, sc_cpu = _split_inputs(dev, act, mode.startswith("int8"),
@@ -194,10 +204,10 @@ def test_split_paged_kernels(dev, monkeypatch, mode, B, Sx, K, G, hd, NP,
              fq),
             (ops.paged_decode_attention, ref.paged_decode_attention_ref,
              q[:, 0].contiguous(), fq[:, 0])):
-        monkeypatch.setattr(cuda_lib, "paged_splits", lambda *a: splits)
+        monkeypatch.setattr(tuning, "splits", _forced(splits))
         got = fn(qq, kp, vp, pt, pos0, window=window, **sc)
         again = fn(qq, kp, vp, pt, pos0, window=window, **sc)
-        monkeypatch.setattr(cuda_lib, "paged_splits", lambda *a: 1)
+        monkeypatch.setattr(tuning, "splits", _forced(1))
         one = fn(qq, kp, vp, pt, pos0, window=window, **sc)
         want = plain(fqq, fkp, fvp, fpt, fpos, window=window, **sc_cpu)
         torch.testing.assert_close(got.float().cpu(), want, atol=tol, rtol=0)
@@ -250,16 +260,25 @@ def test_paged_rows_without_valid_slot(dev, mode, window):
 
 def test_paged_splits_in_use(dev, monkeypatch):
     """The wrappers split reflect_demo_100m's and recurrentgemma-9b's
-    decode, verify and chunk shapes (128-page tables) as ``paged_splits``
-    says for their tiles."""
-    from repro_torch.kernels import cuda_lib
-    real, seen = cuda_lib.paged_splits, []
+    decode, verify and chunk shapes (128-page tables) as ``tuning.splits``
+    says for their tiles: ``paged_splits``'s count, unless the tuning
+    table has an entry for this card and shape."""
+    from repro_torch.kernels import cuda_lib, tuning
+    real, seen = tuning.splits, []
 
-    def record(*a):
-        seen.append(real(*a))
-        return seen[-1]
+    def record(kernel, device, **dims):
+        n, source = real(kernel, device, **dims)
+        tiles = dims.get("tiles", 1)
+        heuristic = cuda_lib.paged_splits(dims["b"], dims["k"], tiles,
+                                          dims["slots"], dims["hd"])
+        seen.append(heuristic)
+        if source == "heuristic":
+            assert n == heuristic
+        else:
+            assert n == tuning.lookup(kernel, device, **dims)["splits"]
+        return n, source
 
-    monkeypatch.setattr(cuda_lib, "paged_splits", record)
+    monkeypatch.setattr(tuning, "splits", record)
     for act, Sx, K, G, hd in ((torch.bfloat16, 1, 4, 3, 64),
                               (torch.bfloat16, 1, 1, 16, 256),
                               (torch.bfloat16, 5, 4, 3, 64),
@@ -596,7 +615,7 @@ def test_split_ring_decode(dev, monkeypatch, mode, B, K, G, hd, C, splits,
     plain version (float32 1e-4, bfloat16 2e-2, int8 1e-4), against the
     one-split walk, and bit-equal across two calls; the empty last row is
     zeros."""
-    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels import tuning
     act = torch.bfloat16 if mode == "bfloat16" else torch.float32
     tol = 2e-2 if act == torch.bfloat16 else 1e-4
     q, k, v, tok, pos, sc = _ring_inputs(act, mode == "int8", B, K, G, hd,
@@ -605,10 +624,10 @@ def test_split_ring_decode(dev, monkeypatch, mode, B, K, G, hd, C, splits,
         tok = _one_segment(tok, *segment)
     args = [t.to(dev) for t in (q, k, v, tok, pos)]
     kw = {n: t.to(dev) for n, t in sc.items()}
-    monkeypatch.setattr(cuda_lib, "ring_splits", lambda *a: splits)
+    monkeypatch.setattr(tuning, "splits", _forced(splits))
     got = ops.decode_attention(*args, window=window, **kw)
     again = ops.decode_attention(*args, window=window, **kw)
-    monkeypatch.setattr(cuda_lib, "ring_splits", lambda *a: 1)
+    monkeypatch.setattr(tuning, "splits", _forced(1))
     one = ops.decode_attention(*args, window=window, **kw)
     want = ref.decode_attention_ref(_f32(q), _f32(k), _f32(v), tok, pos,
                                     window=window, **sc)
@@ -630,6 +649,169 @@ def test_ring_splits_in_use(dev):
     tok[:] = -1
     got = ops.decode_attention(*(t.to(dev) for t in (q, k, v, tok, pos)))
     assert got.shape == (8, 1, 16, 256) and not got.any()
+
+
+# the serves' split-walk shapes the tuning sweep times (batch 8, 128-page
+# tables of 16 slots, rings of 2048): (kernel, K, G, hd, Sx, window)
+SERVE_SPLIT_CASES = (
+    ("paged_decode", 4, 3, 64, 1, None), ("paged_extend", 4, 3, 64, 5, None),
+    ("paged_extend", 4, 3, 64, 32, None), ("paged_decode", 8, 2, 64, 1, None),
+    ("paged_extend", 8, 2, 64, 5, None), ("paged_extend", 8, 2, 64, 32, None),
+    ("paged_decode", 1, 16, 256, 1, 2048),
+    ("paged_extend", 1, 16, 256, 32, 2048),
+    ("decode", 4, 3, 64, 1, None), ("decode", 8, 2, 64, 1, None),
+    ("decode", 1, 16, 256, 1, 2048))
+
+
+def test_tuned_entries_match_plain_versions(dev):
+    """Every entry the tuning table holds for this card is reached by one
+    of the serves' shapes, and there the wrapper launches the table's count
+    (clamped) and agrees with its plain version at today's tolerances
+    (float32 1e-4, bfloat16 2e-2, int8 1e-4), the same bits on a second
+    call; elsewhere it launches the heuristic's count."""
+    from repro_torch.kernels import cuda_lib, tuning
+    from repro_torch.kernels.decode_attention import split_plan as ring_plan
+    from repro_torch.kernels.paged_attention import split_plan as dec_plan
+    from repro_torch.kernels.paged_extend import split_plan as ext_plan
+    table = tuning.load_table(refresh=True)
+    be = tuning.backend_key(dev)
+    entries = {(k, key) for k, per in table.items()
+               for key in per.get(be, {})}
+    reached = set()
+    for kernel, K, G, hd, Sx, window in SERVE_SPLIT_CASES:
+        for mode in ("float32", "bfloat16", "int8", "int8+bf16"):
+            act = torch.bfloat16 if "bf" in mode else torch.float32
+            quant = mode.startswith("int8")
+            tol = 2e-2 if act == torch.bfloat16 else 1e-4
+            code = cuda_lib.DTYPE_CODES[(act, torch.int8 if quant else act)]
+            if kernel == "decode":
+                n, source = ring_plan(dev, 8, K, 2048, hd)
+                dims = dict(b=8, k=K, slots=2048, hd=hd)
+            elif kernel == "paged_decode":
+                n, source = dec_plan(dev, 8, K, hd, 2048)
+                dims = dict(b=8, k=K, slots=2048, hd=hd)
+            else:
+                n, source = ext_plan(dev, 8, Sx, K, G, hd, 2048, code)
+                rows = cuda_lib.extend_rows(hd, Sx * G, code)
+                dims = dict(b=8, k=K, tiles=-(-Sx * G // rows), slots=2048,
+                            hd=hd)
+            if source == "heuristic":
+                assert n == tuning.HEURISTICS[kernel](**dims)
+                continue
+            reached.add((kernel, tuning.shape_key(**dims)))
+            assert n == max(1, min(tuning.lookup(kernel, dev, **dims)[
+                "splits"], 2048 // cuda_lib.stage_slots(hd)))
+            if kernel == "decode":
+                q, k, v, tok, pos, sc = _ring_inputs(act, quant, 8, K, G, hd,
+                                                     2048, seed=hd + K)
+                args = [t.to(dev) for t in (q, k, v, tok, pos)]
+                kw = {name: t.to(dev) for name, t in sc.items()}
+                got = ops.decode_attention(*args, window=window, **kw)
+                again = ops.decode_attention(*args, window=window, **kw)
+                want = ref.decode_attention_ref(_f32(q), _f32(k), _f32(v),
+                                                tok, pos, window=window, **sc)
+            else:
+                cuda, kw, f32, sc_cpu = _split_inputs(
+                    dev, act, quant, 8, Sx, K, G, hd, 128, "plain",
+                    seed=hd + Sx)
+                q, kp, vp, pt, pos0 = cuda
+                fq, fkp, fvp, fpt, fpos = f32
+                fn, plain = ops.paged_extend_attention, \
+                    ref.paged_extend_attention_ref
+                if kernel == "paged_decode":
+                    q, fq = q[:, 0].contiguous(), fq[:, 0]
+                    fn, plain = ops.paged_decode_attention, \
+                        ref.paged_decode_attention_ref
+                got = fn(q, kp, vp, pt, pos0, window=window, **kw)
+                again = fn(q, kp, vp, pt, pos0, window=window, **kw)
+                want = plain(fq, fkp, fvp, fpt, fpos, window=window,
+                             **sc_cpu)
+            torch.testing.assert_close(got.float().cpu(), want, atol=tol,
+                                       rtol=0)
+            assert torch.equal(got, again)
+    assert reached == entries, entries - reached
+
+
+def test_without_a_table_outputs_equal_the_heuristic_counts(dev, monkeypatch,
+                                                          tmp_path):
+    """With no table file each split walk at the serves' shapes gives the
+    bits of the same call with the heuristic's count forced, float32 and
+    bfloat16."""
+    from repro_torch.kernels import cuda_lib, tuning
+    monkeypatch.setattr(tuning, "TABLE_PATH", str(tmp_path / "none.json"))
+    tuning.load_table(refresh=True)
+    try:
+        for kernel, K, G, hd, Sx, window in SERVE_SPLIT_CASES:
+            for act in (torch.float32, torch.bfloat16):
+                code = cuda_lib.DTYPE_CODES[(act, act)]
+                if kernel == "decode":
+                    q, k, v, tok, pos, _ = _ring_inputs(act, False, 8, K, G,
+                                                        hd, 2048, seed=hd)
+                    args = [t.to(dev) for t in (q, k, v, tok, pos)]
+                    fn = lambda: ops.decode_attention(*args, window=window)
+                    dims = dict(b=8, k=K, slots=2048, hd=hd)
+                else:
+                    (q, kp, vp, pt, pos0), _, _, _ = _split_inputs(
+                        dev, act, False, 8, Sx, K, G, hd, 128, "plain",
+                        seed=hd + Sx)
+                    if kernel == "paged_decode":
+                        q = q[:, 0].contiguous()
+                        fn = lambda: ops.paged_decode_attention(
+                            q, kp, vp, pt, pos0, window=window)
+                        dims = dict(b=8, k=K, slots=2048, hd=hd)
+                    else:
+                        fn = lambda: ops.paged_extend_attention(
+                            q, kp, vp, pt, pos0, window=window)
+                        rows = cuda_lib.extend_rows(hd, Sx * G, code)
+                        dims = dict(b=8, k=K, tiles=-(-Sx * G // rows),
+                                    slots=2048, hd=hd)
+                got = fn()
+                with monkeypatch.context() as m:
+                    m.setattr(tuning, "splits", _forced(
+                        tuning.HEURISTICS[kernel](**dims)))
+                    want = fn()
+                assert torch.equal(got, want), (kernel, K, Sx, act)
+    finally:
+        monkeypatch.undo()
+        tuning.load_table(refresh=True)
+
+
+def test_captured_engine_uses_the_eager_split_counts(dev, monkeypatch):
+    """reflect_demo_100m at full width, one layer, at the serves' shapes
+    (batch 8, max_seq 2048, page 16, speculation): the wrappers ask
+    ``tuning.splits`` for the same (kernel, dims) and get the same counts
+    while the captured engine records its graphs as the eager engine does
+    step by step, and the two give the same streams, bills and launches."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.kernels import tuning
+    from repro_torch.models.registry import build_model, get_config
+
+    real, asked = tuning.splits, [{}]
+
+    def record(kernel, device, **dims):
+        got = real(kernel, device, **dims)
+        asked[-1][(kernel, tuple(sorted(dims.items())))] = got
+        return got
+
+    monkeypatch.setattr(tuning, "splits", record)
+    cfg = get_config("reflect_demo_100m")
+    cfg = cfg.replace(num_layers=1, block_pattern=cfg.block_pattern[:1])
+    with torch.device(dev):
+        m = build_model(cfg)
+    m.init(torch.Generator(device=dev).manual_seed(0))
+    scfg = ServeConfig(max_batch=8, max_seq=2048, page_size=16,
+                       spec_decode=True, spec_tokens=4)
+    _, outs, usage, launches = _card_serve(m, scfg)
+    asked.append({})
+    eng, c_outs, c_usage, c_launches = _card_serve(
+        m, dataclasses.replace(scfg, aot_warmup=True))
+    eager, captured = asked
+    assert {k for k, _ in eager} == {"paged_decode", "paged_extend"}
+    shared = eager.keys() & captured.keys()
+    assert {k for k, _ in shared} == {"paged_decode", "paged_extend"}
+    assert all(eager[k] == captured[k] for k in shared)
+    assert eng.stats()["step_compiles"] == 0
+    assert c_outs == outs and c_usage == usage and c_launches == launches
 
 
 def test_ring_and_flash_wrappers_count_launches_and_refuse_bad_operands(dev):

@@ -186,6 +186,19 @@ def test_decode_drops_couple_rows_like_jax(fitted, monkeypatch):
     mapped) sit before live ones in the dispatch order and take their
     capacity.  The port's engine must still give the JAX engine's
     streams, bills and counters, and decode steps must drop lanes."""
+    _decode_drops(fitted, monkeypatch, paged=True)
+
+
+def test_decode_drops_couple_rows_like_jax_ring(fitted, monkeypatch):
+    """The same on ring caches (``paged_kv=False``): an idle slot's ring
+    read is the ring decode walk's zero row (the JAX oracle's is a uniform
+    average, which no caller reads), and its MoE lanes still take
+    capacity from the live rows, so the streams, bills and counters must
+    equal the JAX engine's on rings too."""
+    _decode_drops(fitted, monkeypatch, paged=False)
+
+
+def _decode_drops(fitted, monkeypatch, paged):
     drops = []
     route = MOE.route
 
@@ -198,7 +211,7 @@ def test_decode_drops_couple_rows_like_jax(fitted, monkeypatch):
 
     monkeypatch.setattr(MOE, "route", counting_route)
     kw = dict(max_batch=12, max_seq=160, page_size=8, spec_decode=False,
-              prefill_chunk=16, prefill_token_budget=64)
+              prefill_chunk=16, prefill_token_budget=64, paged_kv=paged)
     prompts = _prompts(10)
     budgets = [4 + 2 * i for i in range(10)]
     arch = "granite_moe_1b_a400m"
@@ -228,6 +241,7 @@ def test_decode_drops_couple_rows_like_jax(fitted, monkeypatch):
             reqs += rnd
         runs.append((eng, reqs))
     (jeng, jreqs), (eng, reqs) = runs
-    _assert_same(jeng, jreqs, eng, reqs, "max_batch 12, capacity 0.5")
+    _assert_same(jeng, jreqs, eng, reqs, "max_batch 12, capacity 0.5, "
+                 + ("paged" if paged else "ring"))
     print(f"decode steps {len(drops)}, lanes dropped {sum(drops)}")
     assert drops and sum(drops) > 0

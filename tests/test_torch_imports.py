@@ -34,6 +34,8 @@ def test_port_imports_no_jax_and_no_repro():
             repro_torch.__path__, "repro_torch.")]
         for name in names:
             importlib.import_module(name)
+        from repro_torch.kernels import tuning   # and its committed table
+        assert set(tuning.load_table()) <= set(tuning.DEFAULTS)
         bad = sorted(m for m in sys.modules
                      if m == "repro" or m.startswith("repro."))
         assert not bad, bad
@@ -57,7 +59,7 @@ def test_port_imports_no_jax_and_no_repro():
                      "models.whisper", "models.vlm", "configs.whisper_tiny",
                      "configs.internvl2_76b", "launch.mesh", "launch.rules",
                      "launch.sharding", "launch.dryrun", "launch.stepcost",
-                     "launch.serve"):
+                     "launch.serve", "kernels.tuning"):
             assert "repro_torch." + name in names, name
         print(len(names))
     """)
@@ -98,6 +100,18 @@ def test_train_example_imports_no_jax_and_no_repro():
     names = _imported("examples/torch_train_100m.py")
     assert any(n.startswith("repro_torch") for n in names), names
     bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("script", ["examples/torch_quickstart.py",
+                                    "examples/torch_sweet_spot.py"])
+def test_new_examples_import_no_jax_repro_or_benchmarks(script):
+    """The quickstart and sweet-spot counterparts import only the port
+    (the sweet-spot one keeps its own copy of the benchmarks' grid)."""
+    names = _imported(script)
+    assert any(n.startswith("repro_torch") for n in names), names
+    bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "repro",
+                                                    "benchmarks")]
     assert not bad, bad
 
 
