@@ -23,12 +23,13 @@ Phases, each of which stops the run with a non-zero exit on any error:
    * the same at recurrentgemma-9b's local attention (K 1, G 16, hd 256;
      decode and extend Sx = 32; window None, 48 and 2048), at
      granite-moe-1b-a400m's (K 8, G 2, hd 64; decode, extend Sx = 32 and
-     5), and, checked only, at yi-6b's (K 4, G 8) and minitron-4b's (K 8,
-     G 3) hd 128; each paged case logs its route (bf16 extend on the
-     tensor cores), its tile and its split count with where it came from
-     (the wrapper's ``split_plan``: the tuning table's entry for this
-     card and shape, else ``cuda_lib.paged_splits``), and its record
-     carries both (``splits``, ``splits_from``);
+     5), at nemotron-4-340b's (K 8, G 12, hd 192; decode, extend Sx = 32
+     and 5; window None and 48), and, checked only, at yi-6b's (K 4, G 8)
+     and minitron-4b's (K 8, G 3) hd 128; each paged case logs its route
+     (bf16 extend on the tensor cores), its tile and its split count with
+     where it came from (the wrapper's ``split_plan``: the tuning table's
+     entry for this card and shape, else ``cuda_lib.paged_splits``), and
+     its record carries both (``splits``, ``splits_from``);
    * the mamba scan at falcon-mamba-7b's shapes ([8, 32 or 1, 8192],
      state 16, a per-(d, n) A and a per-d skip) with float32 and bfloat16
      x, and the RG-LRU scan at recurrentgemma-9b's ([8, 32 or 1, 4096],
@@ -38,8 +39,10 @@ Phases, each of which stops the run with a non-zero exit on any error:
    * ring decode at reflect_demo_100m's shape (B 8, K 4, G 3, hd 64, C
      2048; rings wrapped past C, empty slots, slots ahead of pos, an
      empty row; window None and 48; float32, bfloat16, int8 and int8 with
-     bfloat16 q), granite-moe-1b-a400m's (K 8, G 2) and
-     recurrentgemma-9b's (K 1, G 16, hd 256, window 2048);
+     bfloat16 q), granite-moe-1b-a400m's (K 8, G 2),
+     recurrentgemma-9b's (K 1, G 16, hd 256, window 2048) and
+     nemotron-4-340b's (K 8, G 12, hd 192; every mode, window None and
+     48);
    * flash attention at reflect_demo_100m's prefill (B 8, H 12, K 4, hd
      64, S 2048; window None and 48; float32 and bfloat16), at
      granite-moe-1b-a400m's (B 8, H 16, K 8, S 2048, bfloat16), at
@@ -49,6 +52,8 @@ Phases, each of which stops the run with a non-zero exit on any error:
      H = K 6, S 1500, hd 64, prefix 1500: every frame attends every frame;
      bfloat16 and float32), at internvl2-76b's prefill (B 4, H 64, K 8, S
      2048, hd 128, prefix 256) and at a ragged S 1000 with prefix 300;
+     and at nemotron-4-340b's prefill (B 4, H 96, K 8, S 2048, hd 192;
+     bfloat16, window None and 48; float32 at B 1; a ragged S 1000);
    * the flash-attention backward kernel (``csrc/flash_attention_bwd.cu``)
      against ``flash_attention_bwd_ref`` at examples/torch_train_100m.py's
      shape (B 8, H 12, K 4, S 256, hd 64; bfloat16 and float32), at
@@ -88,7 +93,9 @@ Phases, each of which stops the run with a non-zero exit on any error:
    with the parent commit's checkout at ``build/parent`` (unpacked there
    by ``git archive``) it builds its kernels and fails unless the bf16
    flash bodies and the paged and ring-decode kernels compile to the
-   parent's SASS (anonymous namespaces' hashes masked).
+   parent's SASS (anonymous namespaces' hashes masked), every parent
+   function present, a function only this tree has an hd-192
+   instantiation.
    ``[quickstart]``: ``examples/torch_quickstart.py`` on the card (three
    rounds of one conversation on the smoke qwen3_0_6b, its lines
    printed): rounds 1 and 2 must read the cache, both paged kernels must
@@ -197,6 +204,14 @@ Phases, each of which stops the run with a non-zero exit on any error:
    patches; a paged serve of the text decoder, eagerly and captured (2
    rounds of 32); the logits check at 2 layers with 256 patches before
    the prompt of the full-sequence walk (q/k x 1/16).
+   nemotron  — nemotron-4-340b at full width (d_model 18432, 96 q / 8 KV
+   heads, hd 192, d_ff 73,728, vocab 256,000 untied), 4 of its 96 layers
+   (46.5 GB of bf16 weights): ``[full]`` ``prefill`` of [4, 2048] with
+   ragged lengths, 16 decode steps and a no-grad ``forward`` (flash and
+   ring decode at hd 192); a paged serve with speculation, eagerly and
+   captured (2 rounds of 32); the logits check at 1 layer (51.6 GB in
+   fp32 on the card and on the host, q/k x 1/16; the sensitivity step
+   perturbs the card's model in place; the host's memory is printed).
 5. train   — training on the card (``[train]``):
    * one float32 loss and gradient of the full-width 2-layer demo on the
      card and on the CPU (loss to 1e-4 relative, gradient cosines at
@@ -403,11 +418,18 @@ SASS_KEPT = {"flash_attention": "8flash_tc", "flash_attention_bwd": "3tcb",
              "decode_attention": ""}
 
 
+# a template instantiation at head dim 192 (its mangled ``Li192E``
+# argument): the one kind of function the tree may add to a kept library
+NEW_ALLOWED = re.compile(r"Li192E")
+
+
 def sass_vs_parent(cuda_lib):
     """With the parent commit's checkout at ``build/parent`` (unpacked
     there by ``git archive``), build its libraries of ``SASS_KEPT`` (one
     nvcc each, in parallel) and print whether each kept function's SASS
-    equals the parent's; any difference fails the run."""
+    equals the parent's.  A parent function that is missing here or
+    differs fails the run; a function only this tree has is listed as new
+    and fails it unless it is an hd-192 instantiation (``NEW_ALLOWED``)."""
     csrc = ROOT / "build" / "parent" / "src" / "repro_torch" / "kernels" / \
         "csrc"
     if not csrc.is_dir():
@@ -431,11 +453,15 @@ def sass_vs_parent(cuda_lib):
                 if prefix in f}
         theirs = {f: b for f, b in sass_functions(out / f"{name}.so").items()
                   if prefix in f}
-        same = sorted(f for f in mine if theirs.get(f) == mine[f])
-        bad = sorted(set(mine) ^ set(theirs) | (set(mine) - set(same)))
+        same = sorted(f for f in theirs if mine.get(f) == theirs[f])
+        new = sorted(set(mine) - set(theirs))
+        bad = sorted((set(theirs) - set(same))
+                     | {f for f in new if not NEW_ALLOWED.search(f)})
         log(f"[build] SASS vs the parent ({origin}): {name} "
-            f"{prefix or 'all'}: {len(same)} of {len(theirs)} functions "
-            f"equal{'' if not bad else f'; differ: {bad}'}")
+            f"{prefix or 'all'}: {len(same)} of {len(theirs)} parent "
+            f"functions equal; {len(new)} new (hd-192 instantiations: "
+            f"{sum(bool(NEW_ALLOWED.search(f)) for f in new)})"
+            f"{'' if not bad else f'; differ or not allowed: {bad}'}")
         for f in bad[:1]:
             a, b = (d.get(f, "").splitlines() for d in (mine, theirs))
             first = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
@@ -864,11 +890,11 @@ def ring_work(q, k, tok, pos, window, quant):
 
 
 def ring_cases(records, dev, flush):
-    """Ring decode at reflect_demo_100m's, granite-moe-1b-a400m's and
-    recurrentgemma-9b's decode shapes, every mode and window against the
-    plain version; timed at window None (demo, granite) and 2048
-    (recurrentgemma), with SDPA on a boolean mask built from the tokens
-    as the library yardstick."""
+    """Ring decode at reflect_demo_100m's, granite-moe-1b-a400m's,
+    recurrentgemma-9b's and nemotron-4-340b's decode shapes, every mode
+    and window against the plain version; timed at window None (demo,
+    granite, nemotron) and 2048 (recurrentgemma), with SDPA on a boolean
+    mask built from the tokens as the library yardstick."""
     from repro_torch.kernels import decode_attention, ops, ref
     F = torch.nn.functional
     fp = (lambda t: t.float() if t.is_floating_point() else t)
@@ -881,7 +907,8 @@ def ring_cases(records, dev, flush):
             ("demo", (8, 4, 3, 64, 2048), (None, 48), None, modes),
             ("granite", (8, 8, 2, 64, 2048), (None,), None, modes),
             ("rg", (8, 1, 16, 256, 2048), (None, 48, 2048), 2048,
-             modes[:3])):
+             modes[:3]),
+            ("nemotron", (8, 8, 12, 192, 2048), (None, 48), None, modes)):
         splits, source = decode_attention.split_plan(dev, B, K, C, hd)
         log(f"[kernels] {tag} decode_attention B={B} K={K} C={C} hd={hd}: "
             f"{splits} splits of {C // splits}-{-(-C // splits)} slots (from "
@@ -938,7 +965,9 @@ def flash_valid(S, window, lengths, dev, prefix=0):
 
 # (tag, (B, H, K, S, hd), window, dtype, ragged lengths, prefix): the
 # full-sequence runs' shapes; whisper's encoder (P = S = 1500 frames, MHA)
-# and internvl2-76b's patches (P 256) run the prefix mode
+# and internvl2-76b's patches (P 256) run the prefix mode; nemotron-4-340b
+# runs hd 192 (float32 at B 1, a quarter of the bf16 case's work, for the
+# phase's time)
 FLASH_CASES = (
     ("demo", (8, 12, 4, 2048, 64), None, torch.float32, False, 0),
     ("demo", (8, 12, 4, 2048, 64), None, torch.bfloat16, False, 0),
@@ -953,6 +982,12 @@ FLASH_CASES = (
     ("internvl2", (4, 64, 8, 2048, 128), None, torch.bfloat16, False, 256),
     ("prefix-ragged", (8, 12, 4, 1000, 64), None, torch.bfloat16, True,
      300),
+    # nemotron-4-340b's prefill: hd 192, G 12
+    ("nemotron", (4, 96, 8, 2048, 192), None, torch.bfloat16, False, 0),
+    ("nemotron", (1, 96, 8, 2048, 192), None, torch.float32, False, 0),
+    ("nemotron", (4, 96, 8, 2048, 192), 48, torch.bfloat16, False, 0),
+    ("nemotron-ragged", (4, 96, 8, 1000, 192), None, torch.bfloat16, True,
+     0),
 )
 
 
@@ -1069,6 +1104,11 @@ def phase_kernels(dev):
                                               NP=128),
                            serve_cases, modes, (None, 48), None, 64, dev,
                            flush, seed, timed=False)
+    # nemotron-4-340b (K 8, G 12, hd 192; the serve's table): window 48
+    # checked, window None checked and timed at the serve's table
+    nemotron = dict(B=8, K=8, G=12, hd=192, ps=16, NP=128)
+    seed = paged_cases(records, "nemotron", nemotron, serve_cases, modes,
+                       (48,), None, 128, dev, flush, seed)
     scan_cases(records, dev, flush)
     ring_cases(records, dev, flush)
     flash_cases(records, dev, flush)
@@ -2096,7 +2136,18 @@ def scaled(state, soften=None, sharpen=None):
         if sharpen is not None and k.endswith(".router"):
             return sharpen
         return 1.0
-    return {k: v * factor(k) for k, v in state.items()}
+    # unscaled tensors are shared, not copied: at nemotron-4-340b's width
+    # a copy of the state would not fit the host beside the CPU's model
+    return {k: v if factor(k) == 1.0 else v * factor(k)
+            for k, v in state.items()}
+
+
+def host_memory():
+    """(total, available) bytes of the host's memory (``/proc/meminfo``)."""
+    info = dict(line.split(":", 1) for line in
+                Path("/proc/meminfo").read_text().splitlines())
+    return tuple(int(info[k].split()[0]) * 1024
+                 for k in ("MemTotal", "MemAvailable"))
 
 
 @contextlib.contextmanager
@@ -2179,13 +2230,17 @@ def check_logits(cfg, state, dev, soften=None, sharpen=None, patches=None):
         a = load(cfg32, st, dev)
         feed = []
         out_a = _walk(a, prompt, feed)
-        del a
-        noisy = {k: v.to(dev, torch.float32) * (1 + 1e-6 * torch.randn(
-            v.shape, generator=noise, device=dev)) for k, v in st.items()}
-        b = load(cfg32, noisy, dev)
-        del noisy
-        out_b = _walk(b, prompt, feed)
-        del b
+        # the same weights x (1 + 1e-6 noise), perturbed in place (a second
+        # fp32 copy does not fit the card beside the first at nemotron's
+        # width): the bits a noisy copy of ``st`` loaded anew would give
+        with torch.no_grad():
+            params = a.state_dict()
+            for k, v in st.items():
+                r = torch.randn(v.shape, generator=noise, device=dev)
+                params[k].mul_(r.mul_(1e-6).add_(1.0))
+                del r
+        out_b = _walk(a, prompt, feed)
+        del a, params
         release()
         log(f"[check] {cfg.name}: sensitivity, {name} weights, cuda fp32: "
             f"a 1e-6 relative weight change moves logits by "
@@ -2196,6 +2251,11 @@ def check_logits(cfg, state, dev, soften=None, sharpen=None, patches=None):
                            else "") + " + ring decode",
               lambda m, p, f: _walk_prefill(m, p, f, patches)))
     outs = {}
+    total, avail = host_memory()
+    n_params = sum(v.numel() for v in state.values())
+    log(f"[check] {cfg.name}: host memory {total} B, {avail} B available, "
+        f"before the CPU's fp32 model of {n_params} parameters "
+        f"({4 * n_params} B)")
     with router_gaps() as gaps:              # fp32: bf16 logits tie often
         t_cpu = time.perf_counter()
         m = load(cfg32, state, torch.device("cpu"))
@@ -2547,6 +2607,42 @@ def phase_internvl2(dev):
         one = torch.randn(1, cfg.num_patches, cfg.d_model,
                           generator=torch.Generator().manual_seed(11))
         check_logits(cut(full, 2), state, dev, soften=1 / 16, patches=one)
+    del state
+    release()
+    return runs
+
+
+def phase_nemotron(dev):
+    """nemotron-4-340b at full width (d_model 18432, 96 q and 8 KV heads,
+    hd 192, d_ff 73,728 with squared ReLU, an untied vocab of 256,000;
+    bf16 parameters) cut to its first 4 of 96 layers (23.25 B parameters,
+    46.5 GB; 96 layers are 681 GB): ``[full]`` ``prefill`` of [4, 2048]
+    with ragged lengths, 16 ``decode_step``s and a no-grad ``forward``
+    (flash attention and ring decode at hd 192); a paged serve with
+    speculation, eagerly and captured, 8 conversations, 2 rounds of 32
+    (paged decode and extend); then ``check_logits`` at 1 layer of full
+    width (12.9 B parameters, 51.6 GB in fp32; its sensitivity step
+    perturbs the model in place), card against the CPU, q/k x 1/16.
+    Returns the launch counts of its runs."""
+    from repro_torch.models.registry import get_config
+    runs = {}
+    full = get_config("nemotron_4_340b")
+    model = build_on_card(cut(full, 4), 0)
+    with timed("nemotron full-sequence"):
+        runs["nemotron_4_340b full-sequence"] = full_sequence(
+            model, B=4, S=2048,
+            lengths=np.linspace(1500, 2048, 4).astype(int), steps=16,
+            forward=True, path=("flash_attention", "decode_attention"))
+    with timed("nemotron serves"):
+        runs["nemotron_4_340b"], runs["nemotron_4_340b captured"] = \
+            serve_pair(model, "model", 2, 32, 6,
+                       ("paged_decode", "paged_extend"), profile=8)
+    state = {k: v.cpu()
+             for k, v in first_layers(model.state_dict(), 1).items()}
+    del model
+    release()
+    with timed("nemotron logits check"):
+        check_logits(cut(full, 1), state, dev, soften=1 / 16)
     del state
     release()
     return runs
@@ -3449,6 +3545,8 @@ def run_phases(dev, smi, dry) -> int:
         runs.update(phase_whisper(dev, smi))
     with timed("internvl2"):
         runs.update(phase_internvl2(dev))
+    with timed("nemotron"):
+        runs.update(phase_nemotron(dev))
     with timed("train"):
         runs.update(phase_train(dev, smi))
     ring_reread(dev)
@@ -3496,6 +3594,19 @@ def run_phases(dev, smi, dry) -> int:
         ("flash_attention_bwd fp32 demo train", "flash_attention_bwd",
          ("flash_attention_bwd", "demo", "float32"),
          "reflect_demo_100m train fp32 card")]
+    # nemotron-4-340b's hd 192 (K 8, G 12): each serving attention kernel
+    # at its shape, launched by its 4-layer full-width runs
+    rows += [
+        ("paged_decode nemotron", "paged_decode",
+         ("paged_decode", "nemotron", 1, "bfloat16"), "nemotron_4_340b"),
+        ("paged_extend nemotron", "paged_extend",
+         ("paged_extend", "nemotron", 5, "bfloat16"), "nemotron_4_340b"),
+        ("flash_attention nemotron", "flash_attention",
+         ("flash_attention", "nemotron", "bfloat16", None),
+         "nemotron_4_340b full-sequence"),
+        ("decode_attention nemotron", "decode_attention",
+         ("decode_attention", "nemotron", "bfloat16"),
+         "nemotron_4_340b full-sequence")]
     for label, name, key, run in rows:
         rec = records[key]
         kernels.append({

@@ -1,8 +1,11 @@
 """nemotron-4-340b [dense] — GQA, squared-ReLU MLP.  [arXiv:2402.16819]
 
-The full config's head_dim of 192 is outside the CUDA attention kernels'
-head dims (``kernels/cuda_lib.HEAD_DIMS``): a card call at full width
-raises.  The smoke config (hd 32) runs everywhere.
+The full config's head_dim of 192 is one of the serving kernels' and the
+flash forward's head dims (``kernels/cuda_lib.HEAD_DIMS``), so it serves
+and runs ``prefill`` / ``forward`` on the card (``chip_smoke.py`` runs 4
+of its 96 layers at full width on one H100); the flash backward is not
+built at hd 192 (``cuda_lib.BWD_HEAD_DIMS``), so a card call that needs
+a gradient raises.  The smoke config (hd 32) runs everywhere.
 """
 from repro_torch.configs.base import ModelConfig, dense_pattern
 

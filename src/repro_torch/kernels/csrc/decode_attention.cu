@@ -6,8 +6,8 @@
 // ring through VMEM on a sequential (B, K, C / bk) grid and masks each
 // slot by the token it holds.
 //
-//   q          [B, K, G, HD]   float or bf16 (HD in {32, 64, 128, 256},
-//                              G <= 16)
+//   q          [B, K, G, HD]   float or bf16 (HD in {32, 64, 128, 192,
+//                              256}, G <= 16)
 //   k/v        [B, C, K, HD]   same type as q, or int8 with f32 sidecars
 //   k/z/v scale[B, C, K]       int8 only: K = (q + 128) * s + z, V = q * s
 //   tok        [B, C] int32    absolute token held by each slot, -1 = empty
@@ -93,6 +93,7 @@ cudaError_t by_head_dim(int hd, const paged::Args& a, const paged::Ring& w,
     case 32: return by_rows<TQ, TKV, 32>(a, w, part, stream);
     case 64: return by_rows<TQ, TKV, 64>(a, w, part, stream);
     case 128: return by_rows<TQ, TKV, 128>(a, w, part, stream);
+    case 192: return by_rows<TQ, TKV, 192>(a, w, part, stream);
     case 256: return by_rows<TQ, TKV, 256>(a, w, part, stream);
     default: return cudaErrorInvalidValue;
   }

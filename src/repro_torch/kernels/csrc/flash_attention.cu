@@ -7,7 +7,8 @@
 // the window's start and the diagonal through VMEM with an online softmax.
 //
 //   q        [B, H, S, HD]   float or bf16 (H = K * G, HD in {32, 64, 128,
-//                            256})
+//                            192, 256}; the backward, flash_attention_bwd.cu,
+//                            takes 32, 64, 128 and 256)
 //   k/v      [B, K, S, HD]   same type as q
 //   lengths  [B] int32       optional: token t is attendable iff t < len
 //   out      [B, H, S, HD]   type of q
@@ -81,6 +82,7 @@ cudaError_t by_head_dim_tf32(int hd, const flash_tf32::Args& a,
     case 32: return launch_tf32<32>(a, stream);
     case 64: return launch_tf32<64>(a, stream);
     case 128: return launch_tf32<128>(a, stream);
+    case 192: return launch_tf32<192>(a, stream);
     case 256: return launch_tf32<256>(a, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -108,6 +110,7 @@ cudaError_t by_head_dim_tc(int hd, const flash_tc::Args& a,
     case 32: return launch_tc<32>(a, stream);
     case 64: return launch_tc<64>(a, stream);
     case 128: return launch_tc<128>(a, stream);
+    case 192: return launch_tc<192>(a, stream);
     case 256: return launch_tc<256>(a, stream);
     default: return cudaErrorInvalidValue;
   }

@@ -82,7 +82,8 @@ struct Args {
                            // ways (0: none)
 };
 
-// Keys of a tile: 64, and 32 at HD 256 (two blocks fit an SM).
+// Keys of a tile: 64, and 32 at HD 256 (two blocks fit an SM); at HD 192
+// two stages of 64 and 128 query rows take 144 KB.
 template <int HD>
 __host__ __device__ constexpr int key_tile() { return HD == 256 ? 32 : 64; }
 

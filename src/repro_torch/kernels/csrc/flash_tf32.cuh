@@ -659,8 +659,9 @@ __device__ __forceinline__ auto key_rows(const float* base, int n, int len) {
 
 // Warpgroups of a block (sharing its key tiles), keys of a tile and
 // stages, so that Q hi / lo and the stages of K and V^T hi / lo fit 227
-// KB: 192 KB at HD 128 and 256 (one block an SM), 96 KB at HD 32 and 64
-// (two); scripts/flash_f32_variants.py times the other values at HD 64.
+// KB: 192 KB at HD 128, 192 and 256 (one block an SM), 96 KB at HD 32 and
+// 64 (two); scripts/flash_f32_variants.py times the other values at HD 64.
+// At HD 192, 32 keys would take 288 KB and 16 take 192 KB: 16.
 constexpr int kFwdGroups64 = 2;
 constexpr int kFwdKeys64 = 64;
 constexpr int kFwdStages64 = 2;
@@ -670,7 +671,11 @@ __host__ __device__ constexpr int fwd_groups() {
 }
 template <int HD>
 __host__ __device__ constexpr int fwd_keys() {
-  return HD == 32 ? 64 : HD == 64 ? kFwdKeys64 : HD == 128 ? 32 : 8;
+  return HD == 32    ? 64
+         : HD == 64  ? kFwdKeys64
+         : HD == 128 ? 32
+         : HD == 192 ? 16
+                     : 8;
 }
 template <int HD>
 __host__ __device__ constexpr int fwd_stages() {

@@ -13,7 +13,7 @@
 // loads in flight.
 //
 // The walk goes in stages of S = 4096 / HD slots (64 at HD = 64), but at
-// least 32 (32 at HD = 128 and 256), whatever the page size.  Each thread
+// least 32 (32 at HD = 128, 192 and 256), whatever the page size.  Each thread
 // loads its share of a stage's K and V rows as 16-byte vectors into
 // registers one stage ahead, so the device memory reads of stage n + 1 are
 // in flight while stage n is computed, then dequantizes them (int8 caches)
@@ -75,9 +75,13 @@ struct Args {
 };
 
 // Slots of one stage: 4096 / HD, but at least one slot a lane when
-// scoring (HD = 256: 32 slots, 8192 elements).
+// scoring (HD = 192 and 256: 32 slots, 6144 and 8192 elements).
 __host__ __device__ constexpr int stage_slots(int HD) {
   return kStageElems / HD > 32 ? kStageElems / HD : 32;
+}
+
+__host__ __device__ constexpr int gcd(int a, int b) {
+  return b == 0 ? a : gcd(b, a % b);
 }
 
 // Dynamic shared memory of a block of TR rows with a walk table of NT
@@ -491,28 +495,62 @@ __device__ void attend_rows(const Args& a, Walk w, int b, int h, int row0,
 
     // acc = acc * corr + p . V over the stage's slots that exist.
     const int n = (min(S, t_last - t0 + 1) + 3) & ~3;
-    // Slot-outer: a thread's accumulators share one column d (CH
-    // divides kThreads), so each V vector is read once for all its rows.
-    static_assert(kThreads % CH == 0, "one column a thread");
-    const int d = (tid % CH) * 4;
-#pragma unroll
-    for (int k = 0; k < NC; ++k) {
-      const float corr = c_s[min((tid + k * kThreads) / CH, TR - 1)];
-      acc[k].x *= corr;
-      acc[k].y *= corr;
-      acc[k].z *= corr;
-      acc[k].w *= corr;
-    }
-    for (int t = 0; t < n; ++t) {
-      const float4 v4 = *reinterpret_cast<const float4*>(v_s + t * HD + d);
+    if constexpr (kThreads % CH == 0) {
+      // Slot-outer: a thread's accumulators share one column d (CH
+      // divides kThreads), so each V vector is read once for all its rows.
+      const int d = (tid % CH) * 4;
 #pragma unroll
       for (int k = 0; k < NC; ++k) {
-        const int rl = min((tid + k * kThreads) / CH, TR - 1);
-        const float pe = p_s[rl * S + t];
-        acc[k].x = fmaf(pe, v4.x, acc[k].x);
-        acc[k].y = fmaf(pe, v4.y, acc[k].y);
-        acc[k].z = fmaf(pe, v4.z, acc[k].z);
-        acc[k].w = fmaf(pe, v4.w, acc[k].w);
+        const float corr = c_s[min((tid + k * kThreads) / CH, TR - 1)];
+        acc[k].x *= corr;
+        acc[k].y *= corr;
+        acc[k].z *= corr;
+        acc[k].w *= corr;
+      }
+      for (int t = 0; t < n; ++t) {
+        const float4 v4 = *reinterpret_cast<const float4*>(v_s + t * HD + d);
+#pragma unroll
+        for (int k = 0; k < NC; ++k) {
+          const int rl = min((tid + k * kThreads) / CH, TR - 1);
+          const float pe = p_s[rl * S + t];
+          acc[k].x = fmaf(pe, v4.x, acc[k].x);
+          acc[k].y = fmaf(pe, v4.y, acc[k].y);
+          acc[k].z = fmaf(pe, v4.z, acc[k].z);
+          acc[k].w = fmaf(pe, v4.w, acc[k].w);
+        }
+      }
+    } else {
+      // HD = 192: CH = 48 columns do not divide the 128 threads, so the
+      // column of accumulator k, (tid + k * kThreads) % CH, cycles through
+      // NCOL = CH / gcd(kThreads, CH) columns (3): the thread reads those
+      // NCOL V vectors a slot, each once for all its rows.
+      constexpr int NCOL = CH / gcd(kThreads, CH);
+      int d[NCOL];
+#pragma unroll
+      for (int j = 0; j < NCOL; ++j) d[j] = (tid + j * kThreads) % CH * 4;
+#pragma unroll
+      for (int k = 0; k < NC; ++k) {
+        const float corr = c_s[min((tid + k * kThreads) / CH, TR - 1)];
+        acc[k].x *= corr;
+        acc[k].y *= corr;
+        acc[k].z *= corr;
+        acc[k].w *= corr;
+      }
+      for (int t = 0; t < n; ++t) {
+        float4 v4[NCOL];
+#pragma unroll
+        for (int j = 0; j < NCOL; ++j)
+          v4[j] = *reinterpret_cast<const float4*>(v_s + t * HD + d[j]);
+#pragma unroll
+        for (int k = 0; k < NC; ++k) {
+          const int rl = min((tid + k * kThreads) / CH, TR - 1);
+          const float pe = p_s[rl * S + t];
+          const float4 v = v4[k % NCOL];
+          acc[k].x = fmaf(pe, v.x, acc[k].x);
+          acc[k].y = fmaf(pe, v.y, acc[k].y);
+          acc[k].z = fmaf(pe, v.z, acc[k].z);
+          acc[k].w = fmaf(pe, v.w, acc[k].w);
+        }
       }
     }
     __syncthreads();  // the next stage overwrites k_s, v_s, p_s and c_s

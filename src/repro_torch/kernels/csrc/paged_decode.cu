@@ -5,8 +5,8 @@
 // (paged_decode_attention, body _paged_kernel), which walks the page table
 // through scalar prefetch on a sequential (B, K, NP) grid.
 //
-//   q          [B, K, G, HD]   float or bf16 (HD in {32, 64, 128, 256},
-//                              G <= 16)
+//   q          [B, K, G, HD]   float or bf16 (HD in {32, 64, 128, 192,
+//                              256}, G <= 16)
 //   k/v pool   [P, ps, K, HD]  same type as q, or int8 with f32 sidecars
 //   k/z/v scale[P, ps, K]      int8 only: K = (q + 128) * s + z, V = q * s
 //   page_table [B, NP] int32   -1 = unmapped
@@ -99,6 +99,7 @@ cudaError_t by_head_dim(int hd, const paged::Args& a, const paged::Pages& w,
     case 32: return by_rows<TQ, TKV, 32>(a, w, part, stream);
     case 64: return by_rows<TQ, TKV, 64>(a, w, part, stream);
     case 128: return by_rows<TQ, TKV, 128>(a, w, part, stream);
+    case 192: return by_rows<TQ, TKV, 192>(a, w, part, stream);
     case 256: return by_rows<TQ, TKV, 256>(a, w, part, stream);
     default: return cudaErrorInvalidValue;
   }

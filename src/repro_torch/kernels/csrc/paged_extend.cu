@@ -6,7 +6,8 @@
 // rows of a (b, kv head) resident in VMEM while pages stream through a
 // sequential grid axis.
 //
-//   q          [B, Sx, K, G, HD] float or bf16 (HD in {32, 64, 128, 256})
+//   q          [B, Sx, K, G, HD] float or bf16 (HD in {32, 64, 128, 192,
+//                                256})
 //   k/v pool   [P, ps, K, HD]    same type as q, or int8 with f32 sidecars
 //   k/z/v scale[P, ps, K]        int8 only: K = (q + 128) * s + z, V = q * s
 //   page_table [B, NP] int32     -1 = unmapped
@@ -43,8 +44,8 @@
 //   stored as bf16 in the same layout.  Unmapped slots and slots past the
 //   segment are zeros and masked.
 // * float32 q (dtypes 0 and 2) keeps the fp32 staged walk of
-//   paged_common.cuh on tiles of 1024 / HD rows (16 at HD 256): the 1e-4
-//   checks need fp32 arithmetic, and the walk is bound by bytes.
+//   paged_common.cuh on tiles of 1024 / HD rows (16 at HD 192 and 256):
+//   the 1e-4 checks need fp32 arithmetic, and the walk is bound by bytes.
 // * Both split each tile's attendable range [max(0, pos0 + first lane -
 //   window + 1), pos0 + last lane] into ``splits`` segments of whole key
 //   tiles or stages (cuda_lib.paged_splits: about two blocks per SM over
@@ -64,10 +65,11 @@ namespace tc = flash_tc;
 
 // ------------------------------------------- float32 q: the staged walk
 
-// Rows of a tile: 1024 / HD (8 accumulators per thread), and 16 at HD = 256
-// (32 accumulators per thread).
+// Rows of a tile: 1024 / HD (8 accumulators per thread), and 16 at HD = 192
+// and 256 (24 and 32 accumulators per thread; 1024 / 192 rows would not
+// split over the 4 warps).
 template <int HD>
-constexpr int kRows = HD == 256 ? 16 : 1024 / HD;
+constexpr int kRows = HD == 256 || HD == 192 ? 16 : 1024 / HD;
 
 template <typename TKV, int HD>
 __global__ void __launch_bounds__(paged::kThreads)
@@ -381,6 +383,7 @@ extern "C" int paged_extend(int dtype, const void* q, const void* kp,
     case 32: return by_dtype<32>(dtype, a, w, p, st);
     case 64: return by_dtype<64>(dtype, a, w, p, st);
     case 128: return by_dtype<128>(dtype, a, w, p, st);
+    case 192: return by_dtype<192>(dtype, a, w, p, st);
     case 256: return by_dtype<256>(dtype, a, w, p, st);
     default: return cudaErrorInvalidValue;
   }

@@ -172,7 +172,10 @@ DTYPE_CODES = {
     (torch.float32, torch.int8): 2,
     (torch.bfloat16, torch.int8): 3,
 }
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 128, 192, 256)     # the forward kernels
+# the flash backward (``flash_attention_bwd.cu``): hd 192 is not built there
+# yet (ROADMAP B3, 3b at hd 192)
+BWD_HEAD_DIMS = (32, 64, 128, 256)
 MAX_SMEM_BYTES = 232448                 # opt-in shared memory of a block
 
 
@@ -256,11 +259,11 @@ def key_tile(hd: int) -> int:
 def extend_rows(hd: int, rows: int, code: int) -> int:
     """Query rows of a paged-extend block for ``rows`` = Sx * G rows of a
     (request, kv head): bf16 q (``TC_CODES``) 64 (one warpgroup) up to 64
-    rows and 128 (two) above; float32 q 1024 / hd, 16 at hd 256
-    (``paged_extend.cu``)."""
+    rows and 128 (two) above; float32 q 1024 / hd, 16 at hd 192 and 256
+    (``paged_extend.cu``'s ``kRows``)."""
     if code in TC_CODES:
         return TC_ROWS if rows <= TC_ROWS else 2 * TC_ROWS
-    return 16 if hd == 256 else 1024 // hd
+    return 16 if hd in (192, 256) else 1024 // hd
 
 
 def smem_bytes(hd: int, rows: int, n_table: int) -> int:

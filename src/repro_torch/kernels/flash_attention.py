@@ -38,6 +38,9 @@ which the backward takes P from in both dtypes (on the tensor cores: a
 dk/dv kernel a key tile and head group, a dq kernel a query tile; float32
 as 3xTF32 products).  Without a gradient the call is the bare launch with
 no lse, so serving steps and their CUDA-graph captures are unchanged.
+The forward takes head dims 32, 64, 128, 192 and 256, the backward all
+but 192 (``cuda_lib.BWD_HEAD_DIMS``): a CUDA call at hd 192 that needs a
+gradient raises ValueError before it launches anything.
 """
 from __future__ import annotations
 
@@ -85,6 +88,17 @@ def _check(q, k, v, lengths, window, prefix_len=0, extra=()) -> int:
     return code
 
 
+def _check_bwd_head_dim(hd: int) -> None:
+    """ValueError for a head dim the backward kernel is not built for, so
+    that a call that needs a gradient is refused at its forward."""
+    if hd not in cuda_lib.BWD_HEAD_DIMS:
+        raise ValueError(
+            f"the flash backward kernel takes head_dim in "
+            f"{cuda_lib.BWD_HEAD_DIMS}, not {hd} (ROADMAP B3: 3b at hd "
+            "192); call flash_attention under torch.no_grad(), or train on "
+            "the CPU, where autograd differentiates its plain version")
+
+
 def _check_prefix(prefix_len: int, S: int) -> None:
     if not 0 <= prefix_len <= S:
         raise ValueError(f"prefix_len must lie in [0, S = {S}], got "
@@ -126,6 +140,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                        lengths=lengths, prefix_len=prefix_len)
     code = _check(q, k, v, lengths, window, prefix_len, extra=(o, do))
     B, H, S, hd = q.shape
+    _check_bwd_head_dim(hd)
     K = k.shape[1]
     if lse is None:
         raise ValueError("the flash backward takes the forward's lse "
@@ -184,5 +199,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      prefix_len=prefix_len)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
+        _check_bwd_head_dim(q.shape[-1])
         return _FlashAttention.apply(q, k, v, window, lengths, prefix_len)
     return _launch(q, k, v, window, lengths, prefix_len=prefix_len)[0]

@@ -86,7 +86,7 @@ def _inputs(dev, act, quant, B=3, Sx=6, K=2, G=3, hd=64, ps=16, NP=8,
 @pytest.mark.parametrize("mode", ["float32", "bfloat16", "int8",
                                   "int8+bf16"])
 @pytest.mark.parametrize("window", [None, 48])
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128, 192])
 @pytest.mark.parametrize("ps,NP", [(16, 8), (5, 40)])
 def test_kernels_match_plain(dev, mode, window, hd, ps, NP):
     """Page size 5 divides no stage width, so pages straddle stages."""
@@ -484,6 +484,33 @@ def test_engine_on_card_serves_recurrent_models(dev, arch, kernels):
     eng.pool.check()
 
 
+@pytest.mark.parametrize("mode", ["float32", "bfloat16", "int8",
+                                  "int8+bf16"])
+@pytest.mark.parametrize("window", [None, 48])
+@pytest.mark.parametrize("Sx", [5, 32])
+def test_kernels_match_plain_gqa_hd192(dev, mode, window, Sx):
+    """nemotron-4-340b's attention: K 8, G 12, hd 192 (the staged walk's
+    three V columns a thread; 16-row fp32 extend tiles; bf16 extend on one
+    warpgroup at Sx 5, 60 rows, and two at Sx 32, 384 rows)."""
+    act = torch.bfloat16 if "bf" in mode else torch.float32
+    quant = mode.startswith("int8")
+    tol = 2e-2 if act == torch.bfloat16 else 1e-4
+    cuda, sc, f32, sc_cpu = _inputs(dev, act, quant, B=3, Sx=Sx, K=8, G=12,
+                                    hd=192, ps=16, NP=24, seed=Sx)
+    q, kp, vp, pt, pos0 = cuda
+    fq, fkp, fvp, fpt, fpos = f32
+    got = ops.paged_extend_attention(q, kp, vp, pt, pos0, window=window,
+                                     **sc)
+    want = ref.paged_extend_attention_ref(fq, fkp, fvp, fpt, fpos,
+                                          window=window, **sc_cpu)
+    torch.testing.assert_close(got.float().cpu(), want, atol=tol, rtol=0)
+    got = ops.paged_decode_attention(q[:, 0].contiguous(), kp, vp, pt, pos0,
+                                     window=window, **sc)
+    want = ref.paged_decode_attention_ref(fq[:, 0], fkp, fvp, fpt, fpos,
+                                          window=window, **sc_cpu)
+    torch.testing.assert_close(got.float().cpu(), want, atol=tol, rtol=0)
+
+
 # ------------------------------------------------- ring decode and flash
 
 def _ring_inputs(act, quant, B, K, G, hd, C, seed):
@@ -521,10 +548,12 @@ def _f32(t):
 @pytest.mark.parametrize("B,K,G,hd,C", [(8, 4, 3, 64, 2048),
                                         (8, 1, 16, 256, 2048),
                                         (3, 2, 5, 32, 300),
-                                        (2, 2, 8, 128, 130)])
+                                        (2, 2, 8, 128, 130),
+                                        (8, 8, 12, 192, 2048),
+                                        (3, 1, 5, 192, 300)])
 def test_ring_decode_matches_plain(dev, mode, window, B, K, G, hd, C):
-    """reflect_demo_100m's and recurrentgemma-9b's decode shapes and two
-    ragged rings (C not a multiple of a stage)."""
+    """reflect_demo_100m's, recurrentgemma-9b's and nemotron-4-340b's
+    decode shapes and three ragged rings (C not a multiple of a stage)."""
     act = torch.bfloat16 if "bf" in mode else torch.float32
     tol = 2e-2 if act == torch.bfloat16 else 1e-4
     q, k, v, tok, pos, sc = _ring_inputs(act, mode.startswith("int8"), B, K,
@@ -552,7 +581,9 @@ def _flash_inputs(act, B, H, K, S, hd, seed):
     (4, 16, 1, 4096, 256, 2048, False),  # recurrentgemma-9b's prefill
     (3, 12, 4, 1000, 64, None, True),    # ragged S and lengths
     (2, 4, 2, 77, 32, 16, True),
-    (2, 8, 2, 300, 128, None, False)])
+    (2, 8, 2, 300, 128, None, False),
+    (2, 24, 2, 1000, 192, None, True),   # nemotron-4-340b's G 12, hd 192
+    (2, 12, 1, 300, 192, 48, False)])
 def test_flash_matches_plain(dev, act, B, H, K, S, hd, window, ragged):
     tol = 2e-2 if act == torch.bfloat16 else 1e-4
     q, k, v = _flash_inputs(act, B, H, K, S, hd, seed=S + hd)
@@ -576,6 +607,7 @@ def test_flash_matches_plain(dev, act, B, H, K, S, hd, window, ragged):
     (2, 6, 2, 65, 64, 48, [65, 33]),
     (1, 16, 1, 65, 256, 2048, None),
     (2, 12, 4, 2048, 32, 2048, None),
+    (2, 12, 1, 65, 192, 48, [65, 33]),      # hd 192, G 12
 ])
 def test_flash_bf16_tensor_core_edges(dev, B, H, K, S, hd, window, lengths):
     """The bf16 tensor-core body at ragged S (not a multiple of the 64-row
@@ -1431,6 +1463,58 @@ def test_flash_fp32_tensor_core_bodies(dev, hd, P):
             1e-4 * max(float(w.abs().max()), 1.0)
         assert torch.equal(x, y)
         assert not x[1].any()
+
+
+@pytest.mark.parametrize("P", [0, 300, 600])
+@pytest.mark.parametrize("act", [torch.float32, torch.bfloat16])
+def test_flash_hd192_forward(dev, act, P):
+    """Both forward bodies at hd 192 (the backward is not built there:
+    ROADMAP B3), with a window, ragged lengths, an empty row and a prefix
+    of 0, 300 and S: the output and its lse against the plain versions
+    (1e-4 in float32, 2e-2 in bfloat16; lse 1e-3), the same bits on a
+    second call, zeros for the empty row."""
+    from repro_torch.kernels import flash_attention as FA
+    B, H, K, S, window, lengths = 3, 12, 1, 600, 200, [600, 0, 450]
+    q, k, v = (t.to(dev) for t in _flash_inputs(act, B, H, K, S, 192,
+                                                 seed=192 + P))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    kw = dict(window=window, lengths=lens, prefix_len=P)
+    o, lse = FA._launch(q, k, v, window, lens, with_lse=True, prefix_len=P)
+    again = ops.flash_attention(q, k, v, **kw)
+    want, want_lse = ref.flash_attention_ref(
+        *(t.float() for t in (q, k, v)), return_lse=True, **kw)
+    tol = 2e-2 if act == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(o.float(), want, atol=tol,
+                               rtol=0 if act == torch.bfloat16 else tol)
+    assert torch.equal(o, again)
+    assert torch.equal(torch.isinf(lse), torch.isinf(want_lse))
+    fin = torch.isfinite(want_lse)
+    assert float((lse[fin] - want_lse[fin]).abs().max()) <= 1e-3
+    assert not o[1].any()
+
+
+def test_flash_autograd_refuses_hd192_under_grad(dev):
+    """hd 192 has no backward kernel yet (ROADMAP B3): a call that needs a
+    gradient raises ValueError at the forward and launches nothing, on the
+    autograd path and on ``flash_attention_bwd``; without a gradient the
+    forward launches."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    q, k, v = (t.to(dev) for t in _flash_inputs(torch.bfloat16, 2, 12, 1,
+                                                 64, 192, seed=4))
+    qa = q.clone().requires_grad_(True)
+    cuda_lib.reset_launches()
+    with pytest.raises(ValueError, match="3b at hd 192"):
+        ops.flash_attention(qa, k, v)
+    o = torch.zeros_like(q)
+    with pytest.raises(ValueError, match="3b at hd 192"):
+        flash_attention_bwd(q, k, v, o, o,
+                            lse=torch.zeros(2, 12, 64, device=dev))
+    assert sum(cuda_lib.LAUNCHES.values()) == 0
+    with torch.no_grad():
+        out = ops.flash_attention(qa, k, v)
+    assert out.grad_fn is None
+    assert cuda_lib.LAUNCHES["flash_attention"] == 1
 
 
 def test_flash_autograd_on_card_launches_the_backward(dev):
